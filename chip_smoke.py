@@ -7,11 +7,11 @@ Run from the root of a checkout on a machine with one CUDA card:
 It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
 (sm_90a), then:
 
-1. holds each kernel against its plain PyTorch version on the same CUDA
-   tensors at the shapes of the two-view path, and times kernel, plain
-   version and (where one exists) the single PyTorch call that computes the
-   same function: device time of the wrapper's calls summed by
-   torch.profiler;
+1. holds each kernel of the two-view path against its plain PyTorch
+   version on the same CUDA tensors at the path's shapes, and times
+   kernel, plain version and (where one exists) the single PyTorch call
+   that computes the same function: device time of the wrapper's calls
+   summed by torch.profiler;
 2. drives ``two_view_pose`` on the benchmark's input (a blurred random
    480x640 image and its 4 px shift, 1024 features) on the card, with every
    launch counter reset just before and read just after, checks the pose,
@@ -19,11 +19,23 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    (with ``--profile-out DIR``, the profiler's table goes to
    DIR/twoview_profile.txt);
 3. runs the port at 256x256 with 512 features on the card and on the CPU
-   with the same injected RANSAC noise and compares the results.
+   with the same injected RANSAC noise and compares the results;
+4. train: five Adam steps (lr 1e-2) on the SSIM loss at (8, 3, 480, 640),
+   then one backward of the squared DoG levels through ScalePyramid at
+   480x640, counting the blur adjoints' launches; the card's gradients
+   against the CPU's, each adjoint kernel against its plain adjoint;
+5. match: the streaming SMNN matcher on two 8192x128 descriptor sets, its
+   peak memory, its result against the dense matcher on the card, and the
+   streaming kernel against its plain version;
+6. fast_patches: ``two_view_pose`` with ``SIFTFeature(fast_patches=True)``
+   (bf16 patch sampling), the pose check of step 2, and the bf16 kernel
+   against its plain version and against the exact kernel.
 
-Every failure exits non-zero. The last lines are one JSON object with the
-kernels' numbers and ``{"ok": true, "device": {...}}``. Without a CUDA
-device it exits 2 before printing any result.
+Each of steps 2, 4, 5 and 6 resets the launch counters just before it
+drives its path and reads them just after; every kernel must have
+launched on its path. Every failure exits non-zero. The last lines are one
+JSON object with the kernels' numbers and ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 2 before printing any result.
 """
 
 from __future__ import annotations
@@ -46,8 +58,16 @@ H100_F32_FLOPS = 67e12
 
 BLUR_ATOL = 1e-5   # [0, 1] images; f32 sums in another order and with FMA
 PATCH_ATOL = 1e-5  # four-tap bilinear; FMA contraction only
+BF16_ATOL = 1e-6   # bf16 kernel vs its plain version: the same roundings
+BF16_VS_EXACT = 4e-3  # bf16 keeps 8 bits of the weights and the texels
+GRAD_RTOL = 1e-4   # card vs CPU gradients, relative to the largest
+MATCH_ATOL = 1e-5  # distances (at most 2 for unit rows) and ratios
+TIE_RTOL = 1e-5    # rows whose two nearest lie this close may swap them
+FAST_AGREE = 0.9   # share of matches that bf16 patches leave unchanged
 H, W, NF = 480, 640, 1024  # bench.py's main two-view configuration
 XH, XW, XNF = 256, 256, 512  # bench.py's second configuration
+TRAIN_SHAPE, TRAIN_STEPS = (8, 3, 480, 640), 5
+MATCH_N, MATCH_D = 8192, 128  # exhaustive SfM-style matching
 SEED = 0
 
 
@@ -185,6 +205,13 @@ def kernel_phase(K, filters, dev) -> dict:
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=library_ms, tol=PATCH_ATOL)
 
+    report(results)
+    return results
+
+
+def report(results: dict) -> None:
+    """Print each kernel's numbers; fail where one disagrees with its plain
+    version."""
     for name, r in results.items():
         if not r["max_abs_err"] <= r["tol"]:
             fail(f"{name} disagrees with its plain version: max abs err "
@@ -193,7 +220,6 @@ def kernel_phase(K, filters, dev) -> dict:
               f"(tol {r['tol']:.0e}) ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
               f"({r['bound_by']}) library_ms {r['library_ms']}")
-    return results
 
 
 def bench_input(h: int, w: int, dev):
@@ -214,6 +240,30 @@ def bench_input(h: int, w: int, dev):
 def angle_of_rotation(R: torch.Tensor) -> float:
     c = (torch.trace(R.double()).item() - 1.0) / 2.0
     return math.acos(max(-1.0, min(1.0, c)))
+
+
+def check_pose(res, what: str, planar_twin: bool = False):
+    """bench.py's input is a pure x shift: R within 1 deg of I and
+    |t_x| > 0.9. Its scene is one fronto-parallel plane, so the essential
+    matrix has a second decomposition that explains every match exactly as
+    well: t along the optical axis and a rotation of about 4 px / f = 0.45
+    deg. With `planar_twin`, |t_z| > 0.99 (and R within 1 deg of I) passes
+    too."""
+    rot = math.degrees(angle_of_rotation(res.R))
+    t = res.t.reshape(-1).cpu()
+    n_inl = int(res.num_inliers)
+    print(f"{what}: rotation {rot:.4f} deg, t {t.tolist()}, inliers "
+          f"{n_inl}, valid matches {int(res.inliers.numel())}")
+    if not (torch.isfinite(res.R).all() and torch.isfinite(res.t).all()):
+        fail(f"{what}: non-finite pose")
+    if not rot < 1.0:
+        fail(f"{what}: rotation {rot} deg is not within 1 deg of identity")
+    if planar_twin and abs(float(t[2])) > 0.99:
+        print(f"{what}: the plane's twin decomposition (t along the optical "
+              f"axis) was chosen")
+    elif not abs(float(t[0])) > 0.9:
+        fail(f"{what}: |t_x| = {abs(float(t[0]))} <= 0.9 for a pure x shift")
+    return rot, t, n_inl
 
 
 def main_path(K, dev, profile_out) -> dict:
@@ -240,17 +290,7 @@ def main_path(K, dev, profile_out) -> dict:
                  "patch_sample"):
         if launches.get(name, 0) <= 0:
             fail(f"main path never launched kernel {name}")
-    rot = math.degrees(angle_of_rotation(res.R))
-    t = res.t.reshape(-1).cpu()
-    n_inl = int(res.num_inliers)
-    print(f"pose: rotation {rot:.4f} deg, t {t.tolist()}, inliers {n_inl}, "
-          f"valid matches {int(res.inliers.numel())}")
-    if not (torch.isfinite(res.R).all() and torch.isfinite(res.t).all()):
-        fail("non-finite pose")
-    if not rot < 1.0:
-        fail(f"rotation {rot} deg is not within 1 deg of identity")
-    if not abs(float(t[0])) > 0.9:
-        fail(f"|t_x| = {abs(float(t[0]))} <= 0.9 for a pure x shift")
+    rot, t, n_inl = check_pose(res, "pose")
 
     # pairs: host clock around synchronised calls
     times = []
@@ -364,6 +404,319 @@ def cross_check(K, dev) -> None:
         fail("card and CPU runs of the port disagree")
 
 
+def grad_diff(card: torch.Tensor, cpu: torch.Tensor, what: str) -> float:
+    """Card gradient against the CPU gradient of the same step; fails
+    beyond 1e-4 of the largest CPU gradient."""
+    diff = (card.cpu() - cpu).abs().max().item()
+    scale = cpu.abs().max().item()
+    print(f"{what}: card vs CPU gradient max abs diff {diff:.3e} "
+          f"(max |g| {scale:.3e})")
+    if not diff <= GRAD_RTOL * scale:
+        fail(f"{what}: card gradient differs from the CPU's by {diff} > "
+             f"{GRAD_RTOL} * {scale}")
+    return diff
+
+
+def train_phase(K, dev) -> dict:
+    """Training through the blurs: Adam on the SSIM loss at (8, 3, 480, 640)
+    and the squared DoG levels of ScalePyramid at 480x640, backward through
+    the fused and multi-level adjoint kernels."""
+    from kornia_tpu_torch.losses.losses import ssim_loss
+    from kornia_tpu_torch.ops.filters import get_gaussian_kernel1d
+    from kornia_tpu_torch.ops.pyramid import ScalePyramid
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    target = torch.rand(TRAIN_SHAPE, device=dev, generator=gen)
+    init = target + 0.1 * torch.randn(TRAIN_SHAPE, device=dev, generator=gen)
+    base = torch.rand((1, 1, H, W), device=dev, generator=gen)
+
+    def dog_energy(x):
+        octaves = ScalePyramid(3, 1.6, 32)(x)[0]
+        return sum(((o[:, 1:] - o[:, :-1]) ** 2).sum() for o in octaves), \
+            octaves
+
+    # the path: five Adam steps, then one pyramid backward
+    pred = init.clone().requires_grad_()
+    opt = torch.optim.Adam([pred], lr=1e-2)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = ssim_loss(pred, target)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    ssim_launches = dict(K.launches)
+    if loss.grad_fn is None:
+        fail("ssim_loss on the card has no grad_fn")
+    x = base.clone().requires_grad_()
+    K.reset_launches()
+    energy, octaves = dog_energy(x)
+    energy.backward()
+    torch.cuda.synchronize()
+    pyr_launches = dict(K.launches)
+    if octaves[0].grad_fn is None:
+        fail("ScalePyramid on the card has no grad_fn")
+    per_step = {k: v / TRAIN_STEPS for k, v in ssim_launches.items()}
+    print(f"train: SSIM loss per step {losses}, ms per step (host clock, "
+          f"synchronised) {[round(v, 3) for v in step_ms]}, launches per "
+          f"step {per_step}")
+    print(f"train: ScalePyramid(3, 1.6, 32) 480x640 DoG energy backward, "
+          f"{len(octaves)} octaves, launches {pyr_launches}")
+    if any(b > a for a, b in zip(losses, losses[1:])):
+        fail(f"SSIM loss increased under Adam: {losses}")
+    expect = {"fused_separable_blur2d": 5, "fused_separable_blur2d_adjoint": 3}
+    for name, n in expect.items():
+        if per_step.get(name) != n:
+            fail(f"SSIM step launched {name} {per_step.get(name)} times, "
+                 f"expected {n}")
+    if pyr_launches.get("multi_level_blur_adjoint") != len(octaves) or \
+            pyr_launches.get("fused_separable_blur2d_adjoint") != 1:
+        fail(f"pyramid backward launches {pyr_launches}")
+    launches = {k: ssim_launches.get(k, 0) + pyr_launches.get(k, 0)
+                for k in set(ssim_launches) | set(pyr_launches)}
+
+    # the card's gradients against the CPU's, on the same inputs
+    pc = init.clone().requires_grad_()
+    g_card = torch.autograd.grad(ssim_loss(pc, target), pc)[0]
+    pc = init.cpu().requires_grad_()
+    g_cpu = torch.autograd.grad(ssim_loss(pc, target.cpu()), pc)[0]
+    grad_diff(g_card, g_cpu, "SSIM step")
+    x = base.clone().requires_grad_()
+    g_card = torch.autograd.grad(dog_energy(x)[0], x)[0]
+    x = base.cpu().requires_grad_()
+    g_cpu = torch.autograd.grad(dog_energy(x)[0], x)[0]
+    grad_diff(g_card, g_cpu, "ScalePyramid DoG energy")
+    try:
+        K.patch_sample(base[0, 0].clone().requires_grad_(), base[0, 0, :4],
+                       base[0, 0, :4])
+    except RuntimeError as e:
+        print(f"patch_sample refuses grad on the card: {e}")
+    else:
+        fail("patch_sample on the card accepted an input that requires grad")
+
+    results = {}
+    # --- fused adjoint: the SSIM blur (11 taps, sigma 1.5, reflect), and
+    # the first-level blur of the pyramid (15 taps, replicate)
+    k11 = get_gaussian_kernel1d(11, 1.5, device=dev).reshape(-1)
+    k15 = get_gaussian_kernel1d(15, math.sqrt(1.6 ** 2 - 0.5 ** 2),
+                                device=dev).reshape(-1)
+    g = torch.rand(TRAIN_SHAPE, device=dev, generator=gen)
+    err = 0.0
+    cases = [(g, k11, "reflect"), (base, k15, "replicate")] + [
+        (torch.rand((2, 3, 61, 83), device=dev, generator=gen), k11, b)
+        for b in ("circular", "constant")]
+    for gi, ki, border in cases:
+        out = K.fused_separable_blur2d_adjoint(gi, ki, ki, border)
+        ref = K.fused_separable_blur2d_adjoint_plain(gi, ki, ki, border)
+        err = max(err, (out - ref).abs().max().item())
+    fwd_ms = device_ms(lambda: K.fused_separable_blur2d(
+        g, k11, k11, "reflect"))
+    print(f"fused_separable_blur2d forward at {TRAIN_SHAPE}, 11 taps, "
+          f"reflect: {fwd_ms:.4f} ms")
+    ms = device_ms(lambda: K.fused_separable_blur2d_adjoint(
+        g, k11, k11, "reflect"))
+    plain_ms = device_ms(lambda: K.fused_separable_blur2d_adjoint_plain(
+        g, k11, k11, "reflect"))
+    # one read of g, one write of dx; 2 flops a tap, 11 + 11 taps
+    b_ms, b_by = bound(2 * g.numel() * 4, 2 * (11 + 11) * g.numel())
+    results["fused_separable_blur2d_adjoint"] = dict(
+        source="kornia_tpu_torch/csrc/banded_blur.cu",
+        replaces="kornia_tpu/ops/pallas_kernels.py:216",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+
+    # --- multi-level adjoint: every octave of the 480x640 pyramid
+    kers, _ = ScalePyramid()._level_kernels(1.6)
+    L = len(kers)
+    err = 0.0
+    for i in range(4):
+        gl = torch.rand((L, 1, 1, H >> i, W >> i), device=dev, generator=gen)
+        out = K.multi_level_blur_adjoint(gl, kers, kers)
+        ref = K.multi_level_blur_adjoint_plain(gl, kers, kers)
+        err = max(err, (out - ref).abs().max().item())
+    gl = torch.rand((L, 1, 1, H, W), device=dev, generator=gen)
+    ms = device_ms(lambda: K.multi_level_blur_adjoint(gl, kers, kers))
+    plain_ms = device_ms(lambda: K.multi_level_blur_adjoint_plain(
+        gl, kers, kers))
+    taps = K._adjoint_band_tables_cached(K._values(kers), H, "replicate",
+                                         str(dev))[2]
+    band_taps = sum(taps) + sum(K._adjoint_band_tables_cached(
+        K._values(kers), W, "replicate", str(dev))[2])
+    chain_taps = 2 * sum(k.numel() for k in kers)
+    # one read of each of the L gradients, one write of dx; the least work
+    # is the sequential chain's adjoint, 2 flops a tap
+    b_ms, b_by = bound((L + 1) * H * W * 4,
+                       2 * min(chain_taps, band_taps) * H * W)
+    results["multi_level_blur_adjoint"] = dict(
+        source="kornia_tpu_torch/csrc/banded_blur.cu",
+        replaces="kornia_tpu/ops/pallas_kernels.py:351",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+    report(results)
+    return dict(kernels=results, launches=launches, losses=losses,
+                step_ms=statistics.median(step_ms))
+
+
+def match_phase(K, dev) -> dict:
+    """The streaming SMNN matcher on 8192x128 non-negative unit-norm sets:
+    d2 holds noisy copies of d1's rows, permuted, so that matches exist."""
+    from kornia_tpu_torch.feature.matching import DescriptorMatcher
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n, d = MATCH_N, MATCH_D
+
+    def unit(t):
+        t = t.abs()
+        return t / t.norm(dim=-1, keepdim=True)
+
+    d1 = unit(torch.randn((n, d), device=dev, generator=gen))
+    perm = torch.randperm(n, device=dev, generator=gen)
+    d2 = unit(d1[perm] + 0.02 * torch.randn((n, d), device=dev,
+                                            generator=gen))
+    th = 0.95
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    K.reset_launches()
+    dist, matches, valid = DescriptorMatcher("smnn", th, streaming=True)(
+        d1, d2)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated(dev) - mem0
+    limit = n * n * 4 / 16
+    print(f"match: streaming SMNN {n}x{d}: {int(valid.sum())} valid, launches "
+          f"{launches}, peak memory growth {peak} B (limit {limit:.0f})")
+    if launches.get("streaming_min2") != 2:
+        fail(f"streaming matcher launches {launches}")
+    if not peak < limit:
+        fail(f"streaming matcher grew peak memory by {peak} B >= {limit}")
+
+    # against the dense matcher on the card, near ties left out
+    rd, rm, rv = DescriptorMatcher("smnn", th)(d1, d2)
+    f1, f2, _ = K.streaming_min2_plain(d1, d2)
+    b1, b2, _ = K.streaming_min2_plain(d2, d1)
+    near = ((f2 - f1) <= TIE_RTOL * f2) \
+        | ((b2 - b1) <= TIE_RTOL * b2)[rm[:, 1]] \
+        | ((rd[:, 0] - th).abs() <= TIE_RTOL)
+    keep = ~near
+    bad = ((matches != rm).any(-1) | (valid != rv)
+           | ((dist - rd).abs()[:, 0] > MATCH_ATOL)) & keep
+    print(f"match: against the dense matcher, {int(near.sum())} rows left "
+          f"out as near ties, {int(bad.sum())} rows differ")
+    if bad.any():
+        fail(f"streaming matcher differs from the dense matcher in "
+             f"{int(bad.sum())} rows")
+    if not int(valid.sum()) > n // 2:
+        fail(f"only {int(valid.sum())} of {n} rows matched")
+
+    # the kernel against its plain version, one direction
+    out = K.streaming_min2(d1, d2)
+    ref = K.streaming_min2_plain(d1, d2)
+    tie = (ref[1] - ref[0]) <= TIE_RTOL * ref[1]
+    err = max((out[0] - ref[0]).abs().max().item(),
+              (out[1] - ref[1]).abs().max().item())
+    if ((out[2] != ref[2]) & ~tie).any():
+        fail("streaming_min2 argmin differs from its plain version")
+    ms = device_ms(lambda: K.streaming_min2(d1, d2))
+    plain_ms = device_ms(lambda: K.streaming_min2_plain(d1, d2))
+    cublas_ms = device_ms(lambda: d1 @ d2.T)
+    stream_match_ms = device_ms(lambda: DescriptorMatcher(
+        "smnn", th, streaming=True)(d1, d2), reps=5)
+    dense_match_ms = device_ms(lambda: DescriptorMatcher("smnn", th)(d1, d2),
+                               reps=5)
+    b_ms, b_by = bound((2 * n * d + 3 * n) * 4, 2 * n * n * d)
+    print(f"match: d1 @ d2.T (cuBLAS f32, TF32 off) {cublas_ms:.4f} ms, a "
+          f"yardstick, not the same function; SMNN matcher device ms: "
+          f"streaming {stream_match_ms:.4f}, plain (dense) "
+          f"{dense_match_ms:.4f}")
+    results = {"streaming_min2": dict(
+        source="kornia_tpu_torch/csrc/streaming_min2.cu",
+        replaces="kornia_tpu/ops/pallas_kernels.py:71",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, tol=MATCH_ATOL)}
+    report(results)
+    return dict(kernels=results, launches=launches, cublas_ms=cublas_ms,
+                stream_match_ms=stream_match_ms,
+                dense_match_ms=dense_match_ms, peak_bytes=peak)
+
+
+def fast_patches_phase(K, dev) -> dict:
+    """two_view_pose with bf16 patch sampling, and the bf16 kernel at the
+    path's shapes."""
+    from kornia_tpu_torch.feature.integrated import SIFTFeature
+    from kornia_tpu_torch.slam.twoview import match_pair, two_view_pose
+
+    img0, img1, Kc = bench_input(H, W, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    feat = SIFTFeature(num_features=NF, fast_patches=True)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    res = two_view_pose(img0, img1, Kc, generator=gen, num_features=NF,
+                        feature=feat, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    print(f"fast_patches: launches per pair {launches}")
+    if launches.get("patch_sample[bf16]", 0) <= 0 or \
+            launches.get("patch_sample", 0) != 0:
+        fail(f"fast_patches pair did not sample in bf16 only: {launches}")
+    check_pose(res, "fast_patches", planar_twin=True)
+    # the matches of bf16 patches against those of exact patches
+    exact = match_pair(img0, img1, NF, device=dev)
+    fast = match_pair(img0, img1, NF, feature=feat, device=dev)
+    either = exact["valid"] | fast["valid"]
+    same = (exact["valid"] & fast["valid"]
+            & (exact["matches"] == fast["matches"]).all(-1))
+    agree = float(same.sum()) / max(float(either.sum()), 1.0)
+    print(f"fast_patches: {int(same.sum())} of {int(either.sum())} matches "
+          f"valid in either run are the same as with exact patches "
+          f"({agree:.4f}; limit {FAST_AGREE})")
+    if not agree >= FAST_AGREE:
+        fail(f"bf16 patches change {1 - agree:.4f} of the matches")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        two_view_pose(img0, img1, Kc, generator=gen, num_features=NF,
+                      feature=feat, device=dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"fast_patches: two_view_pose median {statistics.median(times):.2f}"
+          f" ms/pair, runs {[round(v, 2) for v in times]}")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    err = split_err = 0.0
+    for rows, S in ((930, 19 * 19), (900, 41 * 41)):
+        atlas = torch.rand((rows, W), device=dev, generator=gen)
+        px = torch.rand((NF, S), device=dev, generator=gen) * (W - 1)
+        py = torch.rand((NF, S), device=dev, generator=gen) * (rows - 1)
+        out = K.patch_sample(atlas, px, py, "bf16")
+        err = max(err, (out - K.patch_sample_plain(atlas, px, py, "bf16"))
+                  .abs().max().item())
+        split_err = max(split_err, (out - K.patch_sample(atlas, px, py))
+                        .abs().max().item())
+    print(f"fast_patches: bf16 kernel vs the exact kernel max abs diff "
+          f"{split_err:.3e} (limit {BF16_VS_EXACT})")
+    if not split_err <= BF16_VS_EXACT:
+        fail(f"bf16 patch kernel is {split_err} from the exact kernel")
+    ms = device_ms(lambda: K.patch_sample(atlas, px, py, "bf16"))
+    plain_ms = device_ms(lambda: K.patch_sample_plain(atlas, px, py, "bf16"))
+    b_ms, b_by = bound(atlas.numel() * 4 + 3 * px.numel() * 4,
+                       13 * px.numel())
+    results = {"patch_sample[bf16]": dict(
+        source="kornia_tpu_torch/csrc/patch_sample.cu",
+        replaces="kornia_tpu/ops/pallas_kernels.py:512",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, tol=BF16_ATOL)}
+    report(results)
+    return dict(kernels=results, launches=launches,
+                pair_ms=statistics.median(times))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -392,17 +745,36 @@ def main() -> int:
         kres = kernel_phase(K, filters, dev)
     path = main_path(K, dev, args.profile_out)
     cross_check(K, dev)
+    # each kernel's launches are those of the path that runs it
+    entries = [(name, r, path["launches"]) for name, r in kres.items()]
+    with f32_precision():
+        phases = {"train": train_phase(K, dev), "match": match_phase(K, dev),
+                  "fast_patches": fast_patches_phase(K, dev)}
+    for ph in phases.values():
+        entries += [(name, r, ph["launches"]) for name, r in
+                    ph["kernels"].items()]
+    for name, _, counts in entries:
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on its path")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": r["source"],
-         "replaces": r["replaces"], "launches": path["launches"].get(name, 0),
+         "replaces": r["replaces"], "launches": counts[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        for name, r in kres.items()]}
+        for name, r, counts in entries]}
     print(json.dumps({"card": card, "pair_ms": path["pair_ms"],
                       "stage_ms": path["stage_ms"],
                       "device_busy_ms": path["busy_ms"],
-                      "device_kernels": path["n_kernels"]}))
+                      "device_kernels": path["n_kernels"],
+                      "train_step_ms": phases["train"]["step_ms"],
+                      "train_losses": phases["train"]["losses"],
+                      "match_cublas_ms": phases["match"]["cublas_ms"],
+                      "match_streaming_ms": phases["match"]["stream_match_ms"],
+                      "match_dense_ms": phases["match"]["dense_match_ms"],
+                      "match_peak_bytes": phases["match"]["peak_bytes"],
+                      "fast_patches_pair_ms": phases["fast_patches"]["pair_ms"]
+                      }))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,14 +32,17 @@ def _gray(img: torch.Tensor) -> torch.Tensor:
 class LAFDescriptor:
     """Extract a patch per LAF and run a patch descriptor."""
 
-    def __init__(self, patch_descriptor=None, patch_size: int = 41):
+    def __init__(self, patch_descriptor=None, patch_size: int = 41,
+                 patch_mode: Optional[str] = None):
         self.descriptor = patch_descriptor or SIFTDescriptor(patch_size)
         self.patch_size = patch_size
+        self.patch_mode = patch_mode
 
     def __call__(self, img: torch.Tensor, lafs: torch.Tensor) -> torch.Tensor:
         B, N = lafs.shape[:2]
         patches = extract_patches_from_pyramid(_gray(img), lafs,
-                                               self.patch_size)
+                                               self.patch_size,
+                                               self.patch_mode)
         descs = self.descriptor(patches.reshape(B * N, *patches.shape[2:]))
         return descs.reshape(B, N, -1)
 
@@ -65,18 +68,18 @@ class LocalFeature:
 
 
 class SIFTFeature(LocalFeature):
-    """DoG + orientation + (Root)SIFT."""
+    """DoG + orientation + (Root)SIFT. ``fast_patches=True`` samples the
+    orientation and descriptor patches in the TPU kernel's bf16 mode."""
 
     def __init__(self, num_features: int = 500, rootsift: bool = True,
                  fast_patches: bool = False):
-        if fast_patches:
-            raise NotImplementedError(
-                "fast_patches (bf16 patch sampling) is not ported yet")
         detector = ScaleSpaceDetector(
             num_features, scale_pyr=ScalePyramid(3, 1.6, 32),
             minima_are_also_good=True, mr_size=6.0)
         desc = SIFTDescriptor(patch_size=41, rootsift=rootsift)
-        super().__init__(detector, LAFDescriptor(desc, 41), LAFOrienter(19))
+        pm = "bf16" if fast_patches else None
+        super().__init__(detector, LAFDescriptor(desc, 41, patch_mode=pm),
+                         LAFOrienter(19, patch_mode=pm))
 
 
 class LocalFeatureMatcher:

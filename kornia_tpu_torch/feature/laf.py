@@ -83,7 +83,9 @@ def laf_from_center_scale_ori(xy: torch.Tensor,
 
 
 def extract_patches_from_pyramid(img: torch.Tensor, laf: torch.Tensor,
-                                 PS: int = 32) -> torch.Tensor:
+                                 PS: int = 32,
+                                 patch_mode: Optional[str] = None
+                                 ) -> torch.Tensor:
     """Scale-aware patch extraction: each LAF samples the pyramid level
     that matches its scale → (B, N, C, PS, PS).
 
@@ -91,10 +93,14 @@ def extract_patches_from_pyramid(img: torch.Tensor, laf: torch.Tensor,
     is one bilinear tap of it, through the ``patch_sample`` kernel. Unlike
     the reference's TPU kernel, which reads a 128x256 window per keypoint,
     the kernel has no window, so every keypoint is sampled exactly (the
-    reference's CPU path, without its window budget). Level bookkeeping
+    reference's CPU path, without its window budget). `patch_mode` is the
+    reference's ``pallas_mode``: None, 'split' and 'highest' sample
+    exactly, 'bf16' rounds as the TPU kernel's bf16 mode does, on both
+    devices (the reference's CPU path ignores the mode). Level bookkeeping
     follows the reference: level = clamp(floor(log2(2·scale / PS))), and
     LAFs past the last level built get zero patches."""
     img = as_float(img)
+    mode = patch_mode or "split"
     B, N = laf.shape[:2]
     C, H, W = img.shape[1:]
     dt, dev = laf.dtype, laf.device
@@ -148,7 +154,7 @@ def extract_patches_from_pyramid(img: torch.Tensor, laf: torch.Tensor,
     px = px.reshape(B, N, PS * PS).contiguous()
     py = py.reshape(B, N, PS * PS).contiguous()
     out = torch.stack([
-        torch.stack([patch_sample(atlas[b, c], px[b], py[b])
+        torch.stack([patch_sample(atlas[b, c], px[b], py[b], mode)
                      for c in range(C)], dim=1)
         for b in range(B)])  # (B, N, C, PS * PS)
     out = out.reshape(B, N, C, PS, PS)

@@ -6,6 +6,8 @@ conventions."""
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -62,13 +64,16 @@ class LAFOrienter:
     """Rotate LAFs by the estimated patch orientation, added to the
     current orientation."""
 
-    def __init__(self, patch_size: int = 32, num_angular_bins: int = 36):
+    def __init__(self, patch_size: int = 32, num_angular_bins: int = 36,
+                 patch_mode: Optional[str] = None):
         self.patch_size = patch_size
         self.num_angular_bins = num_angular_bins
+        self.patch_mode = patch_mode
 
     def __call__(self, laf: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
         B, N = laf.shape[:2]
-        patches = extract_patches_from_pyramid(img, laf, self.patch_size)
+        patches = extract_patches_from_pyramid(img, laf, self.patch_size,
+                                               self.patch_mode)
         patches = patches.reshape(B * N, *patches.shape[2:])
         angles = patch_dominant_gradient_orientation(
             patches, self.num_angular_bins).reshape(B, N)

@@ -1,19 +1,27 @@
 """The port's hand-written CUDA kernels, their plain PyTorch versions, and
 the wrappers that choose between them by the device of the input.
 
-Counterpart of ``kornia_tpu/ops/pallas_kernels.py``. Three of its TPU
-kernels lie on the two-view path and are ported here:
+Counterpart of ``kornia_tpu/ops/pallas_kernels.py``; every TPU kernel there
+has its kernel here:
 
 * ``fused_separable_blur2d`` (one blur, ``out = Sv · x · Shᵀ``) and
   ``multi_level_blur`` (every level of a pyramid octave at once,
-  ``level_l = SV_l · x · SH_lᵀ``) both run ``csrc/banded_blur.cu``;
+  ``level_l = SV_l · x · SH_lᵀ``), and their adjoints
+  ``fused_separable_blur2d_adjoint`` (``dx = Svᵀ g Sh``) and
+  ``multi_level_blur_adjoint`` (``dx = Σ_l SV_lᵀ g_l SH_l``), all in
+  ``csrc/banded_blur.cu``. The two blurs are ``torch.autograd.Function``s
+  whose backward runs the adjoint, so a blur is differentiable on both
+  devices;
 * ``patch_sample`` runs ``csrc/patch_sample.cu`` (the TPU's
-  ``patch_sample_mxu`` without its window).
+  ``patch_sample_mxu`` without its window, in its f32 and bf16 modes);
+* ``streaming_min2`` runs ``csrc/streaming_min2.cu`` (per row the two
+  nearest squared-L2 distances and the argmin, no (N, M) matrix).
 
 A wrapper given a CPU tensor computes the plain version (the dense
-operator products of the JAX package's ``xla_mm2`` / ``xla`` variants, and
-a gather-based bilinear sample). Given a CUDA tensor it launches the kernel
-or raises; it never falls back. Each launch adds one to ``launches[name]``.
+operator products of the JAX package's ``xla_mm2`` / ``xla`` variants, a
+gather-based bilinear sample, the full distance matrix). Given a CUDA
+tensor it launches the kernel or raises; it never falls back. Each launch
+adds one to ``launches[name]``.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` from the
 sources in ``kornia_tpu_torch/csrc`` into ``build/kernels/`` and loaded with
@@ -31,9 +39,10 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..core.linalg import f32_matmul_precision
 
@@ -45,16 +54,23 @@ __all__ = [
     "cumulative_operators",
     "fused_separable_blur2d",
     "fused_separable_blur2d_plain",
+    "fused_separable_blur2d_adjoint",
+    "fused_separable_blur2d_adjoint_plain",
     "multi_level_blur",
     "multi_level_blur_plain",
+    "multi_level_blur_adjoint",
+    "multi_level_blur_adjoint_plain",
     "patch_sample",
     "patch_sample_plain",
+    "streaming_min2",
+    "streaming_min2_plain",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # library name -> CUDA source; one nvcc per source, all started together
-SOURCES = {"banded_blur": "banded_blur.cu", "patch_sample": "patch_sample.cu"}
+SOURCES = {"banded_blur": "banded_blur.cu", "patch_sample": "patch_sample.cu",
+           "streaming_min2": "streaming_min2.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -67,17 +83,27 @@ _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _INTP = ctypes.POINTER(ctypes.c_int)
 # C function -> (library, argument types)
+_BANDS = [_VOIDP] * 5 + [_INTP] * 2 + [_VOIDP] * 2 + [_INT] * 6 + [_VOIDP]
 _FUNCS = {
-    "separable_blur": ("banded_blur", [_VOIDP] * 5 + [_INT] * 6 + [_VOIDP]),
-    "banded_blur": ("banded_blur", [_VOIDP] * 5 + [_INTP] * 2 + [_VOIDP] * 2
-                    + [_INT] * 6 + [_VOIDP]),
+    "separable_blur": ("banded_blur", [_VOIDP] * 5 + [_INT] * 8 + [_VOIDP]),
+    "banded_blur": ("banded_blur", _BANDS),
+    "banded_blur_adjoint": ("banded_blur", _BANDS),
     "patch_sample": ("patch_sample", [_VOIDP, _INT, _INT, _VOIDP, _VOIDP,
-                                      _VOIDP, ctypes.c_longlong, _VOIDP]),
+                                      _VOIDP, ctypes.c_longlong, _INT,
+                                      _VOIDP]),
+    "streaming_min2": ("streaming_min2", [_VOIDP] * 10 + [_INT] * 5
+                       + [_VOIDP]),
 }
 # border rules as csrc/banded_blur.cu numbers them
 _BORDERS = {"reflect": 0, "replicate": 1, "circular": 2, "constant": 3}
+# borders whose adjoint is the same rule with flipped taps (no table)
+_FLIP_ADJOINT = ("constant", "circular")
 _MAX_LEVELS = 8         # kMaxLevels in csrc/banded_blur.cu
 _MAX_GRID_Z = 65535     # the grid's third dimension: images x levels
+# patch_sample modes of the TPU kernel -> bf16 row pass or exact f32
+_PATCH_MODES = {"split": False, "highest": False, "bf16": True}
+_BIG = 1e9              # kBig in csrc/streaming_min2.cu, _BIG of the reference
+_MIN2_TILE = 64         # kTile in csrc/streaming_min2.cu
 
 
 def reset_launches() -> None:
@@ -162,15 +188,15 @@ def _stream(t: torch.Tensor) -> int:
 # Banded operators (built in plain torch around the kernel)
 # -----------------------------------------------------------------------------
 
-def _fold_taps(kernel: torch.Tensor, size: int, border_type: str):
-    """Per output index i and tap k: the source index of ``i + k - pad``
-    under the border rule and the tap's weight (zero where the rule drops
-    the tap). Returns (idx (K, size) int64, w (K, size))."""
-    k = kernel.numel()
-    pad = k // 2
-    dev = kernel.device
-    taps = (torch.arange(size, device=dev)[None, :]
-            + torch.arange(k, device=dev)[:, None] - pad)  # (K, size)
+def _fold_index(k: int, size: int, border_type: str, device,
+                anchor: Optional[int] = None):
+    """Per output index i and tap k of a K-tap kernel whose tap `anchor`
+    (default K // 2) lands on i: the source index of ``i + k - anchor``
+    under the border rule, and whether the rule keeps the tap. Returns
+    (idx (K, size) int64, valid (K, size) bool)."""
+    pad = k // 2 if anchor is None else anchor
+    taps = (torch.arange(size, device=device)[None, :]
+            + torch.arange(k, device=device)[:, None] - pad)  # (K, size)
     if border_type == "reflect":
         idx = taps.abs()
         idx = torch.where(idx >= size, 2 * (size - 1) - idx, idx)
@@ -189,16 +215,25 @@ def _fold_taps(kernel: torch.Tensor, size: int, border_type: str):
     # a reflection that still falls outside (kernel wider than 2·size) is
     # dropped, as the JAX scatter drops out-of-range updates
     valid = valid & (idx >= 0) & (idx < size)
+    return idx.clamp(0, size - 1), valid
+
+
+def _fold_taps(kernel: torch.Tensor, size: int, border_type: str,
+               anchor: Optional[int] = None):
+    """_fold_index with the tap weights: (idx (K, size) int64, w (K, size)),
+    w zero where the rule drops the tap."""
+    idx, valid = _fold_index(kernel.numel(), size, border_type,
+                             kernel.device, anchor)
     w = torch.where(valid, kernel.reshape(-1, 1).to(torch.float32), 0.0)
-    return idx.clamp(0, size - 1), w
+    return idx, w
 
 
-def band_matrix(kernel: torch.Tensor, size: int,
-                border_type: str) -> torch.Tensor:
+def band_matrix(kernel: torch.Tensor, size: int, border_type: str,
+                anchor: Optional[int] = None) -> torch.Tensor:
     """(size, size) 'same'-correlation operator with the border rule folded
     in (``pallas_kernels.py::_band_matrix``): row i sums kernel[k] into
-    column border(i + k - pad)."""
-    idx, w = _fold_taps(kernel.reshape(-1), size, border_type)
+    column border(i + k - anchor), anchor K // 2 unless given."""
+    idx, w = _fold_taps(kernel.reshape(-1), size, border_type, anchor)
     rows = torch.arange(size, device=kernel.device)[None, :].expand_as(idx)
     S = torch.zeros((size, size), dtype=torch.float32, device=kernel.device)
     return S.index_put_((rows.reshape(-1), idx.reshape(-1)), w.reshape(-1),
@@ -280,6 +315,20 @@ def _band_tables_cached(values, size: int, border_type: str, device: str):
                                    border_type))
 
 
+@functools.lru_cache(maxsize=32)
+def _adjoint_band_tables_cached(values, size: int, border_type: str,
+                                device: str):
+    """_band_taps of the TRANSPOSED cumulative operators (a single kernel's
+    transposed band operator for L = 1), built once per (taps, size,
+    border, device). A transposed operator is banded with the same
+    half-widths: its first and last columns collect the taps the border
+    rule folds, which lie within R_l of the diagonal."""
+    ops = _cumulative_cached(values, size, border_type, device)
+    return _band_taps(ops.transpose(1, 2).contiguous(),
+                      _half_widths([len(v) for v in values], size,
+                                   border_type))
+
+
 def _fn(name: str):
     """The C function `name`, its library built and loaded at first use."""
     if name not in _FNS:
@@ -307,7 +356,62 @@ def _check_grid(name: str, depth: int) -> None:
 
 
 # -----------------------------------------------------------------------------
-# fused_separable_blur2d
+# Launchers shared by the blurs and their adjoints
+# -----------------------------------------------------------------------------
+
+def _launch_separable(name: str, xf: torch.Tensor, ky: torch.Tensor,
+                      kx: torch.Tensor, anchors: Tuple[int, int],
+                      border_type: str) -> torch.Tensor:
+    """csrc/banded_blur.cu::separable_blur on xf (N, H, W): the taps of ky
+    down the columns, then of kx along the rows, tap anchors[i] of each
+    kernel landing on the output pixel."""
+    N, H, W = xf.shape
+    _check_grid(name, N)
+    ky = ky.reshape(-1).to(xf.device, torch.float32).contiguous()
+    kx = kx.reshape(-1).to(xf.device, torch.float32).contiguous()
+    _require_cuda(name, xf, ky, kx)
+    tmp = torch.empty_like(xf)
+    out = torch.empty_like(xf)
+    with torch.cuda.device(xf.device):
+        err = _fn("separable_blur")(
+            xf.data_ptr(), ky.data_ptr(), kx.data_ptr(), tmp.data_ptr(),
+            out.data_ptr(), N, H, W, ky.numel(), kx.numel(), anchors[0],
+            anchors[1], _BORDERS[border_type], _stream(xf))
+    _check_launch(name, err)
+    return out
+
+
+def _launch_bands(name: str, fn: str, xf: torch.Tensor, out_shape,
+                  vertical, horizontal) -> torch.Tensor:
+    """csrc/banded_blur.cu::banded_blur (xf (N, H, W) → (L, N, H, W)) or
+    ::banded_blur_adjoint (xf (L, N, H, W) → (N, H, W)) with the band
+    tables (start, weights, taps per level) of each axis."""
+    sv, wv, kv = vertical
+    sh, wh, kh = horizontal
+    L = len(kv)
+    H, W = xf.shape[-2:]
+    N = xf.shape[-3]
+    _check_grid(name, L * N)
+    _require_cuda(name, xf, sv, wv, sh, wh)
+    tmp = torch.empty((L, N, H, W), dtype=torch.float32, device=xf.device)
+    out = torch.empty(out_shape, dtype=torch.float32, device=xf.device)
+    with torch.cuda.device(xf.device):
+        err = _fn(fn)(
+            xf.data_ptr(), sv.data_ptr(), wv.data_ptr(), sh.data_ptr(),
+            wh.data_ptr(), (_INT * L)(*kv), (_INT * L)(*kh), tmp.data_ptr(),
+            out.data_ptr(), L, N, H, W, wv.shape[1], wh.shape[1],
+            _stream(xf))
+    _check_launch(name, err)
+    return out
+
+
+def _check_border(border_type: str) -> None:
+    if border_type not in _BORDERS:
+        raise ValueError(f"unknown border type {border_type!r}")
+
+
+# -----------------------------------------------------------------------------
+# fused_separable_blur2d and its adjoint
 # -----------------------------------------------------------------------------
 
 @f32_matmul_precision
@@ -325,39 +429,155 @@ def fused_separable_blur2d_plain(x: torch.Tensor, kernel_y: torch.Tensor,
     return out.to(x.dtype).reshape(B, C, H, W)
 
 
+@f32_matmul_precision
+def fused_separable_blur2d_adjoint_plain(g: torch.Tensor,
+                                         kernel_y: torch.Tensor,
+                                         kernel_x: torch.Tensor,
+                                         border_type: str = "reflect"
+                                         ) -> torch.Tensor:
+    """Plain version of the adjoint: ``Svᵀ · g · Sh`` with the dense band
+    operators in true f32 (``_mm2_bwd``'s dx). (B, C, H, W) f32."""
+    B, C, H, W = g.shape
+    sv = band_matrix(kernel_y.reshape(-1), H, border_type)
+    sh = band_matrix(kernel_x.reshape(-1), W, border_type)
+    gf = g.reshape(B * C, H, W).to(torch.float32)
+    acc = torch.einsum("hi,nhw->niw", sv, gf)
+    out = torch.einsum("niw,wj->nij", acc, sh)
+    return out.reshape(B, C, H, W)
+
+
+def fused_separable_blur2d_adjoint(g: torch.Tensor, kernel_y: torch.Tensor,
+                                   kernel_x: torch.Tensor,
+                                   border_type: str = "reflect"
+                                   ) -> torch.Tensor:
+    """Adjoint of `fused_separable_blur2d` with respect to its input:
+    ``dx = Svᵀ · g · Sh`` for g (B, C, H, W) → f32 (B, C, H, W). One CUDA
+    launch on the card: for a constant or circular border the blur kernel
+    with flipped taps (the adjoint of a correlation under those rules);
+    for reflect and replicate the band kernel on the transposed operators,
+    whose tables are built once per (kernel, size, border, device)."""
+    if g.ndim != 4:
+        raise ValueError(f"expected (B, C, H, W), got {tuple(g.shape)}")
+    _check_border(border_type)
+    if _on_cpu(g):
+        return fused_separable_blur2d_adjoint_plain(g, kernel_y, kernel_x,
+                                                    border_type)
+    name = "fused_separable_blur2d_adjoint"
+    B, C, H, W = g.shape
+    gf = g.reshape(B * C, H, W).to(torch.float32).contiguous()
+    ky = kernel_y.reshape(-1)
+    kx = kernel_x.reshape(-1)
+    if border_type in _FLIP_ADJOINT:
+        anchors = (ky.numel() - 1 - ky.numel() // 2,
+                   kx.numel() - 1 - kx.numel() // 2)
+        out = _launch_separable(name, gf, ky.flip(0), kx.flip(0), anchors,
+                                border_type)
+    else:
+        dev = str(g.device)
+        vy, vx = _values([ky, kx])
+        out = _launch_bands(
+            name, "banded_blur_adjoint", gf[None], gf.shape,
+            _adjoint_band_tables_cached((vy,), H, border_type, dev),
+            _adjoint_band_tables_cached((vx,), W, border_type, dev))
+    return out.reshape(B, C, H, W)
+
+
+def _taps_along(x: torch.Tensor, kernel: torch.Tensor, border_type: str,
+                dim: int) -> torch.Tensor:
+    """x (N, H, W) correlated along `dim` (1 or 2) with a 1-D kernel under
+    the border rule: Σ_k w[k, i] · x[..., idx[k, i], ...], the product with
+    band_matrix without building it."""
+    idx, w = _fold_taps(kernel.reshape(-1), x.shape[dim], border_type)
+    shape = [1, 1, 1]
+    shape[dim] = -1
+    out = torch.zeros_like(x)
+    for k in range(idx.shape[0]):
+        out = out + w[k].reshape(shape) * x.index_select(dim, idx[k])
+    return out
+
+
+def _tap_grads(x: torch.Tensor, g: torch.Tensor, kernel_y: torch.Tensor,
+               kernel_x: torch.Tensor, border_type: str, need_y: bool,
+               need_x: bool):
+    """Gradients of ``Sv · x · Shᵀ`` with respect to the 1-D kernels, in
+    plain torch: the band operators' gradients (``_mm2_bwd``'s dsv, dsh)
+    pulled back through the border fold, tap k of ky collecting
+    Σ g[n, i, j] · (x Shᵀ)[n, idx[k, i], j] over the rows i the rule keeps
+    (and likewise along the rows for kx)."""
+    B, C, H, W = x.shape
+    xf = x.reshape(B * C, H, W).to(torch.float32)
+    gf = g.reshape(B * C, H, W).to(torch.float32)
+    out = []
+    for kern, need, dim in ((kernel_y, need_y, 1), (kernel_x, need_x, 2)):
+        if not need:
+            out.append(None)
+            continue
+        other = kernel_x if dim == 1 else kernel_y
+        # x blurred along the other axis only
+        part = _taps_along(xf, other.to(xf.device), border_type, 3 - dim)
+        idx, valid = _fold_index(kern.numel(), x.shape[dim + 1], border_type,
+                                 xf.device)
+        red = (0, 2) if dim == 1 else (0, 1)
+        grad = torch.stack([
+            ((gf * part.index_select(dim, idx[k])).sum(red)
+             * valid[k]).sum() for k in range(idx.shape[0])])
+        out.append(grad.to(kern.device, kern.dtype).reshape(kern.shape))
+    return out
+
+
+class _FusedSeparableBlur(torch.autograd.Function):
+    """Forward: the blur kernel on the card, the plain version on the CPU.
+    Backward: the adjoint the same way for the input (the counterpart of
+    ``_mm2_op``'s custom VJP), the taps' gradients in plain torch and only
+    when asked for."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_y, kernel_x, border_type):
+        ctx.border_type = border_type
+        taps = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        ctx.save_for_backward(x if taps else None, kernel_y, kernel_x)
+        if _on_cpu(x):
+            return fused_separable_blur2d_plain(x, kernel_y, kernel_x,
+                                                border_type)
+        B, C, H, W = x.shape
+        K = (kernel_y.numel(), kernel_x.numel())
+        out = _launch_separable(
+            "fused_separable_blur2d",
+            x.reshape(B * C, H, W).to(torch.float32).contiguous(), kernel_y,
+            kernel_x, (K[0] // 2, K[1] // 2), border_type)
+        return out.to(x.dtype).reshape(B, C, H, W)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, kernel_y, kernel_x = ctx.saved_tensors
+        need_in, need_ky, need_kx = ctx.needs_input_grad[:3]
+        dx = dky = dkx = None
+        if need_in:
+            dx = fused_separable_blur2d_adjoint(
+                grad.contiguous(), kernel_y, kernel_x,
+                ctx.border_type).to(grad.dtype)
+        if need_ky or need_kx:
+            dky, dkx = _tap_grads(x, grad, kernel_y, kernel_x,
+                                  ctx.border_type, need_ky, need_kx)
+        return dx, dky, dkx, None
+
+
 def fused_separable_blur2d(x: torch.Tensor, kernel_y: torch.Tensor,
                            kernel_x: torch.Tensor,
                            border_type: str = "reflect") -> torch.Tensor:
     """Separable 2-D correlation of (B, C, H, W) with 1-D kernels and a
     border rule (reflect, replicate, circular, constant); one CUDA launch
-    on the card, the plain version on the CPU."""
+    on the card, the plain version on the CPU. Differentiable in x and in
+    the kernels on both devices."""
     if x.ndim != 4:
         raise ValueError(f"expected (B, C, H, W), got {tuple(x.shape)}")
-    if _on_cpu(x, kernel_y, kernel_x):
-        return fused_separable_blur2d_plain(x, kernel_y, kernel_x,
-                                            border_type)
-    if border_type not in _BORDERS:
-        raise ValueError(f"unknown border type {border_type!r}")
-    name = "fused_separable_blur2d"
-    B, C, H, W = x.shape
-    _check_grid(name, B * C)
-    xf = x.reshape(B * C, H, W).to(torch.float32).contiguous()
-    ky = kernel_y.reshape(-1).to(xf.device, torch.float32).contiguous()
-    kx = kernel_x.reshape(-1).to(xf.device, torch.float32).contiguous()
-    _require_cuda(name, xf, ky, kx)
-    tmp = torch.empty_like(xf)
-    out = torch.empty_like(xf)
-    with torch.cuda.device(xf.device):
-        err = _fn("separable_blur")(
-            xf.data_ptr(), ky.data_ptr(), kx.data_ptr(), tmp.data_ptr(),
-            out.data_ptr(), B * C, H, W, ky.numel(), kx.numel(),
-            _BORDERS[border_type], _stream(xf))
-    _check_launch(name, err)
-    return out.to(x.dtype).reshape(B, C, H, W)
+    _check_border(border_type)
+    return _FusedSeparableBlur.apply(x, kernel_y, kernel_x, border_type)
 
 
 # -----------------------------------------------------------------------------
-# multi_level_blur
+# multi_level_blur and its adjoint
 # -----------------------------------------------------------------------------
 
 @f32_matmul_precision
@@ -371,15 +591,102 @@ def _ml_plain(x: torch.Tensor, SV: torch.Tensor,
     return out.reshape(L, B, C, H, W).to(x.dtype)
 
 
+def _operators(kernels_y, kernels_x, H: int, W: int, border_type: str,
+               device: str):
+    return (_cumulative_cached(_values(kernels_y), H, border_type, device),
+            _cumulative_cached(_values(kernels_x), W, border_type, device))
+
+
 def multi_level_blur_plain(x: torch.Tensor, kernels_y, kernels_x,
                            border_type: str = "replicate") -> torch.Tensor:
     """Plain version: dense cumulative operators (the ``xla`` variant),
     built once per (kernels, size, border, device)."""
     H, W = x.shape[-2:]
-    dev = str(x.device)
-    SV = _cumulative_cached(_values(kernels_y), H, border_type, dev)
-    SH = _cumulative_cached(_values(kernels_x), W, border_type, dev)
+    SV, SH = _operators(kernels_y, kernels_x, H, W, border_type,
+                        str(x.device))
     return _ml_plain(x, SV, SH)
+
+
+@f32_matmul_precision
+def multi_level_blur_adjoint_plain(g: torch.Tensor, kernels_y, kernels_x,
+                                   border_type: str = "replicate"
+                                   ) -> torch.Tensor:
+    """Plain version of the adjoint: ``Σ_l SV_lᵀ g_l SH_l`` with the dense
+    cumulative operators in true f32 (``_ml_bwd``'s dx). g (L, B, C, H, W)
+    → f32 (B, C, H, W)."""
+    L, B, C, H, W = g.shape
+    SV, SH = _operators(kernels_y, kernels_x, H, W, border_type,
+                        str(g.device))
+    gf = g.reshape(L, B * C, H, W).to(torch.float32)
+    acc = torch.einsum("lhi,lnhw->lniw", SV, gf)
+    out = torch.einsum("lniw,lwj->nij", acc, SH)
+    return out.reshape(B, C, H, W)
+
+
+def _check_levels(name: str, kernels_y, kernels_x) -> None:
+    L = len(kernels_y)
+    if not 1 <= L <= _MAX_LEVELS or len(kernels_x) != L:
+        raise ValueError(f"{name}: expects 1..{_MAX_LEVELS} kernels per "
+                         f"axis, got {L} and {len(kernels_x)}")
+
+
+def multi_level_blur_adjoint(g: torch.Tensor, kernels_y, kernels_x,
+                             border_type: str = "replicate") -> torch.Tensor:
+    """Adjoint of `multi_level_blur` with respect to its base: g (L, B, C,
+    H, W) → f32 (B, C, H, W), ``dx = Σ_l SV_lᵀ g_l SH_l``. One CUDA launch
+    on the card, which reads the transposed cumulative operators as bands
+    (built once per kernels, size, border and device) and sums the levels
+    inside the launch."""
+    if g.ndim != 5:
+        raise ValueError(f"expected (L, B, C, H, W), got {tuple(g.shape)}")
+    _check_border(border_type)
+    if _on_cpu(g):
+        return multi_level_blur_adjoint_plain(g, kernels_y, kernels_x,
+                                              border_type)
+    name = "multi_level_blur_adjoint"
+    _check_levels(name, kernels_y, kernels_x)
+    L, B, C, H, W = g.shape
+    dev = str(g.device)
+    gf = g.reshape(L, B * C, H, W).to(torch.float32).contiguous()
+    out = _launch_bands(
+        name, "banded_blur_adjoint", gf, (B * C, H, W),
+        _adjoint_band_tables_cached(_values(kernels_y), H, border_type, dev),
+        _adjoint_band_tables_cached(_values(kernels_x), W, border_type, dev))
+    return out.reshape(B, C, H, W)
+
+
+class _MultiLevelBlur(torch.autograd.Function):
+    """Forward: the multi-level kernel on the card, the plain version on
+    the CPU. Backward: the adjoint the same way (``_ml_op``'s custom VJP);
+    the kernels are static (the pyramid's sigmas), so they get no
+    gradient, as the reference gives them zeros."""
+
+    @staticmethod
+    def forward(ctx, x, kernels_y, kernels_x, border_type):
+        ctx.blur = (kernels_y, kernels_x, border_type)
+        if _on_cpu(x):
+            return multi_level_blur_plain(x, kernels_y, kernels_x,
+                                          border_type)
+        name = "multi_level_blur"
+        B, C, H, W = x.shape
+        L = len(kernels_y)
+        dev = str(x.device)
+        xf = x.reshape(B * C, H, W).to(torch.float32).contiguous()
+        out = _launch_bands(
+            name, "banded_blur", xf, (L, B * C, H, W),
+            _band_tables_cached(_values(kernels_y), H, border_type, dev),
+            _band_tables_cached(_values(kernels_x), W, border_type, dev))
+        return out.reshape(L, B, C, H, W).to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        kernels_y, kernels_x, border_type = ctx.blur
+        dx = multi_level_blur_adjoint(grad.contiguous(), kernels_y,
+                                      kernels_x, border_type)
+        return dx.to(grad.dtype), None, None, None
 
 
 def multi_level_blur(x: torch.Tensor, kernels_y, kernels_x,
@@ -388,33 +695,14 @@ def multi_level_blur(x: torch.Tensor, kernels_y, kernels_x,
     L incremental 1-D kernels per axis → (L, B, C, H, W), level l being the
     sequential blur chain up to kernel l (exactly: the cumulative operators
     fold each step's border rule). The kernels may be host tensors; their
-    band tables are built once per (kernels, size, border, device)."""
+    band tables are built once per (kernels, size, border, device).
+    Differentiable in x on both devices (the kernels are constants)."""
     if x.ndim != 4:
         raise ValueError(f"expected (B, C, H, W), got {tuple(x.shape)}")
-    if _on_cpu(x, *kernels_y, *kernels_x):
-        return multi_level_blur_plain(x, kernels_y, kernels_x, border_type)
-    name = "multi_level_blur"
-    B, C, H, W = x.shape
-    L = len(kernels_y)
-    if not 1 <= L <= _MAX_LEVELS or len(kernels_x) != L:
-        raise ValueError(f"{name}: expects 1..{_MAX_LEVELS} kernels per "
-                         f"axis, got {L} and {len(kernels_x)}")
-    _check_grid(name, L * B * C)
-    dev = str(x.device)
-    sv, wv, kv = _band_tables_cached(_values(kernels_y), H, border_type, dev)
-    sh, wh, kh = _band_tables_cached(_values(kernels_x), W, border_type, dev)
-    xf = x.reshape(B * C, H, W).to(torch.float32).contiguous()
-    _require_cuda(name, xf, sv, wv, sh, wh)
-    tmp = torch.empty((L, B * C, H, W), dtype=torch.float32, device=xf.device)
-    out = torch.empty_like(tmp)
-    with torch.cuda.device(xf.device):
-        err = _fn("banded_blur")(
-            xf.data_ptr(), sv.data_ptr(), wv.data_ptr(), sh.data_ptr(),
-            wh.data_ptr(), (_INT * L)(*kv), (_INT * L)(*kh), tmp.data_ptr(),
-            out.data_ptr(), L, B * C, H, W, wv.shape[1], wh.shape[1],
-            _stream(xf))
-    _check_launch(name, err)
-    return out.reshape(L, B, C, H, W).to(x.dtype)
+    _check_border(border_type)
+    if not _on_cpu(x, *kernels_y, *kernels_x):
+        _check_levels("multi_level_blur", kernels_y, kernels_x)
+    return _MultiLevelBlur.apply(x, kernels_y, kernels_x, border_type)
 
 
 # -----------------------------------------------------------------------------
@@ -422,10 +710,13 @@ def multi_level_blur(x: torch.Tensor, kernels_y, kernels_x,
 # -----------------------------------------------------------------------------
 
 def patch_sample_plain(atlas: torch.Tensor, px: torch.Tensor,
-                       py: torch.Tensor) -> torch.Tensor:
-    """Plain version: exact bilinear samples of a (H, W) atlas at pixel
+                       py: torch.Tensor, mode: str = "split") -> torch.Tensor:
+    """Plain version: bilinear samples of a (H, W) atlas at pixel
     coordinates (N, S), 'border' rule (coordinates clamped into the atlas,
-    second tap clamped to the last row/column)."""
+    second tap clamped to the last row/column). 'split' and 'highest' are
+    exact; 'bf16' rounds as the TPU's default-precision row pass does: the
+    y weights and the texels to bf16, their products exact and summed in
+    f32 per column, then the x interpolation in f32."""
     H, W = atlas.shape
     x = px.clamp(0.0, W - 1.0)
     y = py.clamp(0.0, H - 1.0)
@@ -442,22 +733,43 @@ def patch_sample_plain(atlas: torch.Tensor, px: torch.Tensor,
     v01 = flat[y0 * W + x1]
     v10 = flat[y1 * W + x0]
     v11 = flat[y1 * W + x1]
+    if _PATCH_MODES[mode]:
+        def bf16(t):
+            return t.to(torch.bfloat16).to(torch.float32)
+        wy0 = bf16(1.0 - ty)
+        wy1 = bf16(ty)
+        p0 = wy0 * bf16(v00) + wy1 * bf16(v10)
+        p1 = wy0 * bf16(v01) + wy1 * bf16(v11)
+        return p0 * (1.0 - tx) + p1 * tx
     top = v00 * (1.0 - tx) + v01 * tx
     bot = v10 * (1.0 - tx) + v11 * tx
     return top * (1.0 - ty) + bot * ty
 
 
-def patch_sample(atlas: torch.Tensor, px: torch.Tensor,
-                 py: torch.Tensor) -> torch.Tensor:
+def patch_sample(atlas: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                 mode: str = "split") -> torch.Tensor:
     """Bilinear-sample S points per keypoint from a (H, W) f32 atlas:
-    px, py (N, S) absolute pixel coordinates → (N, S)."""
+    px, py (N, S) absolute pixel coordinates → (N, S). `mode` is the TPU
+    kernel's: 'split' and 'highest' sample exactly, 'bf16' with its
+    rounding (kernel "patch_sample[bf16]"). Differentiable on the CPU
+    only: the kernel, like the TPU kernel it replaces, has no backward, so
+    on the card it refuses inputs that require grad while grad is on."""
     if atlas.ndim != 2 or px.ndim != 2 or px.shape != py.shape:
         raise ValueError(f"expected atlas (H, W) and px, py (N, S), got "
                          f"{tuple(atlas.shape)}, {tuple(px.shape)}, "
                          f"{tuple(py.shape)}")
+    if mode not in _PATCH_MODES:
+        raise ValueError(f"unknown patch_sample mode {mode!r}")
     if _on_cpu(atlas, px, py):
-        return patch_sample_plain(atlas, px, py)
-    _require_cuda("patch_sample", atlas, px, py)
+        return patch_sample_plain(atlas, px, py, mode)
+    name = "patch_sample[bf16]" if _PATCH_MODES[mode] else "patch_sample"
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (atlas, px, py)):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward (the TPU kernel has "
+            f"none either); detach the inputs or sample under "
+            f"torch.no_grad()")
+    _require_cuda(name, atlas, px, py)
     if atlas.dtype != torch.float32 or px.dtype != torch.float32 \
             or py.dtype != torch.float32:
         raise TypeError("patch_sample expects f32 atlas and coordinates")
@@ -466,6 +778,71 @@ def patch_sample(atlas: torch.Tensor, px: torch.Tensor,
     with torch.cuda.device(atlas.device):
         err = _fn("patch_sample")(atlas.data_ptr(), H, W, px.data_ptr(),
                                   py.data_ptr(), out.data_ptr(), px.numel(),
-                                  _stream(atlas))
-    _check_launch("patch_sample", err)
+                                  int(_PATCH_MODES[mode]), _stream(atlas))
+    _check_launch(name, err)
     return out
+
+
+# -----------------------------------------------------------------------------
+# streaming_min2
+# -----------------------------------------------------------------------------
+
+@f32_matmul_precision
+def streaming_min2_plain(d1: torch.Tensor, d2: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version: the full (N, M) squared-L2 matrix n1 + n2 - 2·d1·d2ᵀ
+    (clamped at 0) in true f32, then per row the minimum, its first index
+    and the minimum with that one entry masked (1e9 when M = 1)."""
+    a = d1.to(torch.float32)
+    b = d2.to(torch.float32)
+    dm = ((a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :]
+          - 2.0 * (a @ b.T)).clamp_min(0.0)
+    m1, idx = dm.min(dim=-1)
+    m2 = dm.scatter(-1, idx[:, None], _BIG).min(dim=-1).values
+    return m1, m2, idx
+
+
+def streaming_min2(d1: torch.Tensor, d2: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per row of d1 (N, D): the smallest and second-smallest squared L2
+    distance to the rows of d2 (M, D), and the index of the smallest (the
+    first among equal minima; an equal second minimum counts as the second
+    smallest). → (min1 (N,) f32, min2 (N,) f32, argmin (N,) int64). On the
+    card one launch that never stores the (N, M) matrix; any N and M."""
+    if d1.ndim != 2 or d2.ndim != 2 or d1.shape[1] != d2.shape[1]:
+        raise ValueError(f"expected d1 (N, D) and d2 (M, D), got "
+                         f"{tuple(d1.shape)} and {tuple(d2.shape)}")
+    if d2.shape[0] == 0:
+        raise ValueError("streaming_min2: d2 has no rows")
+    if _on_cpu(d1, d2):
+        return streaming_min2_plain(d1, d2)
+    name = "streaming_min2"
+    a = d1.to(torch.float32).contiguous()
+    b = d2.to(torch.float32).contiguous()
+    _require_cuda(name, a, b)
+    (N, D), M = a.shape, b.shape[0]
+    if N == 0:
+        empty = a.new_empty(0)
+        return empty, empty, torch.empty(0, dtype=torch.long,
+                                         device=a.device)
+    # cut d2's rows into ranges of whole tiles, enough of them for about
+    # four blocks per SM
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    col_tiles = -(-M // _MIN2_TILE)
+    wanted = min(col_tiles, max(1, -(-4 * sms // -(-N // _MIN2_TILE))))
+    span = -(-col_tiles // wanted) * _MIN2_TILE
+    splits = -(-M // span)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    norms = torch.empty(N + M, **f32)
+    part = torch.empty((2, splits, N), **f32)
+    part_idx = torch.empty((splits, N), dtype=torch.int32, device=a.device)
+    mins = torch.empty((2, N), **f32)
+    idx = torch.empty(N, dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _fn("streaming_min2")(
+            a.data_ptr(), b.data_ptr(), norms.data_ptr(),
+            norms[N:].data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            part_idx.data_ptr(), mins[0].data_ptr(), mins[1].data_ptr(),
+            idx.data_ptr(), N, M, D, splits, span, _stream(a))
+    _check_launch(name, err)
+    return mins[0], mins[1], idx.long()

@@ -1,11 +1,13 @@
 """Image pyramids (counterpart of ``kornia_tpu/ops/pyramid.py``, the part
-the two-view path reaches): ``pyrdown`` and the SIFT ``ScalePyramid``.
+the two-view path and training reach): ``pyrdown``, ``build_pyramid`` and
+the SIFT ``ScalePyramid``.
 
 Every octave's levels come from one ``multi_level_blur`` call: the
 sequential blur chain as cumulative banded operators, all levels at once
 (the kernel on the card, its plain version on the CPU). The reference
 takes that path on a TPU only for octaves 32–768 pixels a side, a limit of
-the TPU's VMEM; the port takes it for every octave.
+the TPU's VMEM; the port takes it for every octave. The blurs are differentiable on both
+devices, so gradients flow through every level back to the input.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from .filters import filter2d_separable, gaussian_blur2d, get_gaussian_kernel1d
 from .kernels import multi_level_blur
 from .warp import resize
 
-__all__ = ["pyrdown", "ScalePyramid"]
+__all__ = ["pyrdown", "build_pyramid", "ScalePyramid"]
 
 _PYR_TAPS = [1.0, 4.0, 6.0, 4.0, 1.0]
 
@@ -34,6 +36,17 @@ def pyrdown(input: torch.Tensor, border_type: str = "reflect",
     H, W = x.shape[-2:]
     return resize(blurred, (int(float(H) / factor), int(float(W) / factor)),
                   align_corners=align_corners)
+
+
+def build_pyramid(input: torch.Tensor, max_level: int,
+                  border_type: str = "reflect",
+                  align_corners: bool = False) -> List[torch.Tensor]:
+    """Gaussian pyramid as a list of `max_level` images, level 0 the
+    input, each next level the `pyrdown` of the last."""
+    pyramid = [as_float(input)]
+    for _ in range(max_level - 1):
+        pyramid.append(pyrdown(pyramid[-1], border_type, align_corners))
+    return pyramid
 
 
 class ScalePyramid:

@@ -1,0 +1,218 @@
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+card's gradients against the CPU's. Every test here needs a CUDA card and
+skips without one. The file imports nothing of the JAX package
+(``kornia_tpu``), so it also runs where that package's own dependencies
+are missing:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+(``python3 chip_smoke.py`` makes the same comparisons at the paths'
+shapes.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kornia_tpu_torch.feature import matching as t_match
+from kornia_tpu_torch.losses import losses as t_losses
+from kornia_tpu_torch.ops import filters as t_filters
+from kornia_tpu_torch.ops import kernels as K
+from kornia_tpu_torch.ops import pyramid as t_pyr
+
+pytestmark = pytest.mark.cuda
+
+BORDERS = ["reflect", "replicate", "circular", "constant"]
+# [0, 1] images: f32 products summed in another order than the plain version
+ATOL = 1e-5
+SIGMAS = [1.23, 1.55, 1.95, 2.45, 3.09]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _gauss(k, sigma, device="cpu"):
+    return t_filters.get_gaussian_kernel1d(k, sigma, device=device)[0]
+
+
+def _level_kernels(n=5):
+    return [_gauss(2 * int(np.ceil(4 * s)) + 1, s) for s in SIGMAS[:n]]
+
+
+# --- forward kernels -------------------------------------------------------------
+
+@pytest.mark.parametrize("border", BORDERS)
+def test_cuda_fused_blur_matches_plain(cuda_device, border):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((2, 3, 120, 160), device=cuda_device, generator=gen)
+    k = _gauss(15, 1.52, cuda_device)
+    before = K.launches["fused_separable_blur2d"]
+    out = K.fused_separable_blur2d(x, k, k, border)
+    assert K.launches["fused_separable_blur2d"] == before + 1
+    ref = K.fused_separable_blur2d_plain(x, k, k, border)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_multi_level_blur_matches_plain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.rand((1, 1, 240, 320), device=cuda_device, generator=gen)
+    kers = [k.to(cuda_device) for k in _level_kernels()]
+    out = K.multi_level_blur(x, kers, kers)
+    ref = K.multi_level_blur_plain(x, kers, kers)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_patch_sample_matches_plain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    atlas = torch.rand((900, 640), device=cuda_device, generator=gen)
+    px = torch.rand((64, 1681), device=cuda_device, generator=gen) * 700 - 30
+    py = torch.rand((64, 1681), device=cuda_device, generator=gen) * 950 - 25
+    out = K.patch_sample(atlas, px, py)
+    ref = K.patch_sample_plain(atlas, px, py)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_patch_sample_bf16_matches_plain(cuda_device):
+    """1e-6 against the plain bf16 version (the same roundings); 4e-3
+    against the exact kernel (bf16 keeps 8 bits)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    atlas = torch.rand((900, 640), device=cuda_device, generator=gen)
+    px = torch.rand((64, 1681), device=cuda_device, generator=gen) * 700 - 30
+    py = torch.rand((64, 1681), device=cuda_device, generator=gen) * 950 - 25
+    before = K.launches["patch_sample[bf16]"]
+    out = K.patch_sample(atlas, px, py, "bf16")
+    assert K.launches["patch_sample[bf16]"] == before + 1
+    torch.testing.assert_close(
+        out, K.patch_sample_plain(atlas, px, py, "bf16"), atol=1e-6, rtol=0)
+    torch.testing.assert_close(out, K.patch_sample(atlas, px, py),
+                               atol=4e-3, rtol=0)
+
+
+def test_cuda_patch_sample_refuses_grad(cuda_device):
+    atlas = torch.rand((64, 64), device=cuda_device, requires_grad=True)
+    px = torch.rand((2, 9), device=cuda_device) * 60
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.patch_sample(atlas, px, px)
+    with torch.no_grad():
+        assert K.patch_sample(atlas, px, px).shape == (2, 9)
+
+
+# --- adjoints and gradients ------------------------------------------------------
+
+@pytest.mark.parametrize("border", BORDERS)
+def test_cuda_adjoint_kernels_match_plain(cuda_device, border):
+    """Both adjoints on [0, 1] data; an even kernel checks the flipped
+    taps' anchor."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    g = torch.rand((2, 3, 120, 160), device=cuda_device, generator=gen)
+    for k in (_gauss(11, 1.5, cuda_device),
+              torch.rand(6, device=cuda_device, generator=gen) / 3):
+        before = K.launches["fused_separable_blur2d_adjoint"]
+        out = K.fused_separable_blur2d_adjoint(g, k, k, border)
+        assert K.launches["fused_separable_blur2d_adjoint"] == before + 1
+        ref = K.fused_separable_blur2d_adjoint_plain(g, k, k, border)
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+    kers = _level_kernels(3)
+    gl = torch.rand((3, 1, 2, 96, 128), device=cuda_device, generator=gen)
+    before = K.launches["multi_level_blur_adjoint"]
+    out = K.multi_level_blur_adjoint(gl, kers, kers, border)
+    assert K.launches["multi_level_blur_adjoint"] == before + 1
+    ref = K.multi_level_blur_adjoint_plain(gl, kers, kers, border)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("border", BORDERS)
+def test_cuda_fused_blur_grads_match_cpu(cuda_device, border):
+    """The card's gradients (adjoint kernel, tap grads) equal the CPU's:
+    x to 1e-5, taps to 1e-5 relative (each a sum of 32,400 products near
+    1, summed in another order); even taps along x."""
+    rng = np.random.default_rng(20)
+    x = rng.random((2, 3, 60, 90), dtype=np.float32)
+    ky = _gauss(11, 1.5).numpy()
+    kx = rng.random(6, dtype=np.float32) / 3
+    grads = []
+    for dev in ("cpu", cuda_device):
+        tx, tky, tkx = (torch.tensor(a, device=dev, requires_grad=True)
+                        for a in (x, ky, kx))
+        out = K.fused_separable_blur2d(tx, tky, tkx, border)
+        assert out.grad_fn is not None
+        (out ** 2).sum().backward()
+        grads.append([t.grad.cpu() for t in (tx, tky, tkx)])
+    torch.testing.assert_close(grads[1][0], grads[0][0], atol=ATOL, rtol=0)
+    for a, b in zip(grads[1][1:], grads[0][1:]):
+        torch.testing.assert_close(a, b, atol=0, rtol=1e-5)
+
+
+def test_cuda_ssim_and_pyramid_grads_match_cpu(cuda_device):
+    """SSIM loss plus the squared DoG levels of ScalePyramid: card and CPU
+    gradients to 1e-5 of the largest."""
+    rng = np.random.default_rng(22)
+    target = rng.random((2, 3, 64, 64), dtype=np.float32)
+    pred = (target + 0.1 * rng.standard_normal(target.shape)).astype(
+        np.float32)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        tp = torch.tensor(pred, device=dev, requires_grad=True)
+        loss = t_losses.ssim_loss(tp, torch.tensor(target, device=dev))
+        octaves = t_pyr.ScalePyramid(3, 1.6, 32)(tp)[0]
+        dog = sum(((o[:, 1:] - o[:, :-1]) ** 2).sum() for o in octaves)
+        (loss + dog).backward()
+        grads.append(tp.grad.cpu())
+    scale = grads[0].abs().max()
+    torch.testing.assert_close(grads[1], grads[0], atol=1e-5 * scale, rtol=0)
+
+
+def test_cuda_filters_carry_grad_fn(cuda_device):
+    x = torch.rand((1, 1, 40, 48), device=cuda_device, requires_grad=True)
+    k = _gauss(5, 1.0, cuda_device)
+    assert t_filters.gaussian_blur2d(x, 5, 1.0).grad_fn is not None
+    assert t_filters.filter2d_separable(x, k, k).grad_fn is not None
+    assert t_pyr.pyrdown(x).grad_fn is not None
+    kers = _level_kernels(3)
+    assert K.multi_level_blur(x, kers, kers).grad_fn is not None
+
+
+# --- streaming matcher -----------------------------------------------------------
+
+def _int_descs(seed, n, m, d):
+    """Integer entries: every distance is exact, so ties are real."""
+    rng = np.random.default_rng(seed)
+    d1 = rng.integers(0, 4, (n, d)).astype(np.float32)
+    d2 = rng.integers(0, 4, (m, d)).astype(np.float32)
+    d2[7] = d2[3]
+    return d1, d2
+
+
+@pytest.mark.parametrize("n,m", [(1000, 777), (64, 64), (5, 3000)])
+def test_cuda_streaming_min2_matches_plain(cuda_device, n, m):
+    """Ragged sizes; exact distances, so exactly equal (ties included)."""
+    a, b = (torch.tensor(v, device=cuda_device)
+            for v in _int_descs(6, n, m, 72))
+    before = K.launches["streaming_min2"]
+    out = K.streaming_min2(a, b)
+    assert K.launches["streaming_min2"] == before + 1
+    for o, r in zip(out, K.streaming_min2_plain(a, b)):
+        torch.testing.assert_close(o, r, atol=0, rtol=0)
+
+
+def test_cuda_streaming_matcher_stores_no_distance_matrix(cuda_device):
+    """Peak memory growth of the streaming SMNN matcher at 4096 x 4096
+    stays below a quarter of the distance matrix's 64 MiB; its valid mask
+    equals the dense matcher's on all but near-tie rows (0.1%)."""
+    rng = np.random.default_rng(7)
+    d1 = rng.standard_normal((4096, 128)).astype(np.float32)
+    d2 = d1[rng.permutation(4096)] + 0.2 * rng.standard_normal(d1.shape)
+    a = torch.tensor(d1, device=cuda_device)
+    b = torch.tensor(d2.astype(np.float32), device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    out = t_match.DescriptorMatcher("smnn", 0.95, streaming=True)(a, b)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < 4096 ** 2
+    ref = t_match.match_smnn(a, b, 0.95)
+    assert (out[2] == ref[2]).float().mean() > 0.999

@@ -218,3 +218,19 @@ def test_masked_smnn_matches_reference():
                                   np.asarray(ref[1])[valid])
     np.testing.assert_allclose(out[0].numpy()[valid],
                                np.asarray(ref[0])[valid], atol=1e-5)
+
+
+def test_fast_patches_follow_the_tpu_bf16_mode(stages):
+    """SIFTFeature(fast_patches=True) samples in the TPU kernel's bf16 mode
+    on every device (the reference's CPU path ignores the mode and samples
+    exactly): patches within 4e-3 of the exact ones, and not equal to them;
+    descriptors within 2e-2 (RootSIFT entries in [0, 1])."""
+    feat = t_int.SIFTFeature(num_features=NF, fast_patches=True)
+    assert feat.descriptor.patch_mode == feat.orienter.patch_mode == "bf16"
+    out = t_laf.extract_patches_from_pyramid(
+        _t(stages["x"]), _t(stages["lafs_o"]), 41, patch_mode="bf16")
+    np.testing.assert_allclose(out.numpy(), stages["patches"], atol=4e-3)
+    assert not np.array_equal(out.numpy(), stages["patches"])
+    desc = feat.descriptor(_t(stages["x"]), _t(stages["lafs_o"]))
+    v = stages["valid_d"]
+    np.testing.assert_allclose(desc.numpy()[v], stages["descs"][v], atol=2e-2)

@@ -1,11 +1,12 @@
-"""The port's three kernels (kornia_tpu_torch/ops/kernels.py) against the
-JAX package's Pallas kernels, run in interpret mode on the CPU.
+"""The port's kernels (kornia_tpu_torch/ops/kernels.py) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU.
 
 On the CPU each wrapper computes its plain PyTorch version; these tests
-hold that version to the Pallas kernel, and hold the tap tables that the
-CUDA kernel consumes to the dense operators they stand for. Tests marked
-``cuda`` compare the CUDA kernels with their plain versions and skip where
-there is no card (``python3 chip_smoke.py`` does the same on the card).
+hold that version to the Pallas kernel, and hold the tap and band tables
+that the CUDA kernels consume to the dense operators they stand for.
+``tests/test_torch_cuda.py`` compares the CUDA kernels with their plain
+versions on a card (``python3 chip_smoke.py`` does the same at the paths'
+shapes).
 """
 
 import jax
@@ -26,13 +27,6 @@ ATOL = 1e-5
 
 def _kernels_1d(sizes_sigmas):
     return [np.asarray(jax_gauss1d(k, s))[0] for k, s in sizes_sigmas]
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda", 0)
 
 
 @pytest.mark.parametrize("border", BORDERS)
@@ -170,37 +164,135 @@ def test_wrappers_refuse_devices_without_a_kernel():
         K.patch_sample(x[0, 0], x[0, 0], x[0, 0])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("border", BORDERS)
-def test_cuda_fused_blur_matches_plain(cuda_device, border):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.rand((2, 3, 120, 160), device=cuda_device, generator=gen)
-    k = torch.tensor(_kernels_1d([(15, 1.52)])[0], device=cuda_device)
-    before = K.launches["fused_separable_blur2d"]
-    out = K.fused_separable_blur2d(x, k, k, border)
-    assert K.launches["fused_separable_blur2d"] == before + 1
-    ref = K.fused_separable_blur2d_plain(x, k, k, border)
-    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+# --- the adjoints' operators --------------------------------------------------
+
+def _dyadic_taps(k, seed):
+    """Taps that are multiples of 1/16: any sum of them is exact in f32."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(1, 16, k).astype(np.float32) / 16)
 
 
-@pytest.mark.cuda
-def test_cuda_multi_level_blur_matches_plain(cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    x = torch.rand((1, 1, 240, 320), device=cuda_device, generator=gen)
+@pytest.mark.parametrize("border", ["constant", "circular"])
+@pytest.mark.parametrize("k,size", [(5, 17), (4, 9), (11, 6), (30, 9)])
+def test_flipped_taps_are_the_transposed_operator(border, k, size):
+    """The fused adjoint of a constant or circular blur runs the blur kernel
+    with flipped taps anchored at K - 1 - K // 2: that operator is Svᵀ."""
+    taps = _dyadic_taps(k, k + size)
+    flipped = K.band_matrix(taps.flip(0), size, border, anchor=k - 1 - k // 2)
+    assert torch.equal(flipped, K.band_matrix(taps, size, border).T)
+
+
+def _rebuild(start, w, taps, shape):
+    dense = torch.zeros(shape)
+    for lvl, K_l in enumerate(taps):
+        assert not w[lvl, K_l:].any()
+        idx = start[lvl].long()[:, None] + torch.arange(K_l)[None, :]
+        dense[lvl].scatter_(1, idx, w[lvl, :K_l].T)
+    return dense
+
+
+@pytest.mark.parametrize("border", ["reflect", "replicate", "constant"])
+@pytest.mark.parametrize("k,size", [(11, 64), (4, 9), (15, 6), (31, 9)])
+def test_adjoint_bands_rebuild_transposed_operator(border, k, size):
+    """The fused adjoint's bands of Svᵀ (reflect, replicate; the first and
+    last columns collect the folded taps) rebuild it bit for bit, kernels
+    wider than the image included."""
+    taps = torch.rand(k, generator=torch.Generator().manual_seed(k + size))
+    start, w, K_l = K._adjoint_band_tables_cached(
+        (tuple(taps.tolist()),), size, border, "cpu")
+    dense = _rebuild(start, w, K_l, (1, size, size))
+    assert torch.equal(dense[0], K.band_matrix(taps, size, border).T)
+
+
+@pytest.mark.parametrize("border,size", [("replicate", 80), ("reflect", 80),
+                                         ("replicate", 30)])
+def test_adjoint_bands_rebuild_transposed_cumulative_operators(border, size):
+    """The multi-level adjoint's bands of SV_lᵀ rebuild every transposed
+    cumulative operator bit for bit."""
     sigmas = [1.23, 1.55, 1.95, 2.45, 3.09]
-    kers = [torch.tensor(k, device=cuda_device) for k in _kernels_1d(
-        [(2 * int(np.ceil(4 * s)) + 1, s) for s in sigmas])]
-    out = K.multi_level_blur(x, kers, kers)
-    ref = K.multi_level_blur_plain(x, kers, kers)
-    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+    kers = _kernels_1d([(2 * int(np.ceil(4 * s)) + 1, s) for s in sigmas])
+    values = tuple(tuple(float(v) for v in k) for k in kers)
+    ops = K.cumulative_operators([torch.tensor(k) for k in kers], size,
+                                 border)
+    start, w, taps = K._adjoint_band_tables_cached(values, size, border, "cpu")
+    assert torch.equal(_rebuild(start, w, taps, ops.shape),
+                       ops.transpose(1, 2))
 
 
-@pytest.mark.cuda
-def test_cuda_patch_sample_matches_plain(cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(2)
-    atlas = torch.rand((900, 640), device=cuda_device, generator=gen)
-    px = torch.rand((64, 1681), device=cuda_device, generator=gen) * 700 - 30
-    py = torch.rand((64, 1681), device=cuda_device, generator=gen) * 950 - 25
-    out = K.patch_sample(atlas, px, py)
-    ref = K.patch_sample_plain(atlas, px, py)
-    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+# --- bf16 patch mode ------------------------------------------------------------
+
+def _jax_bf16_sample(atlas, px, py):
+    """The TPU kernel's bf16 mode on the whole atlas as its window: the 2-hot
+    y weights and the atlas cast to bf16 explicitly (as the matrix unit
+    rounds them), one product with f32 sums, then the 2-hot x pass in f32."""
+    H, W = atlas.shape
+    x = jnp.clip(px, 0.0, W - 1.0)
+    y = jnp.clip(py, 0.0, H - 1.0)
+    x0, y0 = jnp.floor(x), jnp.floor(y)
+    tx, ty = x - x0, y - y0
+    y0i = y0.astype(jnp.int32)[..., None]
+    y1i = jnp.minimum(y0i + 1, H - 1)
+    x0i = x0.astype(jnp.int32)[..., None]
+    x1i = jnp.minimum(x0i + 1, W - 1)
+    rows = jnp.arange(H)
+    cols = jnp.arange(W)
+    wy = (jnp.where(rows == y0i, 1.0 - ty[..., None], 0.0)
+          + jnp.where(rows == y1i, ty[..., None], 0.0))
+    P = jnp.einsum("nsh,hw->nsw", wy.astype(jnp.bfloat16),
+                   atlas.astype(jnp.bfloat16),
+                   preferred_element_type=jnp.float32)
+    wx = (jnp.where(cols == x0i, 1.0 - tx[..., None], 0.0)
+          + jnp.where(cols == x1i, tx[..., None], 0.0))
+    return jnp.sum(P * wx, axis=-1)
+
+
+def _patch_inputs(seed, Ha=300, Wa=400, N=9, S=19 * 19):
+    rng = np.random.default_rng(seed)
+    atlas = rng.random((Ha, Wa), dtype=np.float32)
+    centers = rng.uniform([60, 60], [Wa - 60, Ha - 60], (N, 2))
+    off = rng.uniform(-55, 55, (N, S, 2))
+    px = (centers[:, None, 0] + off[..., 0]).astype(np.float32)
+    py = (centers[:, None, 1] + off[..., 1]).astype(np.float32)
+    return atlas, px, py
+
+
+def test_patch_sample_bf16_plain_matches_jax_formula():
+    """1e-6 against the bf16 formula written with explicit jnp.bfloat16
+    casts, and 4e-3 against the exact 'split' Pallas kernel (bf16 keeps 8
+    bits: weights and texels each round by up to 2⁻⁹ relative)."""
+    atlas, px, py = _patch_inputs(3)
+    out = K.patch_sample(torch.from_numpy(atlas), torch.from_numpy(px),
+                         torch.from_numpy(py), mode="bf16")
+    ref = jax.jit(_jax_bf16_sample)(jnp.asarray(atlas), jnp.asarray(px),
+                                    jnp.asarray(py))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    split = pk.patch_sample_mxu(jnp.asarray(atlas), jnp.asarray(px),
+                                jnp.asarray(py), interpret=True, mode="split")
+    np.testing.assert_allclose(out.numpy(), np.asarray(split), atol=4e-3)
+    assert not np.array_equal(out.numpy(), np.asarray(split))
+
+
+def test_patch_sample_modes():
+    atlas, px, py = (torch.from_numpy(a) for a in _patch_inputs(4, N=2))
+    exact = K.patch_sample(atlas, px, py)
+    torch.testing.assert_close(K.patch_sample(atlas, px, py, "highest"),
+                               exact, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="mode"):
+        K.patch_sample(atlas, px, py, "fp8")
+
+
+def test_new_cpu_wrappers_launch_nothing_and_refuse_meta():
+    K.reset_launches()
+    g = torch.rand(1, 1, 16, 16)
+    k = torch.ones(3) / 3
+    K.fused_separable_blur2d_adjoint(g, k, k, "reflect")
+    K.multi_level_blur_adjoint(g[None].expand(2, -1, -1, -1, -1), [k, k],
+                               [k, k])
+    K.patch_sample(g[0, 0], torch.zeros(2, 4), torch.zeros(2, 4), "bf16")
+    K.streaming_min2(torch.rand(5, 8), torch.rand(7, 8))
+    assert sum(K.launches.values()) == 0
+    meta = torch.empty((1, 1, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        K.fused_separable_blur2d_adjoint(meta, k, k)
+    with pytest.raises(ValueError, match="no kernel"):
+        K.streaming_min2(meta[0, 0], meta[0, 0])
