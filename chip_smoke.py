@@ -44,6 +44,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -85,21 +86,36 @@ def card_line() -> str:
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Device time of one call: the kernels' own time summed by
-    torch.profiler over `reps` calls (host overhead excluded). Fails where
-    the profiler sees no device time."""
+    torch.profiler over `reps` calls (host overhead excluded). The
+    profiler now and then records no device event for a window; such a
+    window is taken again, and after three empty windows the call is timed
+    with CUDA events around the `reps` calls (launch gaps included), which
+    is said on a line of its own."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us > 0:
-        fail("torch.profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    print(f"torch.profiler recorded no device time three times: CUDA "
+          f"events give {ms:.4f} ms a call")
+    if not ms > 0:
+        fail("no device time recorded")
+    return ms
 
 
 def bound(nbytes: float, flops: float):
@@ -108,33 +124,137 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def blur_bound(h: int, w: int, n: int, taps: int):
+    """One separable blur of n (h, w) images: one read of x, one write of
+    the output; 2 flops a tap, `taps` taps (both axes) a pixel."""
+    return bound(2 * n * h * w * 4, 2 * taps * n * h * w)
+
+
+def ml_bound(h: int, w: int, n: int, levels: int, taps: int):
+    """multi_level_blur of n (h, w) images: one read of x, one write of each
+    level; the least work is the sequential chain (each level one separable
+    blur of the previous), `taps` taps (both axes) a pixel, 2 flops a tap."""
+    return bound((1 + levels) * n * h * w * 4, 2 * taps * n * h * w)
+
+
+def patch_bound(atlas_numel: int, samples: int):
+    """patch_sample: the atlas read once, px, py read and the samples
+    written once; 13 flops a bilinear sample."""
+    return bound(atlas_numel * 4 + 3 * samples * 4, 13 * samples)
+
+
+def path_launch_shapes(h: int, w: int):
+    """The shapes at which one image of the pair launches each ported
+    kernel (SIFTFeature: ScalePyramid(3, 1.6, 32), 19² orientation and 41²
+    descriptor patches): the first-level blur (k = 15, replicate), the
+    pyrdown blurs (k = 5, reflect) of each patch atlas, one multi-level
+    launch per octave, and the atlas rows and samples per keypoint of each
+    patch call. Mirrors ops/pyramid.py and feature/laf.py."""
+    from kornia_tpu_torch.ops.pyramid import ScalePyramid
+    fused = [(h, w, 15, "replicate")]
+    patches = []
+    for ps in (19, 41):
+        hh, ww, rows = h, w, h
+        for _ in range(max(1, min(h, w) // ps) - 1):
+            fused.append((hh, ww, 5, "reflect"))
+            hh, ww = hh // 2, ww // 2
+            if min(hh, ww) < ps:
+                break
+            rows += hh
+        patches.append((rows, ps * ps))
+    octaves = [(h >> o, w >> o)
+               for o in range(ScalePyramid(3, 1.6, 32).n_octaves(h, w))]
+    return dict(fused_separable_blur2d=fused, multi_level_blur=octaves,
+                patch_sample=patches)
+
+
+# CUDA kernels (as torch.profiler names them) -> the wrapper that launches
+# them on the pair's path
+PAIR_KERNELS = {
+    "fused_separable_blur2d": ("taps_vertical", "taps_horizontal",
+                               "tile_taps_blur"),
+    "multi_level_blur": ("band_vertical", "band_horizontal",
+                         "tile_band_blur"),
+    "patch_sample": ("patch_sample_kernel",),
+}
+
+
+def _kernel_name(key: str) -> str:
+    """'void (anonymous namespace)::band_vertical<false>(float const*, ...)'
+    -> 'band_vertical'."""
+    head = re.split(r"[(<]", key.replace("(anonymous namespace)::", ""),
+                    maxsplit=1)[0]
+    return head.split("::")[-1].split()[-1]
+
+
+def capture_patch_coords(dev, img):
+    """The (atlas, px, py) of each patch_sample call that SIFTFeature makes
+    on `img`: the pair's own LAFs, 19² orientation and 41² descriptor
+    grids."""
+    from kornia_tpu_torch.feature import laf as laf_mod
+    from kornia_tpu_torch.feature.integrated import SIFTFeature
+    calls = []
+    real = laf_mod.patch_sample
+
+    def spy(atlas, px, py, mode="split"):
+        calls.append((atlas.clone(), px.clone(), py.clone()))
+        return real(atlas, px, py, mode)
+
+    laf_mod.patch_sample = spy
+    try:
+        SIFTFeature(num_features=NF)(img)
+    finally:
+        laf_mod.patch_sample = real
+    return calls
+
+
+def in_turns(first, second, reps: int = 20):
+    """Device ms of two functions timed first, second, second, first; each
+    reading is kept (their spread is the noise of the comparison)."""
+    a0 = device_ms(first, reps)
+    b0 = device_ms(second, reps)
+    b1 = device_ms(second, reps)
+    a1 = device_ms(first, reps)
+    return (a0, a1), (b0, b1)
+
+
 def kernel_phase(K, filters, dev) -> dict:
     """Each kernel against its plain version at the path's shapes; times of
-    the wrappers as the path calls them."""
+    the wrappers as the path calls them, at each shape the path gives
+    them."""
     from kornia_tpu_torch.ops.pyramid import ScalePyramid
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
+    shapes = path_launch_shapes(H, W)
 
     # --- fused_separable_blur2d: first-level Gaussian (k=15, replicate) and
-    # the pyrdown chain of the patch atlas (k=5, reflect)
+    # the pyrdown chain of the patch atlas (k=5, reflect), each distinct
+    # shape of the path
     x = torch.rand((1, 1, H, W), device=dev, generator=gen)
     sig0 = math.sqrt(1.6 ** 2 - 0.5 ** 2)
     k15 = filters.get_gaussian_kernel1d(15, sig0, device=dev).reshape(-1)
     k5 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev) / 16.0
+    taps = {15: k15, 5: k5}
     err = 0.0
-    cases = [(x, k15, "replicate")] + [
-        (torch.rand((1, 1, H >> i, W >> i), device=dev, generator=gen), k5,
-         "reflect") for i in range(4)]
-    for xi, ki, border in cases:
+    per_shape = []
+    for hh, ww, k, border in dict.fromkeys(shapes["fused_separable_blur2d"]):
+        xi = x if (hh, ww) == (H, W) else torch.rand(
+            (1, 1, hh, ww), device=dev, generator=gen)
+        ki = taps[k]
         out = K.fused_separable_blur2d(xi, ki, ki, border)
         ref = K.fused_separable_blur2d_plain(xi, ki, ki, border)
         err = max(err, (out - ref).abs().max().item())
+        t = device_ms(lambda: K.fused_separable_blur2d(xi, ki, ki, border))
+        b = blur_bound(hh, ww, 1, 2 * k)[0]
+        per_shape.append(dict(shape=[hh, ww], k=k, border=border, ms=t,
+                              bound_ms=b))
+        print(f"fused_separable_blur2d {hh}x{ww} k={k} {border}: {t:.4f} ms, "
+              f"bound {b:.5f} ms ({t / b:.1f}x)")
     ms = device_ms(lambda: K.fused_separable_blur2d(x, k15, k15, "replicate"))
     plain_ms = device_ms(lambda: K.fused_separable_blur2d_plain(
         x, k15, k15, "replicate"))
-    # one read of x, one write of the output; 2 flops a tap, 15 + 15 taps
-    b_ms, b_by = bound(2 * x.numel() * 4, 2 * (15 + 15) * H * W)
-    results["fused_separable_blur2d"] = dict(
+    b_ms, b_by = blur_bound(H, W, 1, 15 + 15)
+    results["fused_separable_blur2d"] = dict(per_shape=per_shape,
         source="kornia_tpu_torch/csrc/banded_blur.cu",
         replaces="kornia_tpu/ops/pallas_kernels.py:239",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -143,12 +263,21 @@ def kernel_phase(K, filters, dev) -> dict:
     # --- multi_level_blur: every octave of the 480x640 pyramid, with the
     # pyramid's own incremental kernels (host tensors, as it passes them)
     kers, _ = ScalePyramid()._level_kernels(1.6)
+    L = len(kers)
+    chain_taps = 2 * sum(k.numel() for k in kers)
     err = 0.0
-    for i in range(4):
-        xi = torch.rand((1, 1, H >> i, W >> i), device=dev, generator=gen)
+    per_shape = []
+    for hh, ww in shapes["multi_level_blur"]:
+        xi = x if (hh, ww) == (H, W) else torch.rand(
+            (1, 1, hh, ww), device=dev, generator=gen)
         out = K.multi_level_blur(xi, kers, kers, "replicate")
         ref = K.multi_level_blur_plain(xi, kers, kers, "replicate")
         err = max(err, (out - ref).abs().max().item())
+        t = device_ms(lambda: K.multi_level_blur(xi, kers, kers, "replicate"))
+        b = ml_bound(hh, ww, 1, L, chain_taps)[0]
+        per_shape.append(dict(shape=[hh, ww], levels=L, ms=t, bound_ms=b))
+        print(f"multi_level_blur {hh}x{ww} L={L}: {t:.4f} ms, bound "
+              f"{b:.5f} ms ({t / b:.1f}x)")
     # the band tables are built once per (kernels, size, border, device)
     K._band_tables_cached.cache_clear()
     K._cumulative_cached.cache_clear()
@@ -160,53 +289,89 @@ def kernel_phase(K, filters, dev) -> dict:
     ms = device_ms(lambda: K.multi_level_blur(x, kers, kers, "replicate"))
     plain_ms = device_ms(lambda: K.multi_level_blur_plain(
         x, kers, kers, "replicate"))
-    L = len(kers)
     taps = K._band_tables_cached(K._values(kers), H, "replicate",
                                  str(dev))[2]
     band_taps = sum(taps) + sum(K._band_tables_cached(
         K._values(kers), W, "replicate", str(dev))[2])
-    chain_taps = 2 * sum(k.numel() for k in kers)
-    # one read of x, one write of each of the L levels; the least work is
-    # the sequential chain (each level one separable blur of the previous,
-    # 2 flops a tap), which the cumulative bands compute in one pass
-    b_ms, b_by = bound((1 + L) * x.numel() * 4,
-                       2 * min(chain_taps, band_taps) * H * W)
+    # the cumulative bands compute the chain in one pass, with more taps
+    b_ms, b_by = ml_bound(H, W, 1, L, min(chain_taps, band_taps))
     print(f"multi_level_blur 480x640: band taps per pixel {band_taps} "
           f"(levels {list(taps)} vertical), sequential chain "
           f"{chain_taps}; band tables built in {tables_ms:.2f} ms on the "
           f"first call (host clock), cached after")
-    results["multi_level_blur"] = dict(
+    results["multi_level_blur"] = dict(per_shape=per_shape,
         source="kornia_tpu_torch/csrc/banded_blur.cu",
         replaces="kornia_tpu/ops/pallas_kernels.py:378",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
 
-    # --- patch_sample: descriptor (41² samples, atlas 900 rows) and
-    # orienter (19² samples, atlas 930 rows) calls of 1024 keypoints
+    # --- patch_sample: random coordinates over the whole atlas (clamping
+    # at every edge) as a correctness check, orienter (19² samples, atlas
+    # 930 rows) and descriptor (41², 900 rows) calls of 1024 keypoints
     err = 0.0
-    for rows, S in ((930, 19 * 19), (900, 41 * 41)):
+    for rows, S in shapes["patch_sample"]:
         atlas = torch.rand((rows, W), device=dev, generator=gen)
-        px = torch.rand((NF, S), device=dev, generator=gen) * (W - 1)
-        py = torch.rand((NF, S), device=dev, generator=gen) * (rows - 1)
+        px = torch.rand((NF, S), device=dev, generator=gen) * (W + 20) - 10
+        py = torch.rand((NF, S), device=dev, generator=gen) * (rows + 20) - 10
         out = K.patch_sample(atlas, px, py)
         ref = K.patch_sample_plain(atlas, px, py)
         err = max(err, (out - ref).abs().max().item())
-    ms = device_ms(lambda: K.patch_sample(atlas, px, py))
+    # the times on the coordinates the path gives it: the pair's own LAFs
+    img0 = bench_input(H, W, dev)[0]
+    path_ms = path_patch_times(K, capture_patch_coords(dev, img0), "split")
+    for c in path_ms:
+        err = max(err, c["max_abs_err"])
+    desc = path_ms[-1]  # the 41² descriptor call, the larger
+    atlas, px, py = desc.pop("inputs")
     plain_ms = device_ms(lambda: K.patch_sample_plain(atlas, px, py))
-    grid = torch.stack([2.0 * px / (W - 1) - 1.0, 2.0 * py / (rows - 1) - 1.0],
-                       dim=-1)[None]
-    library_ms = device_ms(lambda: torch.nn.functional.grid_sample(
-        atlas[None, None], grid, "bilinear", "border", align_corners=True))
-    nbytes = atlas.numel() * 4 + 3 * px.numel() * 4
-    b_ms, b_by = bound(nbytes, 13 * px.numel())
-    results["patch_sample"] = dict(
+    results["patch_sample"] = dict(per_shape=path_ms,
         source="kornia_tpu_torch/csrc/patch_sample.cu",
         replaces="kornia_tpu/ops/pallas_kernels.py:539",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms, tol=PATCH_ATOL)
+        max_abs_err=err, ms=statistics.mean(desc["kernel_ms"]),
+        plain_ms=plain_ms, bound_ms=desc["bound_ms"], bound_by=desc["bound_by"],
+        library_ms=statistics.mean(desc["library_ms"]), tol=PATCH_ATOL)
+    for c in path_ms:
+        c.pop("inputs", None)
 
     report(results)
     return results
+
+
+def path_patch_times(K, calls, mode: str) -> list:
+    """patch_sample on the path's own (atlas, px, py), each call against
+    its plain version, then timed in turns with F.grid_sample ('border',
+    align_corners=True: the same function on normalised coordinates);
+    grid_sample only for the exact modes (nothing rounds as bf16 does)."""
+    out = []
+    for atlas, px, py in calls:
+        rows, cols = atlas.shape
+        n, s = px.shape
+        got = K.patch_sample(atlas, px, py, mode)
+        e = (got - K.patch_sample_plain(atlas, px, py, mode)).abs().max()
+        kern = lambda: K.patch_sample(atlas, px, py, mode)  # noqa: E731
+        if mode == "bf16":
+            k_ms, lib_ms = [device_ms(kern), device_ms(kern)], None
+        else:
+            grid = torch.stack([2.0 * px / (cols - 1) - 1.0,
+                                2.0 * py / (rows - 1) - 1.0], dim=-1)[None]
+            lib = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+                atlas[None, None], grid, "bilinear", "border",
+                align_corners=True)
+            k_ms, lib_ms = in_turns(kern, lib)
+        b_ms, b_by = patch_bound(atlas.numel(), px.numel())
+        ext = max(float((px.amax(1) - px.amin(1)).max()),
+                  float((py.amax(1) - py.amin(1)).max()))
+        print(f"patch_sample[{mode}] path coordinates {n}x{s} on a "
+              f"{rows}x{cols} atlas (largest footprint {ext:.1f} px): kernel "
+              f"{[round(v, 5) for v in k_ms]} ms, grid_sample "
+              f"{lib_ms and [round(v, 5) for v in lib_ms]} ms, bound "
+              f"{b_ms:.5f} ms, max abs err {e.item():.3e}")
+        out.append(dict(shape=[n, s], atlas=[rows, cols], footprint_px=ext,
+                        kernel_ms=list(k_ms),
+                        library_ms=lib_ms and list(lib_ms), bound_ms=b_ms,
+                        bound_by=b_by, max_abs_err=e.item(),
+                        inputs=(atlas, px, py)))
+    return out
 
 
 def report(results: dict) -> None:
@@ -368,9 +533,51 @@ def main_path(K, dev, profile_out) -> dict:
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
+    per_pair = pair_kernel_times(kern, launches)
+    print(json.dumps({"per_pair": per_pair}))
     return dict(launches=launches, pair_ms=pair_ms, stage_ms=stage_ms,
                 busy_ms=busy_ms, n_kernels=n_kernels, rotation_deg=rot,
-                t=t.tolist(), inliers=n_inl)
+                t=t.tolist(), inliers=n_inl, per_pair=per_pair)
+
+
+def pair_kernel_times(kern, launches) -> dict:
+    """Per ported kernel of the pair: its device time summed over the
+    profiled pair's CUDA kernels, and the sum of each launch's own bound at
+    its own shape (both images). Fails where the launch list disagrees with
+    the counted launches."""
+    from kornia_tpu_torch.ops.pyramid import ScalePyramid
+    shapes = path_launch_shapes(H, W)
+    kers = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)[0]
+    chain, levels = 2 * sum(k.numel() for k in kers), len(kers)
+    bounds = {
+        "fused_separable_blur2d": [blur_bound(h, w, 1, 2 * k)[0]
+                                   for h, w, k, _ in
+                                   shapes["fused_separable_blur2d"]],
+        "multi_level_blur": [ml_bound(h, w, 1, levels, chain)[0]
+                             for h, w in shapes["multi_level_blur"]],
+        "patch_sample": [patch_bound(rows * W, NF * s)[0]
+                         for rows, s in shapes["patch_sample"]],
+    }
+    out = {}
+    for name, names in PAIR_KERNELS.items():
+        if launches.get(name) != 2 * len(bounds[name]):
+            fail(f"{name}: {launches.get(name)} launches on the pair, the "
+                 f"launch list has {2 * len(bounds[name])}")
+        by = {}
+        for e in kern:
+            kn = _kernel_name(e.key)
+            if kn in names:
+                by[kn] = by.get(kn, 0.0) + e.self_device_time_total / 1e3
+        ms = sum(by.values())
+        if not ms > 0:
+            fail(f"{name}: no device time of {names} in the pair's profile")
+        b = 2 * sum(bounds[name])
+        out[name] = dict(ms_per_pair=ms, bound_per_pair=b,
+                         loss_per_pair=ms - b, launches=launches[name],
+                         cuda_kernels={k: round(v, 5) for k, v in by.items()})
+        print(f"per pair {name}: {ms:.4f} ms device, bound {b:.5f} ms, "
+              f"{launches[name]} launches, kernels {out[name]['cuda_kernels']}")
+    return out
 
 
 def cross_check(K, dev) -> None:
@@ -703,15 +910,21 @@ def fast_patches_phase(K, dev) -> dict:
           f"{split_err:.3e} (limit {BF16_VS_EXACT})")
     if not split_err <= BF16_VS_EXACT:
         fail(f"bf16 patch kernel is {split_err} from the exact kernel")
-    ms = device_ms(lambda: K.patch_sample(atlas, px, py, "bf16"))
+    # the times on the coordinates the path gives it
+    path_ms = path_patch_times(K, capture_patch_coords(dev, img0), "bf16")
+    for c in path_ms:
+        err = max(err, c["max_abs_err"])
+    desc = path_ms[-1]
+    atlas, px, py = desc.pop("inputs")
     plain_ms = device_ms(lambda: K.patch_sample_plain(atlas, px, py, "bf16"))
-    b_ms, b_by = bound(atlas.numel() * 4 + 3 * px.numel() * 4,
-                       13 * px.numel())
-    results = {"patch_sample[bf16]": dict(
+    for c in path_ms:
+        c.pop("inputs", None)
+    results = {"patch_sample[bf16]": dict(per_shape=path_ms,
         source="kornia_tpu_torch/csrc/patch_sample.cu",
         replaces="kornia_tpu/ops/pallas_kernels.py:512",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, tol=BF16_ATOL)}
+        max_abs_err=err, ms=statistics.mean(desc["kernel_ms"]),
+        plain_ms=plain_ms, bound_ms=desc["bound_ms"],
+        bound_by=desc["bound_by"], library_ms=None, tol=BF16_ATOL)}
     report(results)
     return dict(kernels=results, launches=launches,
                 pair_ms=statistics.median(times))

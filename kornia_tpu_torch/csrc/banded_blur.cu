@@ -16,28 +16,35 @@
 // What bounds it on the card: at the two-view path's and the SSIM loss's
 // shapes every function here is bound by its bytes (one read of x or of
 // the L gradients, one write per output); the taps are few (15 + 15 for
-// the first-level blur, 11 + 11 for SSIM, 5 + 5 for pyrdown).
+// the first-level blur, 11 + 11 for SSIM, 5 + 5 for pyrdown), but the
+// multi-level bands are wide (11 to 87 taps an axis), so a kernel that
+// loads each tap from L2 is bound by those loads instead.
 //
 // What the design does about it: it never touches an operator entry that
-// is zero. separable_blur reads the 1-D kernels themselves and computes
-// each tap's source index under the border rule, as the operator folds it
+// is zero. separable_blur reads the 1-D kernels themselves and folds each
+// tap's source index by the border rule, as the operator does
 // (kornia_tpu_torch/ops/kernels.py::_fold_taps is the same rule in
 // torch); its anchor (the tap that lands on the output pixel) is an
 // argument, so the adjoint of a constant or circular blur is the same
 // kernel run with flipped taps. banded_blur reads each operator as a band:
 // per output row (or column) a start index and K_l consecutive weights,
-// stored tap-major (L, Kmax, size) so that the threads of a warp read
-// neighbouring weights; level l loops over its own K_l taps only. Entries
-// of an operator outside its band are exact zeros, so the sum over the band
-// is the dense product. The transposed operators of a reflect or replicate
-// blur, and the transposed cumulative operators, are banded with the same
-// half-widths (their first and last columns collect the folded taps), so
-// the adjoints read them the same way; banded_blur_adjoint sums the levels
-// in its second pass, inside the launch. All run a vertical pass into an
-// intermediate, then a horizontal pass; plain FMA loops, simple and exact
-// first (shared-memory tiling and fusion of the passes come later).
+// stored tap-major (L, Kmax, size). Entries of an operator outside its band
+// are exact zeros, so the sum over the band is the dense product.
+// The forward blurs run one tiled kernel (below): a block stages its tile's
+// input and halo in shared memory once, runs both passes there, and writes
+// each output once, so no intermediate goes through device memory and each
+// staged value serves several taps; for separable_blur the border rule is
+// applied while the halo is staged and never in the tap loops. The
+// transposed operators of a reflect or replicate blur, and the transposed
+// cumulative operators, are banded with the same half-widths (their first
+// and last columns collect the folded taps), so the adjoints read them the
+// same way, in two plain passes through an intermediate (band_vertical,
+// band_horizontal_sum: the levels summed inside the launch). Those passes
+// also serve forward bands too wide to stage (a circular border's).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -182,6 +189,385 @@ __global__ void band_horizontal_sum(const float* __restrict__ tmp,
     out[((size_t)n * H + row) * W + col] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// Tiled blur: both passes of one output tile in one block, through shared
+// memory. Serves the forward single blur (taps, the border folded while the
+// halo is staged) and the forward multi-level blur (bands, one level per
+// block); the passes above stay for the adjoints, for bands too wide to
+// stage and for multi-level grids too small to fill the card.
+//
+// A block owns a Tile::H x Tile::W output tile of one image (and level).
+// It first stages, with asynchronous copies that are all in flight at once
+// (a small tile then costs one round trip to memory, not one per load):
+//   * xs: every input row and column the tile's outputs read, once, 16
+//     bytes a copy where the rows allow it;
+//   * the weights: the 1-D taps, or the band weights of the tile's rows
+//     (k, i), tap-major, zero past the level's K;
+//   * the band starts of the tile's rows and columns.
+// Then the vertical pass writes tmp (the tile's rows over every staged
+// column) in shared memory; the bands' column weights (k, j) are staged in
+// xs's place; the horizontal pass reads tmp and writes each output once. Each thread computes a run of kRun consecutive outputs
+// along the tap axis: where the run's band starts are consecutive (every
+// tap of the single blur, the interior of a band), a window of kRun staged
+// values slides along the taps, so one load serves kRun taps and the run's
+// kRun band weights of a tap are two 16-byte loads the whole warp shares;
+// where they are equal (the band clamped at an edge), one load per
+// tap serves the run; a run across the clamp sums each output alone.
+// ---------------------------------------------------------------------------
+
+// a block's tile: output rows and columns, threads
+template <int kRows, int kCols, int kThreads>
+struct Tile {
+    static constexpr int H = kRows;
+    static constexpr int W = kCols;
+    static constexpr int threads = kThreads;
+};
+// the single blur on grids of at least two blocks per SM; on smaller grids
+// (the pyramid's small levels) a block's serial work, not the card's
+// width, sets the time, so the tiles are smaller (the wrapper chooses:
+// kornia_tpu_torch/ops/kernels.py::_blocks_per_sm)
+using LargeTile = Tile<32, 64, 256>;
+using SmallTile = Tile<16, 32, 256>;
+// the multi-level blur: a block holds one level of a tile; 512 threads
+// share its long band loops
+using BandTile = Tile<32, 64, 512>;
+constexpr int kRun = 8;  // outputs per thread along the tap axis
+
+struct TiledArgs {
+    const float* x;   // (N, H, W)
+    float* out;       // (L, N, H, W)
+    int N, H, W, L;
+    int vec;          // x and out rows may be copied as 16 bytes
+    int vec_wv, vec_wh;  // so may the rows of wv and wh
+    // taps (single blur): ky (Kv,), kx (Kh,), anchors, border rule
+    const float* ky;
+    const float* kx;
+    int av, ah, border;
+    // bands (multi-level blur): starts (L, H) and (L, W), weights
+    // (L, Kv_max, H) and (L, Kh_max, W), taps per level
+    const int* sv;
+    const float* wv;
+    const int* sh;
+    const float* wh;
+    int Kv_max, Kh_max;
+    LevelTaps taps;
+    // shared-memory layout (floats), from tiled_geometry()
+    int xpitch, tpitch, off_hb, off_st, off_x, off_tmp;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// asynchronous copy of 16 bytes, zeros where !keep (src is then not read)
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       bool keep) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(keep ? 16 : 0));
+}
+
+// asynchronous copy of 4 bytes, zeros where !keep
+__device__ __forceinline__ void copy4(void* dst, const void* src, bool keep) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(keep ? 4 : 0));
+}
+
+__device__ __forceinline__ void copies_wait() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+enum RunKind { kConsecutive, kEqual, kAcross };
+
+// o[r] = sum_k w(k, r) * src[(start_r + k) * stride] for the kRun outputs r
+// of a run, start_r = s0 + r (kConsecutive), s0 (kEqual) or st[r] - st_off
+// (kAcross). Weights: bands wt[k * wpitch + r]; taps wt[k] for every r.
+// The window's tap loop runs to Kpad (K rounded up to kRun, zero weights
+// past K); its loads past the last staged index `last` read that index
+// instead (a finite value, weighed by zero).
+template <bool kBands>
+__device__ __forceinline__ void run_sum(const float* __restrict__ src,
+                                        int stride, int last, int s0,
+                                        RunKind kind, const int* st,
+                                        int st_off,
+                                        const float* __restrict__ wt,
+                                        int wpitch, int K, int Kpad,
+                                        float (&acc)[kRun]) {
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) acc[r] = 0.0f;
+    if (!kBands || kind == kConsecutive) {
+        // win[m % kRun] holds src[s0 + m]
+        float win[kRun];
+#pragma unroll
+        for (int m = 0; m < kRun - 1; ++m)
+            win[m] = src[min(s0 + m, last) * stride];
+        for (int k = 0; k < Kpad; k += kRun) {
+#pragma unroll
+            for (int u = 0; u < kRun; ++u) {
+                win[(u + kRun - 1) % kRun] =
+                    src[min(s0 + k + u + kRun - 1, last) * stride];
+                if (kBands) {
+                    const float* w = wt + (k + u) * wpitch;
+                    const float4 w0 = *reinterpret_cast<const float4*>(w);
+                    const float4 w1 = *reinterpret_cast<const float4*>(w + 4);
+                    const float ws[kRun] = {w0.x, w0.y, w0.z, w0.w,
+                                            w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+                    for (int r = 0; r < kRun; ++r)
+                        acc[r] = fmaf(ws[r], win[(u + r) % kRun], acc[r]);
+                } else {
+                    const float w = wt[k + u];
+#pragma unroll
+                    for (int r = 0; r < kRun; ++r)
+                        acc[r] = fmaf(w, win[(u + r) % kRun], acc[r]);
+                }
+            }
+        }
+    } else if (kind == kEqual) {
+        for (int k = 0; k < K; ++k) {
+            const float v = src[(s0 + k) * stride];
+            const float* w = wt + k * wpitch;
+            const float4 w0 = *reinterpret_cast<const float4*>(w);
+            const float4 w1 = *reinterpret_cast<const float4*>(w + 4);
+            const float ws[kRun] = {w0.x, w0.y, w0.z, w0.w,
+                                    w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int r = 0; r < kRun; ++r) acc[r] = fmaf(ws[r], v, acc[r]);
+        }
+    } else {
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+            const float* s = src + (st[r] - st_off) * stride;
+            for (int k = 0; k < K; ++k)
+                acc[r] = fmaf(wt[k * wpitch + r], s[k * stride], acc[r]);
+        }
+    }
+}
+
+// dst[k][i] = w[k * size + i] for k < K and i < n, zeros elsewhere in
+// (Kpad, kN): one tile's band weights, 16 bytes a copy where the rows allow
+// it (vec)
+template <int kN, int kThreads>
+__device__ __forceinline__ void stage_band_weights(float* dst, const float* w,
+                                                   int size, int K, int Kpad,
+                                                   int n, int vec) {
+    constexpr int kQuads = kN / 4;
+    for (int q = threadIdx.x; q < Kpad * kQuads; q += kThreads) {
+        const int k = q / kQuads, i = 4 * (q - k * kQuads);
+        float* d = dst + k * kN + i;
+        const float* src = w + (size_t)k * size + i;
+        if (vec && (k >= K || i + 4 <= n)) {
+            copy16(d, k < K ? src : w, k < K);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const bool keep = k < K && i + j < n;
+                copy4(d + j, keep ? src + j : w, keep);
+            }
+        }
+    }
+}
+
+// how a run of n outputs with band starts st[0 .. n) lies
+__device__ __forceinline__ RunKind run_kind(const int* st, int n) {
+    const int d = st[n - 1] - st[0];
+    return d == n - 1 ? kConsecutive : (d == 0 ? kEqual : kAcross);
+}
+
+template <class T, bool kBands>
+__device__ __forceinline__ void tiled_blur_body(const TiledArgs& a) {
+    extern __shared__ __align__(16) float smem[];
+    float* vb = smem;                  // (kvp, T::H) band weights, or taps
+    int* svs = reinterpret_cast<int*>(smem + a.off_st);  // (T::H,)
+    int* shs = svs + T::H;                               // (T::W,)
+    float* xs = smem + a.off_x;        // (rows, xpitch)
+    // bands: (khp, T::W) weights, staged in xs's place once the vertical
+    // pass is done (two blocks fit on an SM at 87 taps); taps: (khp,)
+    float* hb = smem + (kBands ? a.off_x : a.off_hb);
+    float* tmp = smem + a.off_tmp;     // (T::H, tpitch)
+
+    const int tid = threadIdx.x;
+    const int N = a.N, H = a.H, W = a.W;
+    // the widest levels first: they take longest
+    const int l = kBands ? a.L - 1 - (int)blockIdx.z / N : 0;
+    const int n = (int)blockIdx.z % N;
+    const int r0 = blockIdx.y * T::H;
+    const int c0 = blockIdx.x * T::W;
+    const int nr = min(T::H, H - r0);
+    const int nc = min(T::W, W - c0);
+    const int Kv = a.taps.v[l];
+    const int Kh = a.taps.h[l];
+    const int Kvp = (Kv + kRun - 1) / kRun * kRun;
+    const int Khp = (Kh + kRun - 1) / kRun * kRun;
+    const int* svl = kBands ? a.sv + (size_t)l * H : nullptr;
+    const int* shl = kBands ? a.sh + (size_t)l * W : nullptr;
+
+    // staged rows [ys, ys + rows) and columns [xa, xa + cols), xa 16-byte
+    // aligned: the first and last input each tap axis reads
+    const int ys = kBands ? __ldg(svl + r0) : r0 - a.av;
+    const int rows = (kBands ? __ldg(svl + r0 + nr - 1) : r0 + nr - 1 - a.av)
+                     + Kv - ys;
+    const int xs0 = kBands ? __ldg(shl + c0) : c0 - a.ah;
+    const int xa = xs0 & ~3;
+    const int cols = (kBands ? __ldg(shl + c0 + nc - 1) : c0 + nc - 1 - a.ah)
+                     + Kh - xa;
+    const int quads = (cols + 3) >> 2;
+    const float* xn = a.x + (size_t)n * H * W;
+
+    // --- stage x, the vertical weights (or both taps) and the starts
+    for (int q = tid; q < rows * quads; q += T::threads) {
+        const int s = q / quads;
+        const int c4 = 4 * (q - s * quads);
+        const int c = xa + c4;
+        float* dst = xs + s * a.xpitch + c4;
+        const int sr = kBands ? ys + s : border_index(ys + s, H, a.border);
+        if (a.vec && (sr < 0 || (c >= 0 && c + 4 <= W))) {
+            copy16(dst, sr >= 0 ? xn + (size_t)sr * W + c : xn, sr >= 0);
+        } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                // for bands, the clamp only keeps the slack past the last
+                // staged column in range
+                const int sc = kBands ? min(c + j, W - 1)
+                                      : border_index(c + j, W, a.border);
+                const bool keep = sr >= 0 && sc >= 0;
+                copy4(dst + j, keep ? xn + (size_t)sr * W + sc : xn, keep);
+            }
+        }
+    }
+    if (kBands) {
+        stage_band_weights<T::H, T::threads>(
+            vb, a.wv + (size_t)l * a.Kv_max * H + r0, H, Kv, Kvp, nr,
+            a.vec_wv);
+        for (int q = tid; q < T::H + T::W; q += T::threads)
+            copy4(svs + q,
+                  q < T::H ? svl + r0 + min(q, nr - 1)
+                             : shl + c0 + min(q - T::H, nc - 1),
+                  true);
+    } else {
+        for (int k = tid; k < Kvp; k += T::threads)
+            copy4(vb + k, a.ky + min(k, Kv - 1), k < Kv);
+        for (int k = tid; k < Khp; k += T::threads)
+            copy4(hb + k, a.kx + min(k, Kh - 1), k < Kh);
+    }
+    copies_wait();
+    __syncthreads();
+
+    // --- vertical pass: tmp[i][t] for the tile's rows and every staged
+    // column t the horizontal pass reads; a run of kRun rows per thread, a
+    // warp on neighbouring columns
+    const int t_lo = xs0 - xa;
+    const int t_n = cols - t_lo;
+    constexpr int kGroups = T::H / kRun;
+    for (int q = tid; q < kGroups * t_n; q += T::threads) {
+        const int g = q / t_n;
+        const int t = t_lo + (q - g * t_n);
+        const int i0 = g * kRun;
+        if (i0 >= nr) continue;
+        const RunKind kind =
+            kBands ? run_kind(svs + i0, min(kRun, nr - i0)) : kConsecutive;
+        const int s0 = kBands ? svs[i0] - ys : i0;
+        float acc[kRun];
+        run_sum<kBands>(xs + t, a.xpitch, rows - 1, s0, kind, svs + i0, ys,
+                        kBands ? vb + i0 : vb, T::H, Kv, Kvp, acc);
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) tmp[(i0 + r) * a.tpitch + t] = acc[r];
+    }
+    __syncthreads();
+    if (kBands) {
+        stage_band_weights<T::W, T::threads>(
+            hb, a.wh + (size_t)l * a.Kh_max * W + c0, W, Kh, Khp, nc,
+            a.vec_wh);
+        copies_wait();
+        __syncthreads();
+    }
+
+    // --- horizontal pass: row i, a run of kRun columns per thread; a warp
+    // holds 32 rows of one run (tpitch is odd: no bank conflicts) and
+    // shares the run's weights
+    for (int q = tid; q < T::H * (T::W / kRun); q += T::threads) {
+        const int i = q % T::H;
+        const int j0 = (q / T::H) * kRun;
+        if (i >= nr || j0 >= nc) continue;
+        const int jn = min(kRun, nc - j0);
+        const RunKind kind = kBands ? run_kind(shs + j0, jn) : kConsecutive;
+        const int s0 = kBands ? shs[j0] - xa : j0 + t_lo;
+        float acc[kRun];
+        run_sum<kBands>(tmp + i * a.tpitch, 1, cols - 1, s0, kind, shs + j0,
+                        xa, kBands ? hb + j0 : hb, T::W, Kh, Khp, acc);
+        float* dst = a.out + (((size_t)l * N + n) * H + r0 + i) * W + c0 + j0;
+        if (a.vec && jn == kRun) {
+            reinterpret_cast<float4*>(dst)[0] =
+                make_float4(acc[0], acc[1], acc[2], acc[3]);
+            reinterpret_cast<float4*>(dst)[1] =
+                make_float4(acc[4], acc[5], acc[6], acc[7]);
+        } else {
+#pragma unroll
+            for (int r = 0; r < kRun; ++r)
+                if (r < jn) dst[r] = acc[r];
+        }
+    }
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::threads, 512 / T::threads)
+tile_taps_blur(const TiledArgs a) {
+    tiled_blur_body<T, false>(a);
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::threads, 512 / T::threads)
+tile_band_blur(const TiledArgs a) {
+    tiled_blur_body<T, true>(a);
+}
+
+// the largest dynamic shared memory a block may have on sm_90
+constexpr int kMaxSmemBytes = 227 * 1024;
+
+// Shared-memory layout of the tiled blur for taps (or bands) of at most Kv
+// rows and Kh columns; returns its bytes.
+template <class T, bool kBands>
+int tiled_geometry(int Kv, int Kh, TiledArgs* a) {
+    const int kvp = (Kv + kRun - 1) / kRun * kRun;
+    const int khp = (Kh + kRun - 1) / kRun * kRun;
+    const int rows = T::H + Kv - 1;
+    const int cols = T::W + Kh - 1 + 3;  // + 16-byte alignment slack
+    a->xpitch = (cols + 3) & ~3;
+    a->tpitch = a->xpitch + 1;  // odd: the horizontal pass reads columns
+    a->off_hb = kvp * (kBands ? T::H : 1);
+    a->off_st = a->off_hb + (kBands ? 0 : khp);
+    a->off_x = a->off_st + T::H + T::W;
+    const int region = max(rows * a->xpitch, kBands ? khp * T::W : 0);
+    a->off_tmp = a->off_x + region;
+    return (a->off_tmp + T::H * a->tpitch) * (int)sizeof(float);
+}
+
+// Launches the tiled blur; returns the CUDA error, or cudaErrorInvalidValue
+// when the taps or bands are too wide to stage (the caller then runs the
+// passes).
+template <class T, bool kBands>
+cudaError_t launch_tiled(TiledArgs* a, int Kv, int Kh, cudaStream_t s) {
+    const int bytes = tiled_geometry<T, kBands>(Kv, Kh, a);
+    if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+    void (*kernel)(const TiledArgs);
+    if constexpr (kBands) kernel = tile_band_blur<T>;
+    else kernel = tile_taps_blur<T>;
+    if (bytes > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err != cudaSuccess) return err;
+    }
+    const dim3 grid((a->W + T::W - 1) / T::W, (a->H + T::H - 1) / T::H,
+                    a->L * a->N);
+    kernel<<<grid, T::threads, bytes, s>>>(*a);
+    return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 dim3 grid_of(int H, int W, int depth) {
     return dim3((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY,
                 depth);
@@ -206,17 +592,38 @@ bool level_taps(const int* kv, const int* kh, int L, int Kv_max, int Kh_max,
 
 // x (N, H, W); ky (Kv,); kx (Kh,); tmp and out (N, H, W); av, ah the tap
 // of each kernel that lands on the output pixel (K / 2 for the blur, K - 1
-// - K / 2 for the adjoint's flipped taps); border numbered as above.
-// Returns the first CUDA error of the two launches (0 on success).
+// - K / 2 for the adjoint's flipped taps); border numbered as above. One
+// launch of the tiled kernel, in large tiles or (large = 0) small ones;
+// taps too wide to stage run the two passes through tmp instead. Returns
+// the first CUDA error (0 on success).
 extern "C" int separable_blur(const float* x, const float* ky,
                               const float* kx, float* tmp, float* out, int N,
                               int H, int W, int Kv, int Kh, int av, int ah,
-                              int border, void* stream) {
+                              int border, int large, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    TiledArgs a{};
+    a.x = x;
+    a.out = out;
+    a.N = N;
+    a.H = H;
+    a.W = W;
+    a.L = 1;
+    a.vec = W % 4 == 0 && aligned16(x) && aligned16(out);
+    a.ky = ky;
+    a.kx = kx;
+    a.av = av;
+    a.ah = ah;
+    a.border = border;
+    a.taps.v[0] = Kv;
+    a.taps.h[0] = Kh;
+    cudaError_t err = large ? launch_tiled<LargeTile, false>(&a, Kv, Kh, s)
+                            : launch_tiled<SmallTile, false>(&a, Kv, Kh, s);
+    if (err != cudaErrorInvalidValue) return static_cast<int>(err);
+    // taps too wide to stage: the two passes through tmp
     const dim3 block(kBlockX, kBlockY);
     const dim3 grid = grid_of(H, W, N);
     taps_vertical<<<grid, block, 0, s>>>(x, ky, tmp, H, W, Kv, av, border);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     taps_horizontal<<<grid, block, 0, s>>>(tmp, kx, out, H, W, Kh, ah,
                                            border);
@@ -225,16 +632,41 @@ extern "C" int separable_blur(const float* x, const float* ky,
 
 // x (N, H, W); sv (L, H) and sh (L, W) band starts; wv (L, Kv_max, H) and
 // wh (L, Kh_max, W) band weights; kv, kh (L,) taps per level, host memory;
-// tmp and out (L, N, H, W). Returns the first CUDA error (0 on success).
+// tmp and out (L, N, H, W). With `tiled`, one launch of the tiled kernel
+// (bands too wide to stage excepted); else, or then, the two passes
+// through tmp. Returns the first CUDA error (0 on success).
 extern "C" int banded_blur(const float* x, const int* sv, const float* wv,
                            const int* sh, const float* wh, const int* kv,
                            const int* kh, float* tmp, float* out, int L,
                            int N, int H, int W, int Kv_max, int Kh_max,
-                           void* stream) {
+                           int tiled, void* stream) {
     LevelTaps taps;
     if (!level_taps(kv, kh, L, Kv_max, Kh_max, &taps))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    TiledArgs a{};
+    a.x = x;
+    a.out = out;
+    a.N = N;
+    a.H = H;
+    a.W = W;
+    a.vec = W % 4 == 0 && aligned16(x) && aligned16(out);
+    a.sv = sv;
+    a.wv = wv;
+    a.sh = sh;
+    a.wh = wh;
+    a.Kv_max = Kv_max;
+    a.Kh_max = Kh_max;
+    a.vec_wv = H % 4 == 0 && aligned16(wv);
+    a.vec_wh = W % 4 == 0 && aligned16(wh);
+    a.taps = taps;
+    a.L = L;
+    if (tiled) {
+        cudaError_t err = launch_tiled<BandTile, true>(&a, Kv_max, Kh_max, s);
+        if (err != cudaErrorInvalidValue) return static_cast<int>(err);
+    }
+    // bands too wide to stage (a circular border's span the whole axis):
+    // the two passes through tmp
     const dim3 block(kBlockX, kBlockY);
     const dim3 grid = grid_of(H, W, L * N);
     band_vertical<false><<<grid, block, 0, s>>>(x, sv, wv, tmp, N, H, W,

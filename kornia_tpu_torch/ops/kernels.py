@@ -9,7 +9,10 @@ has its kernel here:
   ``level_l = SV_l · x · SH_lᵀ``), and their adjoints
   ``fused_separable_blur2d_adjoint`` (``dx = Svᵀ g Sh``) and
   ``multi_level_blur_adjoint`` (``dx = Σ_l SV_lᵀ g_l SH_l``), all in
-  ``csrc/banded_blur.cu``. The two blurs are ``torch.autograd.Function``s
+  ``csrc/banded_blur.cu``. The forward blurs run a tiled kernel (both
+  passes of a tile in shared memory; the multi-level blur only where its
+  grid fills the card, else two passes through device memory), the
+  adjoints two passes. The two blurs are ``torch.autograd.Function``s
   whose backward runs the adjoint, so a blur is differentiable on both
   devices;
 * ``patch_sample`` runs ``csrc/patch_sample.cu`` (the TPU's
@@ -85,8 +88,8 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # C function -> (library, argument types)
 _BANDS = [_VOIDP] * 5 + [_INTP] * 2 + [_VOIDP] * 2 + [_INT] * 6 + [_VOIDP]
 _FUNCS = {
-    "separable_blur": ("banded_blur", [_VOIDP] * 5 + [_INT] * 8 + [_VOIDP]),
-    "banded_blur": ("banded_blur", _BANDS),
+    "separable_blur": ("banded_blur", [_VOIDP] * 5 + [_INT] * 9 + [_VOIDP]),
+    "banded_blur": ("banded_blur", _BANDS[:-1] + [_INT, _VOIDP]),
     "banded_blur_adjoint": ("banded_blur", _BANDS),
     "patch_sample": ("patch_sample", [_VOIDP, _INT, _INT, _VOIDP, _VOIDP,
                                       _VOIDP, ctypes.c_longlong, _INT,
@@ -99,6 +102,17 @@ _BORDERS = {"reflect": 0, "replicate": 1, "circular": 2, "constant": 3}
 # borders whose adjoint is the same rule with flipped taps (no table)
 _FLIP_ADJOINT = ("constant", "circular")
 _MAX_LEVELS = 8         # kMaxLevels in csrc/banded_blur.cu
+# rows and columns of LargeTile and BandTile in csrc/banded_blur.cu
+_TILE = (32, 64)
+# the single blur takes large tiles where they make at least this many
+# blocks per SM, else small ones (a small grid's time is its blocks' serial
+# work)
+_LARGE_TILE_FILL = 2.0
+# the multi-level blur takes the tiled kernel (a block per tile and level)
+# where that grid has at least this many blocks per SM; on smaller grids
+# each block's serial band loops set the time, and the two passes' many
+# small blocks are faster
+_BAND_TILED_FILL = 1.0
 _MAX_GRID_Z = 65535     # the grid's third dimension: images x levels
 # patch_sample modes of the TPU kernel -> bf16 row pass or exact f32
 _PATCH_MODES = {"split": False, "highest": False, "bf16": True}
@@ -376,9 +390,19 @@ def _launch_separable(name: str, xf: torch.Tensor, ky: torch.Tensor,
         err = _fn("separable_blur")(
             xf.data_ptr(), ky.data_ptr(), kx.data_ptr(), tmp.data_ptr(),
             out.data_ptr(), N, H, W, ky.numel(), kx.numel(), anchors[0],
-            anchors[1], _BORDERS[border_type], _stream(xf))
+            anchors[1], _BORDERS[border_type],
+            int(_blocks_per_sm(N, H, W, xf.device) >= _LARGE_TILE_FILL),
+            _stream(xf))
     _check_launch(name, err)
     return out
+
+
+def _blocks_per_sm(depth: int, H: int, W: int, device) -> float:
+    """Blocks per SM of the tiled kernel's grid in 32 x 64 tiles over
+    `depth` images (x levels) of (H, W)."""
+    blocks = depth * -(-H // _TILE[0]) * -(-W // _TILE[1])
+    return blocks / torch.cuda.get_device_properties(
+        device).multi_processor_count
 
 
 def _launch_bands(name: str, fn: str, xf: torch.Tensor, out_shape,
@@ -395,11 +419,13 @@ def _launch_bands(name: str, fn: str, xf: torch.Tensor, out_shape,
     _require_cuda(name, xf, sv, wv, sh, wh)
     tmp = torch.empty((L, N, H, W), dtype=torch.float32, device=xf.device)
     out = torch.empty(out_shape, dtype=torch.float32, device=xf.device)
+    route = ([int(_blocks_per_sm(L * N, H, W, xf.device)
+                  >= _BAND_TILED_FILL)] if fn == "banded_blur" else [])
     with torch.cuda.device(xf.device):
         err = _fn(fn)(
             xf.data_ptr(), sv.data_ptr(), wv.data_ptr(), sh.data_ptr(),
             wh.data_ptr(), (_INT * L)(*kv), (_INT * L)(*kh), tmp.data_ptr(),
-            out.data_ptr(), L, N, H, W, wv.shape[1], wh.shape[1],
+            out.data_ptr(), L, N, H, W, wv.shape[1], wh.shape[1], *route,
             _stream(xf))
     _check_launch(name, err)
     return out

@@ -66,6 +66,86 @@ def test_cuda_multi_level_blur_matches_plain(cuda_device):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
 
 
+# shapes for the tiled kernels (32 x 64 output tiles, halos up to 43): the
+# pair's four octaves, ragged sizes, sizes below a tile and below the
+# widest band (87 taps), and six images at once
+ML_SHAPES = [(1, 1, 480, 640), (1, 1, 240, 320), (1, 1, 120, 160),
+             (1, 1, 60, 80), (1, 1, 37, 53), (1, 1, 33, 200), (1, 1, 20, 30),
+             (2, 3, 61, 83)]
+
+
+@pytest.mark.parametrize("route", ["tiled", "by_fill"])
+@pytest.mark.parametrize("border", ["replicate", "reflect"])
+@pytest.mark.parametrize("shape", ML_SHAPES)
+def test_cuda_tiled_multi_level_blur_matches_plain(cuda_device, border,
+                                                   shape, route, monkeypatch):
+    """'tiled' takes the tiled kernel at every shape; 'by_fill' lets the
+    wrapper choose (the two passes where the tiled grid would not fill the
+    card)."""
+    if route == "tiled":
+        monkeypatch.setattr(K, "_BAND_TILED_FILL", 0.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = torch.rand(shape, device=cuda_device, generator=gen)
+    kers = _level_kernels()
+    before = K.launches["multi_level_blur"]
+    out = K.multi_level_blur(x, kers, kers, border)
+    assert K.launches["multi_level_blur"] == before + 1
+    ref = K.multi_level_blur_plain(x, kers, kers, border)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_multi_level_blur_circular_matches_plain(cuda_device):
+    """A circular border's bands span the whole axis; too wide to stage at
+    640 columns, they run the two passes instead."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    kers = _level_kernels(3)
+    for shape in ((1, 1, 48, 64), (1, 1, 120, 640)):
+        x = torch.rand(shape, device=cuda_device, generator=gen)
+        out = K.multi_level_blur(x, kers, kers, "circular")
+        ref = K.multi_level_blur_plain(x, kers, kers, "circular")
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("border", BORDERS)
+@pytest.mark.parametrize("k", [2, 5, 11, 16, 31])
+def test_cuda_tiled_fused_blur_matches_plain(cuda_device, border, k):
+    """Odd and even taps (the anchor K // 2 leans right for even K), at
+    sizes below a tile and below the halo, ragged sizes and several
+    images; the flipped-tap adjoint of constant and circular borders runs
+    the same kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    kx = torch.rand(k, device=cuda_device, generator=gen) / k
+    ky = torch.rand(k, device=cuda_device, generator=gen) / k
+    # (4, 40, 37, 53) fills the card with 32 x 64 tiles, the others take
+    # 16 x 32 tiles
+    for shape in ((1, 1, 7, 9), (1, 1, 20, 30), (2, 3, 37, 53),
+                  (1, 2, 97, 200), (4, 40, 37, 53)):
+        x = torch.rand(shape, device=cuda_device, generator=gen)
+        out = K.fused_separable_blur2d(x, ky, kx, border)
+        ref = K.fused_separable_blur2d_plain(x, ky, kx, border)
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+        if border in ("constant", "circular"):
+            out = K.fused_separable_blur2d_adjoint(x, ky, kx, border)
+            ref = K.fused_separable_blur2d_adjoint_plain(x, ky, kx, border)
+            torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_tiled_fused_blur_ssim_shape(cuda_device):
+    """The SSIM loss's blur and its flipped-tap adjoints at (8, 3, 480,
+    640), 11 taps."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.rand((8, 3, 480, 640), device=cuda_device, generator=gen)
+    k = _gauss(11, 1.5, cuda_device)
+    torch.testing.assert_close(
+        K.fused_separable_blur2d(x, k, k, "reflect"),
+        K.fused_separable_blur2d_plain(x, k, k, "reflect"), atol=ATOL, rtol=0)
+    for border in ("constant", "circular"):
+        torch.testing.assert_close(
+            K.fused_separable_blur2d_adjoint(x, k, k, border),
+            K.fused_separable_blur2d_adjoint_plain(x, k, k, border),
+            atol=ATOL, rtol=0)
+
+
 def test_cuda_patch_sample_matches_plain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     atlas = torch.rand((900, 640), device=cuda_device, generator=gen)

@@ -186,8 +186,9 @@ def test_eight_point_and_polish_match_reference():
     x1, x2, R, t = _scene(60, 5, noise=1e-3)
     w = (np.random.default_rng(5).random(60) > 0.2).astype(np.float32)
     F = t_epi.run_8point(_t(x1[None]), _t(x2[None]), _t(w[None]))[0]
-    F_ref = _np(j_epi.run_8point(jnp.asarray(x1[None]), jnp.asarray(x2[None]),
-                                 jnp.asarray(w[None])))[0]
+    F_ref = _np(jax.jit(j_epi.run_8point)(
+        jnp.asarray(x1[None]), jnp.asarray(x2[None]),
+        jnp.asarray(w[None])))[0]
     assert _same_up_to_sign(F.numpy(), F_ref, 1e-4)
     E0 = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]]) \
         @ _rot(np.array([0.06, -0.09, 0.03]))
@@ -195,9 +196,9 @@ def test_eight_point_and_polish_match_reference():
     cand = np.stack([E0, np.zeros((3, 3), np.float32)])[None]
     out = t_epi.polish_essential(_t(cand), _t(x1[None]), _t(x2[None]),
                                  iters=2, weights=_t(w[None]))[0].numpy()
-    ref = _np(j_epi.polish_essential(jnp.asarray(cand), jnp.asarray(x1[None]),
-                                     jnp.asarray(x2[None]), iters=2,
-                                     weights=jnp.asarray(w[None])))[0]
+    ref = _np(jax.jit(j_epi.polish_essential, static_argnames="iters")(
+        jnp.asarray(cand), jnp.asarray(x1[None]), jnp.asarray(x2[None]),
+        iters=2, weights=jnp.asarray(w[None])))[0]
     assert _same_up_to_sign(out[0], ref[0], 1e-4)
     np.testing.assert_array_equal(out[1], 0.0)
 
@@ -211,7 +212,7 @@ def test_pose_from_essential_matches_reference():
     mask[0, :3] = False
     Rt, tt, Xt = t_epi.motion_from_essential_choose_solution(
         _t(E), _t(eye), _t(eye), _t(x1[None]), _t(x2[None]), _t(mask))
-    Rj, tj, Xj = j_epi.motion_from_essential_choose_solution(
+    Rj, tj, Xj = jax.jit(j_epi.motion_from_essential_choose_solution)(
         jnp.asarray(E), jnp.asarray(eye), jnp.asarray(eye),
         jnp.asarray(x1[None]), jnp.asarray(x2[None]), jnp.asarray(mask))
     np.testing.assert_allclose(Rt.numpy(), _np(Rj), atol=1e-5)

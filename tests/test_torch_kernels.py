@@ -34,8 +34,10 @@ def test_fused_blur_plain_matches_pallas(border):
     rng = np.random.default_rng(0)
     x = rng.random((2, 3, 40, 56), dtype=np.float32)
     ky, kx = _kernels_1d([(7, 1.3), (5, 0.9)])
-    ref = pk.fused_separable_blur2d(jnp.asarray(x), jnp.asarray(ky),
-                                    jnp.asarray(kx), border, interpret=True)
+    # jitted: eager dispatch of the interpreted kernel costs seconds
+    ref = jax.jit(lambda a, v, h: pk.fused_separable_blur2d(
+        a, v, h, border, interpret=True))(
+        jnp.asarray(x), jnp.asarray(ky), jnp.asarray(kx))
     out = K.fused_separable_blur2d(torch.from_numpy(x), torch.from_numpy(ky),
                                    torch.from_numpy(kx), border)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
@@ -48,7 +50,8 @@ def test_multi_level_blur_plain_matches_pallas(border):
     sigmas = [0.8, 1.1, 1.4, 1.8, 2.3]
     kers = _kernels_1d([(2 * int(np.ceil(4 * s)) + 1, s) for s in sigmas])
     jk = [jnp.asarray(k) for k in kers]
-    ref = pk.multi_level_blur(jnp.asarray(x), jk, jk, border, interpret=True)
+    ref = jax.jit(lambda a, k: pk.multi_level_blur(
+        a, k, k, border, interpret=True))(jnp.asarray(x), jk)
     tk = [torch.from_numpy(k) for k in kers]
     out = K.multi_level_blur(torch.from_numpy(x), tk, tk, border)
     assert out.shape == (5, 2, 1, 48, 64)
@@ -296,3 +299,101 @@ def test_new_cpu_wrappers_launch_nothing_and_refuse_meta():
         K.fused_separable_blur2d_adjoint(meta, k, k)
     with pytest.raises(ValueError, match="no kernel"):
         K.streaming_min2(meta[0, 0], meta[0, 0])
+
+
+# --- the tiled blur kernels' shared-memory windows -----------------------------
+# csrc/banded_blur.cu stages, per output tile, the input rows (columns) its
+# outputs read and a dense window of the operator over them; a tile is
+# kTileH = 32 rows by kTileW = 64 columns, columns staged from a 16-byte
+# aligned start. These tests rebuild those windows as the kernel does.
+
+_TILES = ((32, False), (64, True))  # (tile, aligned start): rows, columns
+
+
+def _tiles(size, tile):
+    for r0 in range(0, size, tile):
+        yield r0, min(tile, size - r0)
+
+
+def _band_window(start, w, K_l, r0, n, aligned):
+    """A tile's staged window of one banded level: first staged index, the
+    count staged and vt[s, i], the weight of staged index s in output i."""
+    first = int(start[r0])
+    lo = first & ~3 if aligned else first
+    count = int(start[r0 + n - 1]) + K_l - lo
+    k = lo + torch.arange(count)[:, None] - start[r0:r0 + n].long()[None, :]
+    ok = (k >= 0) & (k < K_l)
+    cols = torch.arange(r0, r0 + n)[None, :].expand_as(k)
+    vt = torch.where(ok, w[k.clamp(0, K_l - 1), cols], 0.0)
+    return lo, count, vt
+
+
+@pytest.mark.parametrize("border", ["replicate", "reflect"])
+@pytest.mark.parametrize("size", [20, 37, 60, 80, 200])
+def test_tile_windows_hold_cumulative_operators(border, size):
+    """Each tile's window of the multi-level bands holds every nonzero of
+    its rows of the cumulative operators, bit for bit, inside the staged
+    span (at most tile + K_l - 1 indices, + 3 for the aligned column
+    start), which lies inside the image."""
+    sigmas = [1.23, 1.55, 1.95, 2.45, 3.09]
+    kers = [torch.from_numpy(k) for k in _kernels_1d(
+        [(2 * int(np.ceil(4 * s)) + 1, s) for s in sigmas])]
+    ops = K.cumulative_operators(kers, size, border)
+    start, w, taps = K._band_taps(
+        ops, K._half_widths([k.numel() for k in kers], size, border))
+    for tile, aligned in _TILES:
+        for lvl, K_l in enumerate(taps):
+            for r0, n in _tiles(size, tile):
+                lo, count, vt = _band_window(start[lvl], w[lvl], K_l, r0, n,
+                                             aligned)
+                assert 0 <= lo and lo + count <= size + (3 if aligned else 0)
+                assert count <= tile + K_l - 1 + (3 if aligned else 0)
+                span = slice(lo, min(lo + count, size))
+                rows = ops[lvl, r0:r0 + n]
+                assert torch.equal(vt[:span.stop - lo].T, rows[:, span])
+                assert not rows[:, :lo].any() and not rows[:, span.stop:].any()
+
+
+def _border_index(t, size, border):
+    """csrc/banded_blur.cu::border_index: the source of index t under the
+    border rule, -1 where the rule drops it."""
+    if border == "reflect":
+        i = t.abs()
+        i = torch.where(i >= size, 2 * (size - 1) - i, i)
+        return torch.where((i >= 0) & (i < size), i, -1)
+    if border == "replicate":
+        return t.clamp(0, size - 1)
+    if border == "circular":
+        return torch.remainder(t, size)
+    return torch.where((t >= 0) & (t < size), t, -1)
+
+
+@pytest.mark.parametrize("border", BORDERS)
+@pytest.mark.parametrize("k,size", [(5, 37), (4, 9), (15, 70), (31, 9),
+                                    (11, 6)])
+@pytest.mark.parametrize("flipped", [False, True])
+def test_staged_taps_rebuild_band_matrix(border, k, size, flipped):
+    """The single blur stages, per tile, the virtual indices r0 - anchor ..
+    r0 + n - 1 - anchor + K - 1 folded by the border rule (dropped ones
+    staged as zero) and weighs them with the taps; summed over the tiles
+    that is the dense operator, bit for bit (dyadic taps: every sum exact),
+    for the blur's anchor K // 2 and the flipped adjoint's K - 1 - K // 2."""
+    taps = _dyadic_taps(k, k * size)
+    anchor = k - 1 - k // 2 if flipped else k // 2
+    for tile, aligned in _TILES:
+        dense = torch.zeros((size, size))
+        for r0, n in _tiles(size, tile):
+            first = r0 - anchor
+            lo = first & ~3 if aligned else first
+            count = n - 1 + k + first - lo
+            assert count <= tile + k - 1 + (3 if aligned else 0)
+            src = _border_index(lo + torch.arange(count), size, border)
+            keep = src >= 0
+            s = torch.arange(count)[:, None]
+            tap = s - (first - lo) - torch.arange(n)[None, :]
+            vt = torch.where((tap >= 0) & (tap < k),
+                             taps[tap.clamp(0, k - 1)], 0.0)
+            for i in range(n):
+                dense[r0 + i].index_put_((src[keep],), vt[keep, i],
+                                         accumulate=True)
+        assert torch.equal(dense, K.band_matrix(taps, size, border, anchor))
