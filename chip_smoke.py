@@ -14,7 +14,8 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    summed by torch.profiler;
 2. drives ``two_view_pose`` on the benchmark's input (a blurred random
    480x640 image and its 4 px shift, 1024 features) on the card, with every
-   launch counter reset just before and read just after, checks the pose,
+   launch counter reset just before and read just after, checks the pose
+   and the route (tiled kernel or two passes) each blur took,
    and times pairs and stages, and the device's busy share of a pair
    (with ``--profile-out DIR``, the profiler's table goes to
    DIR/twoview_profile.txt);
@@ -22,8 +23,9 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    with the same injected RANSAC noise and compares the results;
 4. train: five Adam steps (lr 1e-2) on the SSIM loss at (8, 3, 480, 640),
    then one backward of the squared DoG levels through ScalePyramid at
-   480x640, counting the blur adjoints' launches; the card's gradients
-   against the CPU's, each adjoint kernel against its plain adjoint;
+   480x640, counting the blur adjoints' launches and routes; the card's
+   gradients against the CPU's, each adjoint kernel against its plain
+   adjoint at the SSIM shape and at every octave, with its route;
 5. match: the streaming SMNN matcher on two 8192x128 descriptor sets, its
    peak memory, its result against the dense matcher on the card, and the
    streaming kernel against its plain version;
@@ -52,10 +54,12 @@ import time
 
 import torch
 
-# peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and float32
-# outside the tensor cores, the rate the port's f32 kernels run at
+# peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, float32
+# outside the tensor cores (the rate of the port's f32 blur and patch
+# kernels) and dense TF32 on the tensor cores (the matcher's 3xTF32 split)
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_TF32_FLOPS = 495e12
 
 BLUR_ATOL = 1e-5   # [0, 1] images; f32 sums in another order and with FMA
 PATCH_ATOL = 1e-5  # four-tap bilinear; FMA contraction only
@@ -70,6 +74,53 @@ XH, XW, XNF = 256, 256, 512  # bench.py's second configuration
 TRAIN_SHAPE, TRAIN_STEPS = (8, 3, 480, 640), 5
 MATCH_N, MATCH_D = 8192, 128  # exhaustive SfM-style matching
 SEED = 0
+# the route (csrc/banded_blur.cu: the tiled kernel, or two passes through
+# device memory) each blur wrapper takes at each shape of its path, as
+# PERF.md names them: (wrapper, height, width) -> route. The fused blur and
+# its band adjoint are tiled at every path shape; the multi-level blur
+# keeps the passes on the octaves whose tiled grid has under one block per
+# SM; the multi-level adjoint (a block per tile, levels summed in it) is
+# tiled where its grid fills the card at least as far as
+# kornia_tpu_torch/ops/kernels.py::_ADJOINT_TILED_FILL says.
+ROUTES = {
+    ("multi_level_blur", 480, 640): "tiled",
+    ("multi_level_blur", 240, 320): "tiled",
+    ("multi_level_blur", 120, 160): "passes",
+    ("multi_level_blur", 60, 80): "passes",
+    ("multi_level_blur_adjoint", 480, 640): "tiled",
+    ("multi_level_blur_adjoint", 240, 320): "passes",
+    ("multi_level_blur_adjoint", 120, 160): "passes",
+    ("multi_level_blur_adjoint", 60, 80): "passes",
+}
+
+
+def expected_route(name: str, h: int, w: int) -> str:
+    """The route PERF.md names for wrapper `name` at (h, w): ROUTES, and
+    the tiled kernel for the fused blur and its adjoint at every shape."""
+    return ROUTES.get((name, h, w), "tiled")
+
+
+def route_of(K, name: str, fn):
+    """Run fn once; the route its one launch of wrapper `name` took, from
+    the route counters. Fails unless exactly one launch was counted."""
+    keys = [f"{name}:tiled", f"{name}:passes"]
+    before = [K.launches[k] for k in keys]
+    out = fn()
+    torch.cuda.synchronize()
+    moved = [K.launches[k] - b for k, b in zip(keys, before)]
+    if sorted(moved) != [0, 1]:
+        fail(f"{name}: route counters moved by {moved}, not one launch")
+    return ("tiled", "passes")[moved.index(1)], out
+
+
+def check_route(K, name: str, h: int, w: int, fn):
+    """route_of, failing where the route is not the one PERF.md names."""
+    route, out = route_of(K, name, fn)
+    want = expected_route(name, h, w)
+    if route != want:
+        fail(f"{name} at {h}x{w} took the {route} route, PERF.md names "
+             f"{want}")
+    return route, out
 
 
 def fail(msg: str) -> None:
@@ -241,15 +292,17 @@ def kernel_phase(K, filters, dev) -> dict:
         xi = x if (hh, ww) == (H, W) else torch.rand(
             (1, 1, hh, ww), device=dev, generator=gen)
         ki = taps[k]
-        out = K.fused_separable_blur2d(xi, ki, ki, border)
+        route, out = check_route(
+            K, "fused_separable_blur2d", hh, ww,
+            lambda: K.fused_separable_blur2d(xi, ki, ki, border))
         ref = K.fused_separable_blur2d_plain(xi, ki, ki, border)
         err = max(err, (out - ref).abs().max().item())
         t = device_ms(lambda: K.fused_separable_blur2d(xi, ki, ki, border))
         b = blur_bound(hh, ww, 1, 2 * k)[0]
         per_shape.append(dict(shape=[hh, ww], k=k, border=border, ms=t,
-                              bound_ms=b))
-        print(f"fused_separable_blur2d {hh}x{ww} k={k} {border}: {t:.4f} ms, "
-              f"bound {b:.5f} ms ({t / b:.1f}x)")
+                              bound_ms=b, route=route))
+        print(f"fused_separable_blur2d {hh}x{ww} k={k} {border} ({route}): "
+              f"{t:.4f} ms, bound {b:.5f} ms ({t / b:.1f}x)")
     ms = device_ms(lambda: K.fused_separable_blur2d(x, k15, k15, "replicate"))
     plain_ms = device_ms(lambda: K.fused_separable_blur2d_plain(
         x, k15, k15, "replicate"))
@@ -270,14 +323,17 @@ def kernel_phase(K, filters, dev) -> dict:
     for hh, ww in shapes["multi_level_blur"]:
         xi = x if (hh, ww) == (H, W) else torch.rand(
             (1, 1, hh, ww), device=dev, generator=gen)
-        out = K.multi_level_blur(xi, kers, kers, "replicate")
+        route, out = check_route(
+            K, "multi_level_blur", hh, ww,
+            lambda: K.multi_level_blur(xi, kers, kers, "replicate"))
         ref = K.multi_level_blur_plain(xi, kers, kers, "replicate")
         err = max(err, (out - ref).abs().max().item())
         t = device_ms(lambda: K.multi_level_blur(xi, kers, kers, "replicate"))
         b = ml_bound(hh, ww, 1, L, chain_taps)[0]
-        per_shape.append(dict(shape=[hh, ww], levels=L, ms=t, bound_ms=b))
-        print(f"multi_level_blur {hh}x{ww} L={L}: {t:.4f} ms, bound "
-              f"{b:.5f} ms ({t / b:.1f}x)")
+        per_shape.append(dict(shape=[hh, ww], levels=L, ms=t, bound_ms=b,
+                              route=route))
+        print(f"multi_level_blur {hh}x{ww} L={L} ({route}): {t:.4f} ms, "
+              f"bound {b:.5f} ms ({t / b:.1f}x)")
     # the band tables are built once per (kernels, size, border, device)
     K._band_tables_cached.cache_clear()
     K._cumulative_cached.cache_clear()
@@ -558,6 +614,19 @@ def pair_kernel_times(kern, launches) -> dict:
         "patch_sample": [patch_bound(rows * W, NF * s)[0]
                          for rows, s in shapes["patch_sample"]],
     }
+    # the routes the pair's blurs take, both images
+    routes = {}
+    for h, w, _, _ in shapes["fused_separable_blur2d"]:
+        key = ("fused_separable_blur2d",
+               expected_route("fused_separable_blur2d", h, w))
+        routes[key] = routes.get(key, 0) + 2
+    for h, w in shapes["multi_level_blur"]:
+        key = ("multi_level_blur", expected_route("multi_level_blur", h, w))
+        routes[key] = routes.get(key, 0) + 2
+    for (name, route), n in routes.items():
+        if launches.get(f"{name}:{route}") != n:
+            fail(f"{name}: {launches.get(f'{name}:{route}')} launches on the "
+                 f"{route} route on the pair, PERF.md's routes give {n}")
     out = {}
     for name, names in PAIR_KERNELS.items():
         if launches.get(name) != 2 * len(bounds[name]):
@@ -676,14 +745,28 @@ def train_phase(K, dev) -> dict:
           f"{len(octaves)} octaves, launches {pyr_launches}")
     if any(b > a for a, b in zip(losses, losses[1:])):
         fail(f"SSIM loss increased under Adam: {losses}")
-    expect = {"fused_separable_blur2d": 5, "fused_separable_blur2d_adjoint": 3}
+    # every blur of the SSIM step and its adjoint (reflect bands) tiled
+    expect = {"fused_separable_blur2d": 5, "fused_separable_blur2d_adjoint": 3,
+              "fused_separable_blur2d:tiled": 5,
+              "fused_separable_blur2d_adjoint:tiled": 3}
     for name, n in expect.items():
         if per_step.get(name) != n:
             fail(f"SSIM step launched {name} {per_step.get(name)} times, "
                  f"expected {n}")
-    if pyr_launches.get("multi_level_blur_adjoint") != len(octaves) or \
-            pyr_launches.get("fused_separable_blur2d_adjoint") != 1:
-        fail(f"pyramid backward launches {pyr_launches}")
+    # the pyramid: one multi-level adjoint an octave, on PERF.md's route,
+    # and the first-level blur's adjoint (replicate bands) tiled
+    pyr_expect = {"multi_level_blur_adjoint": len(octaves),
+                  "fused_separable_blur2d_adjoint": 1,
+                  "fused_separable_blur2d_adjoint:tiled": 1}
+    for o in octaves:
+        key = "multi_level_blur_adjoint:" + expected_route(
+            "multi_level_blur_adjoint", *o.shape[-2:])
+        pyr_expect[key] = pyr_expect.get(key, 0) + 1
+    for name, n in pyr_expect.items():
+        if pyr_launches.get(name) != n:
+            fail(f"pyramid backward launched {name} "
+                 f"{pyr_launches.get(name)} times, expected {n}: "
+                 f"{pyr_launches}")
     launches = {k: ssim_launches.get(k, 0) + pyr_launches.get(k, 0)
                 for k in set(ssim_launches) | set(pyr_launches)}
 
@@ -707,45 +790,71 @@ def train_phase(K, dev) -> dict:
         fail("patch_sample on the card accepted an input that requires grad")
 
     results = {}
-    # --- fused adjoint: the SSIM blur (11 taps, sigma 1.5, reflect), and
-    # the first-level blur of the pyramid (15 taps, replicate)
+    # --- fused adjoint: the SSIM blur (11 taps, sigma 1.5, reflect and
+    # replicate), the first-level blur of the pyramid (15 taps, replicate)
+    # and the flipped-tap borders
     k11 = get_gaussian_kernel1d(11, 1.5, device=dev).reshape(-1)
     k15 = get_gaussian_kernel1d(15, math.sqrt(1.6 ** 2 - 0.5 ** 2),
                                 device=dev).reshape(-1)
     g = torch.rand(TRAIN_SHAPE, device=dev, generator=gen)
     err = 0.0
-    cases = [(g, k11, "reflect"), (base, k15, "replicate")] + [
+    cases = [(g, k11, "reflect"), (g, k11, "replicate"),
+             (base, k15, "replicate")] + [
         (torch.rand((2, 3, 61, 83), device=dev, generator=gen), k11, b)
         for b in ("circular", "constant")]
     for gi, ki, border in cases:
-        out = K.fused_separable_blur2d_adjoint(gi, ki, ki, border)
+        hh, ww = gi.shape[-2:]
+        route, out = check_route(
+            K, "fused_separable_blur2d_adjoint", hh, ww,
+            lambda: K.fused_separable_blur2d_adjoint(gi, ki, ki, border))
         ref = K.fused_separable_blur2d_adjoint_plain(gi, ki, ki, border)
-        err = max(err, (out - ref).abs().max().item())
+        e = (out - ref).abs().max().item()
+        err = max(err, e)
+        print(f"fused_separable_blur2d_adjoint {tuple(gi.shape)} k="
+              f"{ki.numel()} {border} ({route}): max abs err {e:.3e}")
     fwd_ms = device_ms(lambda: K.fused_separable_blur2d(
         g, k11, k11, "reflect"))
     print(f"fused_separable_blur2d forward at {TRAIN_SHAPE}, 11 taps, "
           f"reflect: {fwd_ms:.4f} ms")
-    ms = device_ms(lambda: K.fused_separable_blur2d_adjoint(
-        g, k11, k11, "reflect"))
-    plain_ms = device_ms(lambda: K.fused_separable_blur2d_adjoint_plain(
-        g, k11, k11, "reflect"))
     # one read of g, one write of dx; 2 flops a tap, 11 + 11 taps
     b_ms, b_by = bound(2 * g.numel() * 4, 2 * (11 + 11) * g.numel())
+    times = {}
+    for border in ("reflect", "replicate"):
+        times[border] = device_ms(lambda: K.fused_separable_blur2d_adjoint(
+            g, k11, k11, border))
+        print(f"fused_separable_blur2d_adjoint {TRAIN_SHAPE} k=11 {border} "
+              f"(tiled): {times[border]:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}, {times[border] / b_ms:.1f}x)")
+    plain_ms = device_ms(lambda: K.fused_separable_blur2d_adjoint_plain(
+        g, k11, k11, "reflect"))
     results["fused_separable_blur2d_adjoint"] = dict(
         source="kornia_tpu_torch/csrc/banded_blur.cu",
         replaces="kornia_tpu/ops/pallas_kernels.py:216",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+        max_abs_err=err, ms=times["reflect"], plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
 
-    # --- multi-level adjoint: every octave of the 480x640 pyramid
+    # --- multi-level adjoint: every octave of the 480x640 pyramid, on the
+    # route PERF.md names for it
     kers, _ = ScalePyramid()._level_kernels(1.6)
     L = len(kers)
+    chain_taps = 2 * sum(k.numel() for k in kers)
     err = 0.0
     for i in range(4):
-        gl = torch.rand((L, 1, 1, H >> i, W >> i), device=dev, generator=gen)
-        out = K.multi_level_blur_adjoint(gl, kers, kers)
+        hh, ww = H >> i, W >> i
+        gl = torch.rand((L, 1, 1, hh, ww), device=dev, generator=gen)
+        route, out = check_route(
+            K, "multi_level_blur_adjoint", hh, ww,
+            lambda: K.multi_level_blur_adjoint(gl, kers, kers))
         ref = K.multi_level_blur_adjoint_plain(gl, kers, kers)
-        err = max(err, (out - ref).abs().max().item())
+        e = (out - ref).abs().max().item()
+        err = max(err, e)
+        t = device_ms(lambda: K.multi_level_blur_adjoint(gl, kers, kers))
+        # one read of each of the L gradients, one write of dx; the least
+        # work is the sequential chain's adjoint, 2 flops a tap
+        bo = bound((L + 1) * hh * ww * 4, 2 * chain_taps * hh * ww)[0]
+        print(f"multi_level_blur_adjoint {hh}x{ww} L={L} ({route}): "
+              f"{t:.4f} ms, bound {bo:.5f} ms ({t / bo:.1f}x), max abs err "
+              f"{e:.3e}")
     gl = torch.rand((L, 1, 1, H, W), device=dev, generator=gen)
     ms = device_ms(lambda: K.multi_level_blur_adjoint(gl, kers, kers))
     plain_ms = device_ms(lambda: K.multi_level_blur_adjoint_plain(
@@ -754,9 +863,6 @@ def train_phase(K, dev) -> dict:
                                          str(dev))[2]
     band_taps = sum(taps) + sum(K._adjoint_band_tables_cached(
         K._values(kers), W, "replicate", str(dev))[2])
-    chain_taps = 2 * sum(k.numel() for k in kers)
-    # one read of each of the L gradients, one write of dx; the least work
-    # is the sequential chain's adjoint, 2 flops a tap
     b_ms, b_by = bound((L + 1) * H * W * 4,
                        2 * min(chain_taps, band_taps) * H * W)
     results["multi_level_blur_adjoint"] = dict(
@@ -836,11 +942,22 @@ def match_phase(K, dev) -> dict:
         "smnn", th, streaming=True)(d1, d2), reps=5)
     dense_match_ms = device_ms(lambda: DescriptorMatcher("smnn", th)(d1, d2),
                                reps=5)
-    b_ms, b_by = bound((2 * n * d + 3 * n) * 4, 2 * n * n * d)
-    print(f"match: d1 @ d2.T (cuBLAS f32, TF32 off) {cublas_ms:.4f} ms, a "
-          f"yardstick, not the same function; SMNN matcher device ms: "
-          f"streaming {stream_match_ms:.4f}, plain (dense) "
-          f"{dense_match_ms:.4f}")
+    # bytes: d1, d2 read, three (N,) results written. Operations: the
+    # product accurate to f32 is three TF32 products on the tensor cores;
+    # in f32 on the CUDA cores it would be one
+    nbytes = (2 * n * d + 3 * n) * 4
+    cuda_core_ms = bound(nbytes, 2 * n * n * d)[0]
+    t_ops = 3 * 2 * n * n * d / H100_TF32_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
+        t_bytes, "bytes")
+    print(f"match: streaming_min2 {n}x{n}x{d} (3xTF32, tensor cores): "
+          f"{ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, 3xTF32 at 495 "
+          f"TFLOP/s; {ms / b_ms:.2f}x), CUDA-core f32 bound "
+          f"{cuda_core_ms:.5f} ms; d1 @ d2.T (cuBLAS f32, TF32 off) "
+          f"{cublas_ms:.4f} ms, a yardstick, not the same function; SMNN "
+          f"matcher device ms: streaming {stream_match_ms:.4f}, plain "
+          f"(dense) {dense_match_ms:.4f}")
     results = {"streaming_min2": dict(
         source="kornia_tpu_torch/csrc/streaming_min2.cu",
         replaces="kornia_tpu/ops/pallas_kernels.py:71",

@@ -42,10 +42,26 @@ def _smoke():
     return mod
 
 
+def forced(K, knobs, fn):
+    """fn run with the module constants K.<name> set as `knobs` says (a
+    route forced), restored after each call."""
+    def run():
+        old = {k: getattr(K, k) for k in knobs}
+        for k, v in knobs.items():
+            setattr(K, k, v)
+        try:
+            return fn()
+        finally:
+            for k, v in old.items():
+                setattr(K, k, v)
+    return run
+
+
 def cases(K, dev):
     """(name, kernel call, plain call, bound ms) at the paths' shapes: the
     pair's blurs at each shape, the SSIM blur and adjoints at (8, 3, 480,
-    640), the multi-level adjoint at octave 0 and the streaming matcher."""
+    640), the multi-level adjoint at each octave of 480x640 (and, where the
+    tree has route knobs, each route forced) and the streaming matcher."""
     from kornia_tpu_torch.ops.filters import get_gaussian_kernel1d
     from kornia_tpu_torch.ops.pyramid import ScalePyramid
     cs = _smoke()
@@ -82,27 +98,52 @@ def cases(K, dev):
                 lambda: K.fused_separable_blur2d(g, k11, k11, "reflect"),
                 lambda: K.fused_separable_blur2d_plain(g, k11, k11, "reflect"),
                 sb))
-    for border in ("reflect", "constant", "circular"):
+    for border in ("reflect", "replicate", "constant", "circular"):
         out.append((f"fused adjoint SSIM k11 {border}",
                     lambda b=border: K.fused_separable_blur2d_adjoint(
                         g, k11, k11, b),
                     lambda b=border: K.fused_separable_blur2d_adjoint_plain(
                         g, k11, k11, b), sb))
     L = len(kers)
-    gl = torch.rand((L, 1, 1, cs.H, cs.W), device=dev, generator=gen)
-    out.append(("multi_level adjoint 480x640 L5",
-                lambda: K.multi_level_blur_adjoint(gl, kers, kers),
-                lambda: K.multi_level_blur_adjoint_plain(gl, kers, kers),
-                cs.ml_bound(cs.H, cs.W, 1, L, chain)[0]))
-    # unit rows, as descriptors are: distances at most 2
+    grads = {}
+    for h, w in shapes["multi_level_blur"]:
+        gl = grads[h, w] = torch.rand((L, 1, 1, h, w), device=dev,
+                                      generator=gen)
+        out.append((f"multi_level adjoint {h}x{w} L{L}",
+                    lambda gl=gl: K.multi_level_blur_adjoint(gl, kers, kers),
+                    lambda gl=gl: K.multi_level_blur_adjoint_plain(
+                        gl, kers, kers),
+                    cs.ml_bound(h, w, 1, L, chain)[0]))
+    # the band adjoint's routes forced, where the tree has them: tiled and
+    # passes at every octave and at the SSIM shape (the readings that set
+    # _ADJOINT_TILED_FILL)
+    if hasattr(K, "_ADJOINT_TILED_FILL"):
+        knobs = {"tiled": dict(_ADJOINT_TILED_FILL=0.0),
+                 "passes": dict(_ADJOINT_TILED_FILL=math.inf)}
+        for tag, kn in knobs.items():
+            for (h, w), gl in grads.items():
+                out.append((
+                    f"multi_level adjoint {h}x{w} L{L} [{tag}]",
+                    forced(K, kn, lambda gl=gl: K.multi_level_blur_adjoint(
+                        gl, kers, kers)),
+                    lambda gl=gl: K.multi_level_blur_adjoint_plain(
+                        gl, kers, kers),
+                    cs.ml_bound(h, w, 1, L, chain)[0]))
+            out.append((f"fused adjoint SSIM k11 reflect [{tag}]",
+                        forced(K, kn, lambda: K.fused_separable_blur2d_adjoint(
+                            g, k11, k11, "reflect")),
+                        lambda: K.fused_separable_blur2d_adjoint_plain(
+                            g, k11, k11, "reflect"), sb))
+    # unit rows, as descriptors are: distances at most 2. Bound: the
+    # product accurate to f32 as three TF32 products on the tensor cores
     d1, d2 = (torch.nn.functional.normalize(torch.rand(
         (cs.MATCH_N, cs.MATCH_D), device=dev, generator=gen), dim=-1)
         for _ in range(2))
     out.append(("streaming_min2 8192x8192x128",
                 lambda: K.streaming_min2(d1, d2)[0],
                 lambda: K.streaming_min2_plain(d1, d2)[0],
-                cs.bound((2 * cs.MATCH_N * cs.MATCH_D + 3 * cs.MATCH_N) * 4,
-                         2 * cs.MATCH_N ** 2 * cs.MATCH_D)[0]))
+                3 * 2 * cs.MATCH_N ** 2 * cs.MATCH_D / cs.H100_TF32_FLOPS
+                * 1e3))
     return cs, out
 
 

@@ -30,17 +30,22 @@
 // per output row (or column) a start index and K_l consecutive weights,
 // stored tap-major (L, Kmax, size). Entries of an operator outside its band
 // are exact zeros, so the sum over the band is the dense product.
-// The forward blurs run one tiled kernel (below): a block stages its tile's
-// input and halo in shared memory once, runs both passes there, and writes
-// each output once, so no intermediate goes through device memory and each
-// staged value serves several taps; for separable_blur the border rule is
-// applied while the halo is staged and never in the tap loops. The
-// transposed operators of a reflect or replicate blur, and the transposed
-// cumulative operators, are banded with the same half-widths (their first
-// and last columns collect the folded taps), so the adjoints read them the
-// same way, in two plain passes through an intermediate (band_vertical,
-// band_horizontal_sum: the levels summed inside the launch). Those passes
-// also serve forward bands too wide to stage (a circular border's).
+// The blurs and the band adjoints run one tiled kernel (below): a block
+// stages its tile's input and halo in shared memory once, runs both passes
+// there, and writes each output once, so no intermediate goes through
+// device memory and each staged value serves several taps; for
+// separable_blur the border rule is applied while the halo is staged and
+// never in the tap loops. The transposed operators of a reflect or
+// replicate blur, and the transposed cumulative operators, are banded with
+// the same half-widths and band starts (their first and last columns
+// collect the folded taps), so the adjoint's block reads them as the
+// forward reads its bands, one level after another, and sums the levels in
+// its registers: dx is written once and no (L, N, H, W) intermediate
+// exists (banded_blur_adjoint's tiled route). Two plain passes through an
+// intermediate (taps_*, band_*) remain a route of their own, which the
+// caller chooses before anything launches: for bands too wide to stage (a
+// circular border's) and for grids too small to fill the card. A failed
+// tiled launch is returned as an error, never run again as the passes.
 
 #include <cuda_runtime.h>
 
@@ -191,10 +196,11 @@ __global__ void band_horizontal_sum(const float* __restrict__ tmp,
 
 // ---------------------------------------------------------------------------
 // Tiled blur: both passes of one output tile in one block, through shared
-// memory. Serves the forward single blur (taps, the border folded while the
-// halo is staged) and the forward multi-level blur (bands, one level per
-// block); the passes above stay for the adjoints, for bands too wide to
-// stage and for multi-level grids too small to fill the card.
+// memory. Serves the single blur (taps, the border folded while the halo is
+// staged), the multi-level blur (bands, one level per block) and the band
+// adjoint (bands of the transposed operators; a block loops over the levels
+// and sums them, kSum); the passes above stay for bands too wide to stage
+// and for grids too small to fill the card.
 //
 // A block owns a Tile::H x Tile::W output tile of one image (and level).
 // It first stages, with asynchronous copies that are all in flight at once
@@ -204,15 +210,19 @@ __global__ void band_horizontal_sum(const float* __restrict__ tmp,
 //   * the weights: the 1-D taps, or the band weights of the tile's rows
 //     (k, i), tap-major, zero past the level's K;
 //   * the band starts of the tile's rows and columns.
-// Then the vertical pass writes tmp (the tile's rows over every staged
-// column) in shared memory; the bands' column weights (k, j) are staged in
-// xs's place; the horizontal pass reads tmp and writes each output once. Each thread computes a run of kRun consecutive outputs
-// along the tap axis: where the run's band starts are consecutive (every
-// tap of the single blur, the interior of a band), a window of kRun staged
-// values slides along the taps, so one load serves kRun taps and the run's
-// kRun band weights of a tap are two 16-byte loads the whole warp shares;
-// where they are equal (the band clamped at an edge), one load per
-// tap serves the run; a run across the clamp sums each output alone.
+// Then the vertical pass writes tmp (the tile's rows over every staged column)
+// in shared memory; the bands' column weights (k, j) are staged in xs's place
+// (the level sum's short bands: with everything else, in a region of their
+// own); the horizontal pass reads tmp and writes each output once (the level
+// sum: adds it to the thread's registers, and the block moves on to the next
+// level).
+// Each thread computes a run of kRun consecutive outputs along the tap axis:
+// where the run's band starts are consecutive (every tap of the single blur,
+// the interior of a band), a window of kRun staged values slides along the
+// taps, so one load serves kRun taps and the run's kRun band weights of a tap
+// are two 16-byte loads the whole warp shares; where they are equal (the band
+// clamped at an edge), one load per tap serves the run; a run across the clamp
+// sums each output alone.
 // ---------------------------------------------------------------------------
 
 // a block's tile: output rows and columns, threads
@@ -229,13 +239,17 @@ struct Tile {
 using LargeTile = Tile<32, 64, 256>;
 using SmallTile = Tile<16, 32, 256>;
 // the multi-level blur: a block holds one level of a tile; 512 threads
-// share its long band loops
+// share its long band loops. The band adjoint: the same tile in 256
+// threads, each thread one output run summed over the levels (in turns on
+// an H100 it beat 512 threads and 16 x 64 tiles both at octave 0 and at
+// the SSIM shape)
 using BandTile = Tile<32, 64, 512>;
+using AdjointTile = Tile<32, 64, 256>;
 constexpr int kRun = 8;  // outputs per thread along the tap axis
 
 struct TiledArgs {
-    const float* x;   // (N, H, W)
-    float* out;       // (L, N, H, W)
+    const float* x;   // (N, H, W); the adjoint's gradients (L, N, H, W)
+    float* out;       // (L, N, H, W); the adjoint's dx (N, H, W)
     int N, H, W, L;
     int vec;          // x and out rows may be copied as 16 bytes
     int vec_wv, vec_wh;  // so may the rows of wv and wh
@@ -252,7 +266,10 @@ struct TiledArgs {
     int Kv_max, Kh_max;
     LevelTaps taps;
     // shared-memory layout (floats), from tiled_geometry()
-    int xpitch, tpitch, off_hb, off_st, off_x, off_tmp;
+    // the level sum's bands: hb_apart = the column weights have a region
+    // of their own and are staged with everything else, else they take
+    // xs's place
+    int xpitch, tpitch, off_hb, off_st, off_x, off_tmp, hb_apart;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -375,159 +392,218 @@ __device__ __forceinline__ RunKind run_kind(const int* st, int n) {
     return d == n - 1 ? kConsecutive : (d == 0 ? kEqual : kAcross);
 }
 
-template <class T, bool kBands>
+// writes the jn <= kRun outputs of a run, 16 bytes a store where the row
+// allows it (vec) and the run is whole
+__device__ __forceinline__ void store_run(float* dst, const float (&v)[kRun],
+                                          int jn, int vec) {
+    if (vec && jn == kRun) {
+        reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+        for (int r = 0; r < kRun; ++r)
+            if (r < jn) dst[r] = v[r];
+    }
+}
+
+// kSum (bands only): the block runs every level l of its tile on x[l] in
+// turn and sums the horizontal passes in its threads' registers; each
+// thread then owns one output run for all levels, and writes it once.
+template <class T, bool kBands, bool kSum>
 __device__ __forceinline__ void tiled_blur_body(const TiledArgs& a) {
+    static_assert(kBands || !kSum, "the level sum reads bands");
+    static_assert(!kSum || T::H * (T::W / kRun) <= T::threads,
+                  "the level sum keeps one output run a thread");
     extern __shared__ __align__(16) float smem[];
     float* vb = smem;                  // (kvp, T::H) band weights, or taps
     int* svs = reinterpret_cast<int*>(smem + a.off_st);  // (T::H,)
     int* shs = svs + T::H;                               // (T::W,)
     float* xs = smem + a.off_x;        // (rows, xpitch)
-    // bands: (khp, T::W) weights, staged in xs's place once the vertical
-    // pass is done (two blocks fit on an SM at 87 taps); taps: (khp,)
-    float* hb = smem + (kBands ? a.off_x : a.off_hb);
+    // bands: (khp, T::W) weights; the level sum's, in a region of their
+    // own where the block's shared memory stays small (short bands), else
+    // staged in xs's place once the vertical pass is done (two blocks fit
+    // on an SM at 87 taps); taps: (khp,)
+    float* hb = smem + (kBands && !kSum ? a.off_x : a.off_hb);
+    const bool hb_later = kBands && !(kSum && a.hb_apart);
     float* tmp = smem + a.off_tmp;     // (T::H, tpitch)
 
     const int tid = threadIdx.x;
     const int N = a.N, H = a.H, W = a.W;
-    // the widest levels first: they take longest
-    const int l = kBands ? a.L - 1 - (int)blockIdx.z / N : 0;
     const int n = (int)blockIdx.z % N;
     const int r0 = blockIdx.y * T::H;
     const int c0 = blockIdx.x * T::W;
     const int nr = min(T::H, H - r0);
     const int nc = min(T::W, W - c0);
-    const int Kv = a.taps.v[l];
-    const int Kh = a.taps.h[l];
-    const int Kvp = (Kv + kRun - 1) / kRun * kRun;
-    const int Khp = (Kh + kRun - 1) / kRun * kRun;
-    const int* svl = kBands ? a.sv + (size_t)l * H : nullptr;
-    const int* shl = kBands ? a.sh + (size_t)l * W : nullptr;
-
-    // staged rows [ys, ys + rows) and columns [xa, xa + cols), xa 16-byte
-    // aligned: the first and last input each tap axis reads
-    const int ys = kBands ? __ldg(svl + r0) : r0 - a.av;
-    const int rows = (kBands ? __ldg(svl + r0 + nr - 1) : r0 + nr - 1 - a.av)
-                     + Kv - ys;
-    const int xs0 = kBands ? __ldg(shl + c0) : c0 - a.ah;
-    const int xa = xs0 & ~3;
-    const int cols = (kBands ? __ldg(shl + c0 + nc - 1) : c0 + nc - 1 - a.ah)
-                     + Kh - xa;
-    const int quads = (cols + 3) >> 2;
-    const float* xn = a.x + (size_t)n * H * W;
-
-    // --- stage x, the vertical weights (or both taps) and the starts
-    for (int q = tid; q < rows * quads; q += T::threads) {
-        const int s = q / quads;
-        const int c4 = 4 * (q - s * quads);
-        const int c = xa + c4;
-        float* dst = xs + s * a.xpitch + c4;
-        const int sr = kBands ? ys + s : border_index(ys + s, H, a.border);
-        if (a.vec && (sr < 0 || (c >= 0 && c + 4 <= W))) {
-            copy16(dst, sr >= 0 ? xn + (size_t)sr * W + c : xn, sr >= 0);
-        } else {
+    // the level sum: this thread's output run, summed over the levels
+    float total[kRun];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                // for bands, the clamp only keeps the slack past the last
-                // staged column in range
-                const int sc = kBands ? min(c + j, W - 1)
-                                      : border_index(c + j, W, a.border);
-                const bool keep = sr >= 0 && sc >= 0;
-                copy4(dst + j, keep ? xn + (size_t)sr * W + sc : xn, keep);
+    for (int r = 0; r < kRun; ++r) total[r] = 0.0f;
+    const int levels = kSum ? a.L : 1;
+
+    for (int li = 0; li < levels; ++li) {
+        // the forward blur's widest levels first (they take longest); the
+        // level sum in order
+        const int l =
+            kSum ? li : (kBands ? a.L - 1 - (int)blockIdx.z / N : 0);
+        // the previous level's passes are done with the staged data
+        if (kSum && li > 0) __syncthreads();
+        const int Kv = a.taps.v[l];
+        const int Kh = a.taps.h[l];
+        const int Kvp = (Kv + kRun - 1) / kRun * kRun;
+        const int Khp = (Kh + kRun - 1) / kRun * kRun;
+        const int* svl = kBands ? a.sv + (size_t)l * H : nullptr;
+        const int* shl = kBands ? a.sh + (size_t)l * W : nullptr;
+
+        // staged rows [ys, ys + rows) and columns [xa, xa + cols), xa 16-byte
+        // aligned: the first and last input each tap axis reads
+        const int ys = kBands ? __ldg(svl + r0) : r0 - a.av;
+        const int rows =
+            (kBands ? __ldg(svl + r0 + nr - 1) : r0 + nr - 1 - a.av) + Kv
+            - ys;
+        const int xs0 = kBands ? __ldg(shl + c0) : c0 - a.ah;
+        const int xa = xs0 & ~3;
+        const int cols =
+            (kBands ? __ldg(shl + c0 + nc - 1) : c0 + nc - 1 - a.ah) + Kh
+            - xa;
+        const int quads = (cols + 3) >> 2;
+        const float* xn = a.x + (size_t)(kSum ? l * N + n : n) * H * W;
+
+        // --- stage x, the vertical weights (or both taps) and the starts
+        for (int q = tid; q < rows * quads; q += T::threads) {
+            const int s = q / quads;
+            const int c4 = 4 * (q - s * quads);
+            const int c = xa + c4;
+            float* dst = xs + s * a.xpitch + c4;
+            const int sr = kBands ? ys + s : border_index(ys + s, H, a.border);
+            if (a.vec && (sr < 0 || (c >= 0 && c + 4 <= W))) {
+                copy16(dst, sr >= 0 ? xn + (size_t)sr * W + c : xn, sr >= 0);
+            } else {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    // for bands, the clamp only keeps the slack past the last
+                    // staged column in range
+                    const int sc = kBands ? min(c + j, W - 1)
+                                          : border_index(c + j, W, a.border);
+                    const bool keep = sr >= 0 && sc >= 0;
+                    copy4(dst + j, keep ? xn + (size_t)sr * W + sc : xn, keep);
+                }
             }
         }
-    }
-    if (kBands) {
-        stage_band_weights<T::H, T::threads>(
-            vb, a.wv + (size_t)l * a.Kv_max * H + r0, H, Kv, Kvp, nr,
-            a.vec_wv);
-        for (int q = tid; q < T::H + T::W; q += T::threads)
-            copy4(svs + q,
-                  q < T::H ? svl + r0 + min(q, nr - 1)
-                             : shl + c0 + min(q - T::H, nc - 1),
-                  true);
-    } else {
-        for (int k = tid; k < Kvp; k += T::threads)
-            copy4(vb + k, a.ky + min(k, Kv - 1), k < Kv);
-        for (int k = tid; k < Khp; k += T::threads)
-            copy4(hb + k, a.kx + min(k, Kh - 1), k < Kh);
-    }
-    copies_wait();
-    __syncthreads();
-
-    // --- vertical pass: tmp[i][t] for the tile's rows and every staged
-    // column t the horizontal pass reads; a run of kRun rows per thread, a
-    // warp on neighbouring columns
-    const int t_lo = xs0 - xa;
-    const int t_n = cols - t_lo;
-    constexpr int kGroups = T::H / kRun;
-    for (int q = tid; q < kGroups * t_n; q += T::threads) {
-        const int g = q / t_n;
-        const int t = t_lo + (q - g * t_n);
-        const int i0 = g * kRun;
-        if (i0 >= nr) continue;
-        const RunKind kind =
-            kBands ? run_kind(svs + i0, min(kRun, nr - i0)) : kConsecutive;
-        const int s0 = kBands ? svs[i0] - ys : i0;
-        float acc[kRun];
-        run_sum<kBands>(xs + t, a.xpitch, rows - 1, s0, kind, svs + i0, ys,
-                        kBands ? vb + i0 : vb, T::H, Kv, Kvp, acc);
-#pragma unroll
-        for (int r = 0; r < kRun; ++r) tmp[(i0 + r) * a.tpitch + t] = acc[r];
-    }
-    __syncthreads();
-    if (kBands) {
-        stage_band_weights<T::W, T::threads>(
-            hb, a.wh + (size_t)l * a.Kh_max * W + c0, W, Kh, Khp, nc,
-            a.vec_wh);
+        if (kBands) {
+            stage_band_weights<T::H, T::threads>(
+                vb, a.wv + (size_t)l * a.Kv_max * H + r0, H, Kv, Kvp, nr,
+                a.vec_wv);
+            if (!hb_later)
+                stage_band_weights<T::W, T::threads>(
+                    hb, a.wh + (size_t)l * a.Kh_max * W + c0, W, Kh, Khp,
+                    nc, a.vec_wh);
+            for (int q = tid; q < T::H + T::W; q += T::threads)
+                copy4(svs + q,
+                      q < T::H ? svl + r0 + min(q, nr - 1)
+                                 : shl + c0 + min(q - T::H, nc - 1),
+                      true);
+        } else {
+            for (int k = tid; k < Kvp; k += T::threads)
+                copy4(vb + k, a.ky + min(k, Kv - 1), k < Kv);
+            for (int k = tid; k < Khp; k += T::threads)
+                copy4(hb + k, a.kx + min(k, Kh - 1), k < Kh);
+        }
         copies_wait();
         __syncthreads();
-    }
 
-    // --- horizontal pass: row i, a run of kRun columns per thread; a warp
-    // holds 32 rows of one run (tpitch is odd: no bank conflicts) and
-    // shares the run's weights
-    for (int q = tid; q < T::H * (T::W / kRun); q += T::threads) {
-        const int i = q % T::H;
-        const int j0 = (q / T::H) * kRun;
-        if (i >= nr || j0 >= nc) continue;
-        const int jn = min(kRun, nc - j0);
-        const RunKind kind = kBands ? run_kind(shs + j0, jn) : kConsecutive;
-        const int s0 = kBands ? shs[j0] - xa : j0 + t_lo;
-        float acc[kRun];
-        run_sum<kBands>(tmp + i * a.tpitch, 1, cols - 1, s0, kind, shs + j0,
-                        xa, kBands ? hb + j0 : hb, T::W, Kh, Khp, acc);
-        float* dst = a.out + (((size_t)l * N + n) * H + r0 + i) * W + c0 + j0;
-        if (a.vec && jn == kRun) {
-            reinterpret_cast<float4*>(dst)[0] =
-                make_float4(acc[0], acc[1], acc[2], acc[3]);
-            reinterpret_cast<float4*>(dst)[1] =
-                make_float4(acc[4], acc[5], acc[6], acc[7]);
-        } else {
+        // --- vertical pass: tmp[i][t] for the tile's rows and every staged
+        // column t the horizontal pass reads; a run of kRun rows per thread, a
+        // warp on neighbouring columns
+        const int t_lo = xs0 - xa;
+        const int t_n = cols - t_lo;
+        constexpr int kGroups = T::H / kRun;
+        for (int q = tid; q < kGroups * t_n; q += T::threads) {
+            const int g = q / t_n;
+            const int t = t_lo + (q - g * t_n);
+            const int i0 = g * kRun;
+            if (i0 >= nr) continue;
+            const RunKind kind =
+                kBands ? run_kind(svs + i0, min(kRun, nr - i0)) : kConsecutive;
+            const int s0 = kBands ? svs[i0] - ys : i0;
+            float acc[kRun];
+            run_sum<kBands>(xs + t, a.xpitch, rows - 1, s0, kind, svs + i0, ys,
+                            kBands ? vb + i0 : vb, T::H, Kv, Kvp, acc);
 #pragma unroll
             for (int r = 0; r < kRun; ++r)
-                if (r < jn) dst[r] = acc[r];
+                tmp[(i0 + r) * a.tpitch + t] = acc[r];
         }
+        __syncthreads();
+        if (hb_later) {
+            stage_band_weights<T::W, T::threads>(
+                hb, a.wh + (size_t)l * a.Kh_max * W + c0, W, Kh, Khp, nc,
+                a.vec_wh);
+            copies_wait();
+            __syncthreads();
+        }
+
+        // --- horizontal pass: row i, a run of kRun columns per thread; a warp
+        // holds 32 rows of one run (tpitch is odd: no bank conflicts) and
+        // shares the run's weights
+        for (int q = tid; q < T::H * (T::W / kRun); q += T::threads) {
+            const int i = q % T::H;
+            const int j0 = (q / T::H) * kRun;
+            if (i >= nr || j0 >= nc) continue;
+            const int jn = min(kRun, nc - j0);
+            const RunKind kind = kBands ? run_kind(shs + j0, jn) : kConsecutive;
+            const int s0 = kBands ? shs[j0] - xa : j0 + t_lo;
+            float acc[kRun];
+            run_sum<kBands>(tmp + i * a.tpitch, 1, cols - 1, s0, kind, shs + j0,
+                            xa, kBands ? hb + j0 : hb, T::W, Kh, Khp, acc);
+            if (kSum) {
+#pragma unroll
+                for (int r = 0; r < kRun; ++r) total[r] += acc[r];
+            } else {
+                store_run(a.out + (((size_t)l * N + n) * H + r0 + i) * W + c0
+                          + j0, acc, jn, a.vec);
+            }
+        }
+    }  // levels
+
+    if (kSum) {
+        const int i = tid % T::H;
+        const int j0 = (tid / T::H) * kRun;
+        if (tid < T::H * (T::W / kRun) && i < nr && j0 < nc)
+            store_run(a.out + ((size_t)n * H + r0 + i) * W + c0 + j0, total,
+                      min(kRun, nc - j0), a.vec);
     }
 }
 
 template <class T>
 __global__ void __launch_bounds__(T::threads, 512 / T::threads)
 tile_taps_blur(const TiledArgs a) {
-    tiled_blur_body<T, false>(a);
+    tiled_blur_body<T, false, false>(a);
 }
 
 template <class T>
 __global__ void __launch_bounds__(T::threads, 512 / T::threads)
 tile_band_blur(const TiledArgs a) {
-    tiled_blur_body<T, true>(a);
+    tiled_blur_body<T, true, false>(a);
+}
+
+// dx[n] = sum_l SV_lᵀ g[l, n] SH_l, one block per tile of dx
+template <class T>
+__global__ void __launch_bounds__(T::threads, 512 / T::threads)
+tile_band_adjoint(const TiledArgs a) {
+    tiled_blur_body<T, true, true>(a);
 }
 
 // the largest dynamic shared memory a block may have on sm_90
 constexpr int kMaxSmemBytes = 227 * 1024;
 
-// Shared-memory layout of the tiled blur for taps (or bands) of at most Kv
-// rows and Kh columns; returns its bytes.
-template <class T, bool kBands>
+// the level sum's bands whose block stays within this many bytes with the
+// column weights in a region of their own stage them with everything else
+// (one round trip to memory a level, not two: a few percent at the SSIM
+// shape, in turns on an H100; 87 taps do not fit)
+constexpr int kHbApartBytes = 48 * 1024;
+
+// Shared-memory layout of the tiled blur for taps (or bands, kSum: of the
+// level sum) of at most Kv rows and Kh columns; returns its bytes.
+template <class T, bool kBands, bool kSum = false>
 int tiled_geometry(int Kv, int Kh, TiledArgs* a) {
     const int kvp = (Kv + kRun - 1) / kRun * kRun;
     const int khp = (Kh + kRun - 1) / kRun * kRun;
@@ -535,23 +611,43 @@ int tiled_geometry(int Kv, int Kh, TiledArgs* a) {
     const int cols = T::W + Kh - 1 + 3;  // + 16-byte alignment slack
     a->xpitch = (cols + 3) & ~3;
     a->tpitch = a->xpitch + 1;  // odd: the horizontal pass reads columns
-    a->off_hb = kvp * (kBands ? T::H : 1);
-    a->off_st = a->off_hb + (kBands ? 0 : khp);
+    if (!kBands) {
+        // taps: ky (kvp,), kx (khp,), starts (unused), xs, tmp
+        a->off_hb = kvp;
+        a->off_st = a->off_hb + khp;
+        a->off_x = a->off_st + T::H + T::W;
+        a->off_tmp = a->off_x + rows * a->xpitch;
+        a->hb_apart = 0;
+        return (a->off_tmp + T::H * a->tpitch) * (int)sizeof(float);
+    }
+    // bands: vertical weights (kvp, T::H), starts, xs, [column weights
+    // (khp, T::W)], tmp
+    a->off_st = kvp * T::H;
     a->off_x = a->off_st + T::H + T::W;
-    const int region = max(rows * a->xpitch, kBands ? khp * T::W : 0);
-    a->off_tmp = a->off_x + region;
+    const int apart = a->off_x + rows * a->xpitch + khp * T::W
+                      + T::H * a->tpitch;
+    a->hb_apart = kSum && apart * (int)sizeof(float) <= kHbApartBytes;
+    if (a->hb_apart) {
+        a->off_hb = a->off_x + rows * a->xpitch;
+        a->off_tmp = a->off_hb + khp * T::W;
+    } else {
+        a->off_hb = a->off_x;
+        a->off_tmp = a->off_x + max(rows * a->xpitch, khp * T::W);
+    }
     return (a->off_tmp + T::H * a->tpitch) * (int)sizeof(float);
 }
 
-// Launches the tiled blur; returns the CUDA error, or cudaErrorInvalidValue
-// when the taps or bands are too wide to stage (the caller then runs the
-// passes).
-template <class T, bool kBands>
+// Launches the tiled blur (kSum: the band adjoint, one block per tile of
+// every image, levels summed in the block); returns the CUDA error, and
+// cudaErrorInvalidValue where the taps or bands are too wide to stage. The
+// caller decides the route before it calls (tiled_blur_fits).
+template <class T, bool kBands, bool kSum>
 cudaError_t launch_tiled(TiledArgs* a, int Kv, int Kh, cudaStream_t s) {
-    const int bytes = tiled_geometry<T, kBands>(Kv, Kh, a);
+    const int bytes = tiled_geometry<T, kBands, kSum>(Kv, Kh, a);
     if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
     void (*kernel)(const TiledArgs);
-    if constexpr (kBands) kernel = tile_band_blur<T>;
+    if constexpr (kSum) kernel = tile_band_adjoint<T>;
+    else if constexpr (kBands) kernel = tile_band_blur<T>;
     else kernel = tile_taps_blur<T>;
     if (bytes > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
@@ -559,7 +655,7 @@ cudaError_t launch_tiled(TiledArgs* a, int Kv, int Kh, cudaStream_t s) {
         if (err != cudaSuccess) return err;
     }
     const dim3 grid((a->W + T::W - 1) / T::W, (a->H + T::H - 1) / T::H,
-                    a->L * a->N);
+                    kSum ? a->N : a->L * a->N);
     kernel<<<grid, T::threads, bytes, s>>>(*a);
     return cudaGetLastError();
 }
@@ -588,19 +684,73 @@ bool level_taps(const int* kv, const int* kh, int L, int Kv_max, int Kh_max,
     return true;
 }
 
+// the tiled kernel's arguments for bands (the forward multi-level blur on
+// x (N, H, W) or the adjoint on x (L, N, H, W))
+bool band_args(const float* x, const int* sv, const float* wv, const int* sh,
+               const float* wh, const int* kv, const int* kh, float* out,
+               int L, int N, int H, int W, int Kv_max, int Kh_max,
+               TiledArgs* a) {
+    *a = TiledArgs{};
+    if (!level_taps(kv, kh, L, Kv_max, Kh_max, &a->taps)) return false;
+    a->x = x;
+    a->out = out;
+    a->N = N;
+    a->H = H;
+    a->W = W;
+    a->L = L;
+    a->vec = W % 4 == 0 && aligned16(x) && aligned16(out);
+    a->sv = sv;
+    a->wv = wv;
+    a->sh = sh;
+    a->wh = wh;
+    a->Kv_max = Kv_max;
+    a->Kh_max = Kh_max;
+    a->vec_wv = H % 4 == 0 && aligned16(wv);
+    a->vec_wh = W % 4 == 0 && aligned16(wh);
+    return true;
+}
+
+// routes of separable_blur, banded_blur and banded_blur_adjoint
+constexpr int kPasses = 0;     // two passes through tmp
+constexpr int kTiled = 1;      // LargeTile, BandTile, AdjointTile
+constexpr int kTiledSmall = 2;  // SmallTile
+
 }  // namespace
 
-// x (N, H, W); ky (Kv,); kx (Kh,); tmp and out (N, H, W); av, ah the tap
-// of each kernel that lands on the output pixel (K / 2 for the blur, K - 1
-// - K / 2 for the adjoint's flipped taps); border numbered as above. One
-// launch of the tiled kernel, in large tiles or (large = 0) small ones;
-// taps too wide to stage run the two passes through tmp instead. Returns
-// the first CUDA error (0 on success).
+// 1 if the tiled kernel can stage taps (bands = 0; large = 1: LargeTile,
+// 0: SmallTile) or bands (bands = 1) of at most Kv rows and Kh columns in a
+// block's shared memory, else 0. The caller takes the passes where not.
+extern "C" int tiled_blur_fits(int bands, int large, int Kv, int Kh) {
+    TiledArgs a{};
+    const int bytes =
+        bands ? tiled_geometry<BandTile, true>(Kv, Kh, &a)
+              : (large ? tiled_geometry<LargeTile, false>(Kv, Kh, &a)
+                       : tiled_geometry<SmallTile, false>(Kv, Kh, &a));
+    return bytes <= kMaxSmemBytes;
+}
+
+// x (N, H, W); ky (Kv,); kx (Kh,); out (N, H, W); tmp (N, H, W) for the
+// passes, unread by the tiled kernel; av, ah the tap of each kernel that
+// lands on the output pixel (K / 2 for the blur, K - 1 - K / 2 for the
+// adjoint's flipped taps); border numbered as above. route: kTiled (large
+// tiles), kTiledSmall (small tiles) or kPasses. Returns the first CUDA
+// error (0 on success).
 extern "C" int separable_blur(const float* x, const float* ky,
                               const float* kx, float* tmp, float* out, int N,
                               int H, int W, int Kv, int Kh, int av, int ah,
-                              int border, int large, void* stream) {
+                              int border, int route, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (route == kPasses) {
+        const dim3 block(kBlockX, kBlockY);
+        const dim3 grid = grid_of(H, W, N);
+        taps_vertical<<<grid, block, 0, s>>>(x, ky, tmp, H, W, Kv, av,
+                                             border);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        taps_horizontal<<<grid, block, 0, s>>>(tmp, kx, out, H, W, Kh, ah,
+                                               border);
+        return static_cast<int>(cudaGetLastError());
+    }
     TiledArgs a{};
     a.x = x;
     a.out = out;
@@ -616,88 +766,71 @@ extern "C" int separable_blur(const float* x, const float* ky,
     a.border = border;
     a.taps.v[0] = Kv;
     a.taps.h[0] = Kh;
-    cudaError_t err = large ? launch_tiled<LargeTile, false>(&a, Kv, Kh, s)
-                            : launch_tiled<SmallTile, false>(&a, Kv, Kh, s);
-    if (err != cudaErrorInvalidValue) return static_cast<int>(err);
-    // taps too wide to stage: the two passes through tmp
-    const dim3 block(kBlockX, kBlockY);
-    const dim3 grid = grid_of(H, W, N);
-    taps_vertical<<<grid, block, 0, s>>>(x, ky, tmp, H, W, Kv, av, border);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    taps_horizontal<<<grid, block, 0, s>>>(tmp, kx, out, H, W, Kh, ah,
-                                           border);
-    return static_cast<int>(cudaGetLastError());
+    if (route == kTiled)
+        return static_cast<int>(
+            launch_tiled<LargeTile, false, false>(&a, Kv, Kh, s));
+    if (route == kTiledSmall)
+        return static_cast<int>(
+            launch_tiled<SmallTile, false, false>(&a, Kv, Kh, s));
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x (N, H, W); sv (L, H) and sh (L, W) band starts; wv (L, Kv_max, H) and
 // wh (L, Kh_max, W) band weights; kv, kh (L,) taps per level, host memory;
-// tmp and out (L, N, H, W). With `tiled`, one launch of the tiled kernel
-// (bands too wide to stage excepted); else, or then, the two passes
-// through tmp. Returns the first CUDA error (0 on success).
+// out (L, N, H, W); tmp (L, N, H, W) for the passes, unread by the tiled
+// kernel. route: kTiled or kPasses. Returns the first CUDA error (0 on
+// success).
 extern "C" int banded_blur(const float* x, const int* sv, const float* wv,
                            const int* sh, const float* wh, const int* kv,
                            const int* kh, float* tmp, float* out, int L,
                            int N, int H, int W, int Kv_max, int Kh_max,
-                           int tiled, void* stream) {
-    LevelTaps taps;
-    if (!level_taps(kv, kh, L, Kv_max, Kh_max, &taps))
+                           int route, void* stream) {
+    TiledArgs a;
+    if (!band_args(x, sv, wv, sh, wh, kv, kh, out, L, N, H, W, Kv_max,
+                   Kh_max, &a))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    TiledArgs a{};
-    a.x = x;
-    a.out = out;
-    a.N = N;
-    a.H = H;
-    a.W = W;
-    a.vec = W % 4 == 0 && aligned16(x) && aligned16(out);
-    a.sv = sv;
-    a.wv = wv;
-    a.sh = sh;
-    a.wh = wh;
-    a.Kv_max = Kv_max;
-    a.Kh_max = Kh_max;
-    a.vec_wv = H % 4 == 0 && aligned16(wv);
-    a.vec_wh = W % 4 == 0 && aligned16(wh);
-    a.taps = taps;
-    a.L = L;
-    if (tiled) {
-        cudaError_t err = launch_tiled<BandTile, true>(&a, Kv_max, Kh_max, s);
-        if (err != cudaErrorInvalidValue) return static_cast<int>(err);
-    }
-    // bands too wide to stage (a circular border's span the whole axis):
-    // the two passes through tmp
+    if (route == kTiled)
+        return static_cast<int>(
+            launch_tiled<BandTile, true, false>(&a, Kv_max, Kh_max, s));
+    if (route != kPasses) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 block(kBlockX, kBlockY);
     const dim3 grid = grid_of(H, W, L * N);
     band_vertical<false><<<grid, block, 0, s>>>(x, sv, wv, tmp, N, H, W,
-                                                Kv_max, taps);
-    cudaError_t err = cudaGetLastError();
+                                                Kv_max, a.taps);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     band_horizontal<<<grid, block, 0, s>>>(tmp, sh, wh, out, N, H, W, Kh_max,
-                                           taps);
+                                           a.taps);
     return static_cast<int>(cudaGetLastError());
 }
 
 // g (L, N, H, W); sv, wv, sh, wh the bands of the TRANSPOSED operators
-// SV_lᵀ (L, H, H) and SH_lᵀ (L, W, W), laid out as for banded_blur; tmp
-// (L, N, H, W); out (N, H, W) = sum_l SV_lᵀ g_l SH_l. Returns the first
-// CUDA error (0 on success).
+// SV_lᵀ (L, H, H) and SH_lᵀ (L, W, W), laid out as for banded_blur; out
+// (N, H, W) = sum_l SV_lᵀ g_l SH_l. route: kTiled (AdjointTile: a block
+// per tile, the levels summed in it) or kPasses, which alone reads tmp
+// (L, N, H, W). Returns the first CUDA error (0 on success).
 extern "C" int banded_blur_adjoint(const float* g, const int* sv,
                                    const float* wv, const int* sh,
                                    const float* wh, const int* kv,
                                    const int* kh, float* tmp, float* out,
                                    int L, int N, int H, int W, int Kv_max,
-                                   int Kh_max, void* stream) {
-    LevelTaps taps;
-    if (!level_taps(kv, kh, L, Kv_max, Kh_max, &taps))
+                                   int Kh_max, int route, void* stream) {
+    TiledArgs a;
+    if (!band_args(g, sv, wv, sh, wh, kv, kh, out, L, N, H, W, Kv_max,
+                   Kh_max, &a))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (route == kTiled)
+        return static_cast<int>(
+            launch_tiled<AdjointTile, true, true>(&a, Kv_max, Kh_max, s));
+    if (route != kPasses) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 block(kBlockX, kBlockY);
     band_vertical<true><<<grid_of(H, W, L * N), block, 0, s>>>(
-        g, sv, wv, tmp, N, H, W, Kv_max, taps);
-    cudaError_t err = cudaGetLastError();
+        g, sv, wv, tmp, N, H, W, Kv_max, a.taps);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     band_horizontal_sum<<<grid_of(H, W, N), block, 0, s>>>(
-        tmp, sh, wh, out, L, N, H, W, Kh_max, taps);
+        tmp, sh, wh, out, L, N, H, W, Kh_max, a.taps);
     return static_cast<int>(cudaGetLastError());
 }

@@ -9,22 +9,26 @@ has its kernel here:
   ``level_l = SV_l · x · SH_lᵀ``), and their adjoints
   ``fused_separable_blur2d_adjoint`` (``dx = Svᵀ g Sh``) and
   ``multi_level_blur_adjoint`` (``dx = Σ_l SV_lᵀ g_l SH_l``), all in
-  ``csrc/banded_blur.cu``. The forward blurs run a tiled kernel (both
-  passes of a tile in shared memory; the multi-level blur only where its
-  grid fills the card, else two passes through device memory), the
-  adjoints two passes. The two blurs are ``torch.autograd.Function``s
-  whose backward runs the adjoint, so a blur is differentiable on both
-  devices;
+  ``csrc/banded_blur.cu``. Each runs one of two routes, chosen before
+  the launch: a tiled kernel (both passes of a tile in shared memory; the
+  band adjoints sum their levels in the block), or two passes through
+  device memory where the taps or bands are too wide to stage or the
+  tiled grid too small to fill the card. The two blurs are
+  ``torch.autograd.Function``s whose backward runs the adjoint, so a blur
+  is differentiable on both devices;
 * ``patch_sample`` runs ``csrc/patch_sample.cu`` (the TPU's
   ``patch_sample_mxu`` without its window, in its f32 and bf16 modes);
 * ``streaming_min2`` runs ``csrc/streaming_min2.cu`` (per row the two
-  nearest squared-L2 distances and the argmin, no (N, M) matrix).
+  nearest squared-L2 distances and the argmin, no (N, M) matrix; the dot
+  products on the tensor cores, split 3xTF32 to f32 accuracy).
 
 A wrapper given a CPU tensor computes the plain version (the dense
 operator products of the JAX package's ``xla_mm2`` / ``xla`` variants, a
 gather-based bilinear sample, the full distance matrix). Given a CUDA
 tensor it launches the kernel or raises; it never falls back. Each launch
-adds one to ``launches[name]``.
+adds one to ``launches[name]``, and a blur's launch also to
+``launches[name + ":tiled"]`` or ``launches[name + ":passes"]``, the
+route it took.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` from the
 sources in ``kornia_tpu_torch/csrc`` into ``build/kernels/`` and loaded with
@@ -86,10 +90,11 @@ _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _INTP = ctypes.POINTER(ctypes.c_int)
 # C function -> (library, argument types)
-_BANDS = [_VOIDP] * 5 + [_INTP] * 2 + [_VOIDP] * 2 + [_INT] * 6 + [_VOIDP]
+_BANDS = [_VOIDP] * 5 + [_INTP] * 2 + [_VOIDP] * 2 + [_INT] * 7 + [_VOIDP]
 _FUNCS = {
+    "tiled_blur_fits": ("banded_blur", [_INT] * 4),
     "separable_blur": ("banded_blur", [_VOIDP] * 5 + [_INT] * 9 + [_VOIDP]),
-    "banded_blur": ("banded_blur", _BANDS[:-1] + [_INT, _VOIDP]),
+    "banded_blur": ("banded_blur", _BANDS),
     "banded_blur_adjoint": ("banded_blur", _BANDS),
     "patch_sample": ("patch_sample", [_VOIDP, _INT, _INT, _VOIDP, _VOIDP,
                                       _VOIDP, ctypes.c_longlong, _INT,
@@ -113,11 +118,20 @@ _LARGE_TILE_FILL = 2.0
 # each block's serial band loops set the time, and the two passes' many
 # small blocks are faster
 _BAND_TILED_FILL = 1.0
+# the band adjoint takes the tiled kernel (a block per 32 x 64 tile, every
+# level summed in it) where that grid has at least this many blocks per SM:
+# it won at 1.14 (480x640, one image, five levels: 0.068 ms against the
+# passes' 0.084) and lost at 0.30 (240x320: 0.052 against 0.038; H100,
+# kernel_times.py, both routes forced in one call)
+_ADJOINT_TILED_FILL = 1.0
+# routes of csrc/banded_blur.cu: two passes, the tiled kernel in large
+# (or band) tiles, in small tiles
+_PASSES, _TILED, _TILED_SMALL = 0, 1, 2
 _MAX_GRID_Z = 65535     # the grid's third dimension: images x levels
 # patch_sample modes of the TPU kernel -> bf16 row pass or exact f32
 _PATCH_MODES = {"split": False, "highest": False, "bf16": True}
 _BIG = 1e9              # kBig in csrc/streaming_min2.cu, _BIG of the reference
-_MIN2_TILE = 64         # kTile in csrc/streaming_min2.cu
+_MIN2_TILE = 128        # kTileM and kTileN in csrc/streaming_min2.cu
 
 
 def reset_launches() -> None:
@@ -357,10 +371,21 @@ def _fn(name: str):
     return _FNS[name]
 
 
-def _check_launch(name: str, err: int) -> None:
+def _check_launch(name: str, err: int, route: Optional[int] = None) -> None:
+    """Raise on a CUDA error; else count the launch (and its route)."""
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {err})")
     launches[name] += 1
+    if route is not None:
+        launches[f"{name}:{'passes' if route == _PASSES else 'tiled'}"] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_fits(bands: bool, large: bool, kv: int, kh: int) -> bool:
+    """Whether the tiled blur kernel stages taps (in large or small tiles)
+    or bands of at most kv rows and kh columns in a block's shared memory
+    (csrc/banded_blur.cu::tiled_blur_fits)."""
+    return bool(_fn("tiled_blur_fits")(int(bands), int(large), kv, kh))
 
 
 def _check_grid(name: str, depth: int) -> None:
@@ -384,16 +409,20 @@ def _launch_separable(name: str, xf: torch.Tensor, ky: torch.Tensor,
     ky = ky.reshape(-1).to(xf.device, torch.float32).contiguous()
     kx = kx.reshape(-1).to(xf.device, torch.float32).contiguous()
     _require_cuda(name, xf, ky, kx)
-    tmp = torch.empty_like(xf)
+    large = _blocks_per_sm(N, H, W, xf.device) >= _LARGE_TILE_FILL
+    route = _PASSES
+    if _tiled_fits(False, large, ky.numel(), kx.numel()):
+        route = _TILED if large else _TILED_SMALL
+    # the passes' intermediate; the tiled kernel reads none
+    tmp = torch.empty_like(xf) if route == _PASSES else None
     out = torch.empty_like(xf)
     with torch.cuda.device(xf.device):
         err = _fn("separable_blur")(
-            xf.data_ptr(), ky.data_ptr(), kx.data_ptr(), tmp.data_ptr(),
-            out.data_ptr(), N, H, W, ky.numel(), kx.numel(), anchors[0],
-            anchors[1], _BORDERS[border_type],
-            int(_blocks_per_sm(N, H, W, xf.device) >= _LARGE_TILE_FILL),
-            _stream(xf))
-    _check_launch(name, err)
+            xf.data_ptr(), ky.data_ptr(), kx.data_ptr(),
+            None if tmp is None else tmp.data_ptr(), out.data_ptr(), N, H, W,
+            ky.numel(), kx.numel(), anchors[0], anchors[1],
+            _BORDERS[border_type], route, _stream(xf))
+    _check_launch(name, err, route)
     return out
 
 
@@ -417,18 +446,35 @@ def _launch_bands(name: str, fn: str, xf: torch.Tensor, out_shape,
     N = xf.shape[-3]
     _check_grid(name, L * N)
     _require_cuda(name, xf, sv, wv, sh, wh)
-    tmp = torch.empty((L, N, H, W), dtype=torch.float32, device=xf.device)
+    kv_max, kh_max = wv.shape[1], wh.shape[1]
+    route = _band_route(fn == "banded_blur_adjoint", L, N, H, W, kv_max,
+                        kh_max, xf.device)
+    # the passes' intermediate; the tiled kernels read none
+    tmp = (torch.empty((L, N, H, W), dtype=torch.float32, device=xf.device)
+           if route == _PASSES else None)
     out = torch.empty(out_shape, dtype=torch.float32, device=xf.device)
-    route = ([int(_blocks_per_sm(L * N, H, W, xf.device)
-                  >= _BAND_TILED_FILL)] if fn == "banded_blur" else [])
     with torch.cuda.device(xf.device):
         err = _fn(fn)(
             xf.data_ptr(), sv.data_ptr(), wv.data_ptr(), sh.data_ptr(),
-            wh.data_ptr(), (_INT * L)(*kv), (_INT * L)(*kh), tmp.data_ptr(),
-            out.data_ptr(), L, N, H, W, wv.shape[1], wh.shape[1], *route,
-            _stream(xf))
-    _check_launch(name, err)
+            wh.data_ptr(), (_INT * L)(*kv), (_INT * L)(*kh),
+            None if tmp is None else tmp.data_ptr(), out.data_ptr(), L, N,
+            H, W, kv_max, kh_max, route, _stream(xf))
+    _check_launch(name, err, route)
     return out
+
+
+def _band_route(adjoint: bool, L: int, N: int, H: int, W: int, kv_max: int,
+                kh_max: int, device) -> int:
+    """The route of a band launch, decided before it: the tiled kernel
+    where the bands fit a block's shared memory and its grid (a block per
+    tile and level, or for the adjoint per tile) fills the card enough;
+    else the two passes."""
+    depth, fill = (N, _ADJOINT_TILED_FILL) if adjoint else (L * N,
+                                                            _BAND_TILED_FILL)
+    if (_blocks_per_sm(depth, H, W, device) >= fill
+            and _tiled_fits(True, True, kv_max, kh_max)):
+        return _TILED
+    return _PASSES
 
 
 def _check_border(border_type: str) -> None:
@@ -662,7 +708,8 @@ def multi_level_blur_adjoint(g: torch.Tensor, kernels_y, kernels_x,
     H, W) → f32 (B, C, H, W), ``dx = Σ_l SV_lᵀ g_l SH_l``. One CUDA launch
     on the card, which reads the transposed cumulative operators as bands
     (built once per kernels, size, border and device) and sums the levels
-    inside the launch."""
+    inside the launch: in each tile's block on the tiled route, in the
+    second pass on the passes' route."""
     if g.ndim != 5:
         raise ValueError(f"expected (L, B, C, H, W), got {tuple(g.shape)}")
     _check_border(border_type)

@@ -205,6 +205,121 @@ def test_cuda_adjoint_kernels_match_plain(cuda_device, border):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
 
 
+# the band adjoint's routes, forced by the wrapper's threshold: the tiled
+# kernel (a block per tile, the levels summed in it) or the two passes
+ADJOINT_ROUTES = {"tiled": 0.0, "passes": float("inf")}
+
+
+def _force_adjoint_route(monkeypatch, route):
+    monkeypatch.setattr(K, "_ADJOINT_TILED_FILL", ADJOINT_ROUTES[route])
+    return route
+
+
+def _counted(name, route, fn):
+    """fn's result; asserts it counted one launch of `name` on `route`."""
+    before = (K.launches[name], K.launches[f"{name}:{route}"])
+    out = fn()
+    assert (K.launches[name], K.launches[f"{name}:{route}"]) == (
+        before[0] + 1, before[1] + 1)
+    return out
+
+
+@pytest.mark.parametrize("border", ["reflect", "replicate"])
+def test_cuda_band_adjoint_ssim_shape(cuda_device, border):
+    """The SSIM loss's adjoint at (8, 3, 480, 640), 11 taps, on the route
+    the wrapper chooses (tiled, no (L, N, H, W) intermediate)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    g = torch.rand((8, 3, 480, 640), device=cuda_device, generator=gen)
+    k = _gauss(11, 1.5, cuda_device)
+    out = _counted("fused_separable_blur2d_adjoint", "tiled",
+                   lambda: K.fused_separable_blur2d_adjoint(g, k, k, border))
+    ref = K.fused_separable_blur2d_adjoint_plain(g, k, k, border)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+# the 480x640 pyramid's octaves with two images, ragged sizes, sizes below
+# a tile and below the widest band, six images
+ADJ_SHAPES = [(5, 1, 2, 480, 640), (5, 1, 2, 240, 320), (5, 1, 2, 120, 160),
+              (5, 1, 2, 60, 80), (5, 1, 1, 37, 53), (5, 1, 1, 20, 30),
+              (5, 2, 3, 61, 83), (2, 1, 1, 33, 200)]
+
+
+@pytest.mark.parametrize("route", list(ADJOINT_ROUTES))
+@pytest.mark.parametrize("border", ["replicate", "reflect"])
+@pytest.mark.parametrize("shape", ADJ_SHAPES)
+def test_cuda_multi_level_adjoint_routes_match_plain(cuda_device, border,
+                                                     shape, route,
+                                                     monkeypatch):
+    counted = _force_adjoint_route(monkeypatch, route)
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    g = torch.rand(shape, device=cuda_device, generator=gen)
+    kers = _level_kernels(shape[0])
+    out = _counted("multi_level_blur_adjoint", counted,
+                   lambda: K.multi_level_blur_adjoint(g, kers, kers, border))
+    ref = K.multi_level_blur_adjoint_plain(g, kers, kers, border)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("route", list(ADJOINT_ROUTES))
+@pytest.mark.parametrize("border", ["reflect", "replicate"])
+def test_cuda_fused_band_adjoint_routes_match_plain(cuda_device, border,
+                                                    route, monkeypatch):
+    """L = 1 bands, odd and even taps, at ragged and below-halo sizes."""
+    counted = _force_adjoint_route(monkeypatch, route)
+    gen = torch.Generator(device=cuda_device).manual_seed(43)
+    for k in (_gauss(11, 1.5, cuda_device),
+              torch.rand(6, device=cuda_device, generator=gen) / 3):
+        for shape in ((1, 1, 7, 9), (2, 3, 37, 53), (1, 2, 97, 200)):
+            g = torch.rand(shape, device=cuda_device, generator=gen)
+            out = _counted(
+                "fused_separable_blur2d_adjoint", counted,
+                lambda: K.fused_separable_blur2d_adjoint(g, k, k, border))
+            ref = K.fused_separable_blur2d_adjoint_plain(g, k, k, border)
+            torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_tiled_launch_error_raises(cuda_device, monkeypatch):
+    """Bands too wide to stage take the passes, counted as such; forced onto
+    the tiled route they raise and count nothing (no silent passes)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(44)
+    x = torch.rand((1, 1, 120, 640), device=cuda_device, generator=gen)
+    kers = _level_kernels(3)
+    out = _counted("multi_level_blur", "passes",
+                   lambda: K.multi_level_blur(x, kers, kers, "circular"))
+    torch.testing.assert_close(
+        out, K.multi_level_blur_plain(x, kers, kers, "circular"), atol=ATOL,
+        rtol=0)
+    # three 201-tap kernels: bands of 601 columns, too wide to stage; the
+    # replicate edges collect hundreds of taps (values up to about 150), so
+    # the tolerance is ATOL of the largest value
+    wide = [_gauss(201, 30.0) for _ in range(3)]
+    g = torch.rand((3, 1, 1, 64, 640), device=cuda_device, generator=gen)
+    out = _counted("multi_level_blur_adjoint", "passes",
+                   lambda: K.multi_level_blur_adjoint(g, wide, wide))
+    ref = K.multi_level_blur_adjoint_plain(g, wide, wide)
+    torch.testing.assert_close(out, ref, atol=ATOL * ref.abs().max().item(),
+                               rtol=0)
+    k301 = _gauss(301, 40.0, cuda_device)
+    out = _counted("fused_separable_blur2d", "passes",
+                   lambda: K.fused_separable_blur2d(x, k301, k301,
+                                                    "circular"))
+    torch.testing.assert_close(
+        out, K.fused_separable_blur2d_plain(x, k301, k301, "circular"),
+        atol=ATOL, rtol=0)
+    # forced: the bands and taps "fit", and every grid fills the card
+    monkeypatch.setattr(K, "_tiled_fits", lambda *a: True)
+    monkeypatch.setattr(K, "_BAND_TILED_FILL", 0.0)
+    monkeypatch.setattr(K, "_ADJOINT_TILED_FILL", 0.0)
+    before = dict(K.launches)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        K.multi_level_blur(x, kers, kers, "circular")
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        K.multi_level_blur_adjoint(g, wide, wide)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        K.fused_separable_blur2d(x, k301, k301, "circular")
+    assert dict(K.launches) == before
+
+
 @pytest.mark.parametrize("border", BORDERS)
 def test_cuda_fused_blur_grads_match_cpu(cuda_device, border):
     """The card's gradients (adjoint kernel, tap grads) equal the CPU's:
@@ -296,3 +411,47 @@ def test_cuda_streaming_matcher_stores_no_distance_matrix(cuda_device):
     assert torch.cuda.max_memory_allocated(cuda_device) - base < 4096 ** 2
     ref = t_match.match_smnn(a, b, 0.95)
     assert (out[2] == ref[2]).float().mean() > 0.999
+
+
+# distances of rows of norm at most 1 (at most 4) from the 3xTF32 product:
+# about 1e-6 off the true f32 ones
+MATCH_ATOL = 1e-5
+# rows whose two nearest lie this close may swap them (f32 rounds the
+# distances of either version by about 1e-7)
+TIE_ATOL = 1e-5
+
+
+def _check_min2(a, b):
+    """streaming_min2 against its plain (true f32) version: distances to
+    MATCH_ATOL, the argmin equal outside near ties. Returns the share of
+    near-tie rows."""
+    before = K.launches["streaming_min2"]
+    m1, m2, idx = K.streaming_min2(a, b)
+    assert K.launches["streaming_min2"] == before + 1
+    r1, r2, ridx = K.streaming_min2_plain(a, b)
+    torch.testing.assert_close(m1, r1, atol=MATCH_ATOL, rtol=0)
+    torch.testing.assert_close(m2, r2, atol=MATCH_ATOL, rtol=0)
+    tie = (r2 - r1) <= TIE_ATOL
+    assert not ((idx != ridx) & ~tie).any()
+    return tie.float().mean().item()
+
+
+def test_cuda_streaming_min2_unit_rows(cuda_device):
+    """4096 x 4096 x 128 unit rows, as SIFT descriptors are; near ties are
+    rare there."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    a, b = (torch.nn.functional.normalize(torch.randn(
+        (4096, 128), device=cuda_device, generator=gen), dim=-1)
+        for _ in range(2))
+    assert _check_min2(a, b) < 0.01
+
+
+@pytest.mark.parametrize("d", [1, 7, 100])
+@pytest.mark.parametrize("n,m", [(300, 257), (129, 1000), (5, 3)])
+def test_cuda_streaming_min2_ragged(cuda_device, n, m, d):
+    """D not a multiple of the 32-dimension chunk (nor of 4: 4-byte copies),
+    N and M not multiples of the 128-row tiles; rows of norm below 1."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + m + d)
+    a, b = (torch.rand((r, d), device=cuda_device, generator=gen) / d ** 0.5
+            for r in (n, m))
+    _check_min2(a, b)

@@ -397,3 +397,145 @@ def test_staged_taps_rebuild_band_matrix(border, k, size, flipped):
                 dense[r0 + i].index_put_((src[keep],), vt[keep, i],
                                          accumulate=True)
         assert torch.equal(dense, K.band_matrix(taps, size, border, anchor))
+
+
+# --- the tiled band adjoint: one block per tile, the levels in turn ----------
+# csrc/banded_blur.cu::tile_band_adjoint runs, for each level l of its tile,
+# the forward's staging on the bands of the TRANSPOSED operators: rows of
+# SV_lᵀ down the tile (32 rows, unaligned start), columns of SH_lᵀ along it
+# (64 columns, 16-byte aligned start), then adds the level's passes into its
+# registers.
+
+def _ssim_taps():
+    return (tuple(float(v) for v in _kernels_1d([(11, 1.5)])[0]),)
+
+
+def _pyramid_taps():
+    sigmas = [1.23, 1.55, 1.95, 2.45, 3.09]
+    return tuple(tuple(float(v) for v in k) for k in _kernels_1d(
+        [(2 * int(np.ceil(4 * s)) + 1, s) for s in sigmas]))
+
+
+@pytest.mark.parametrize("which,border,size", [
+    # the multi-level adjoint at each side of the 480x640 pyramid's octaves,
+    # and ragged sizes below a tile and below the widest band
+    *[("pyramid", "replicate", n) for n in (480, 640, 240, 320, 120, 160,
+                                            60, 80, 37, 53)],
+    ("pyramid", "reflect", 83),
+    # the SSIM loss's single blur (L = 1), and a ragged size
+    ("ssim", "reflect", 480), ("ssim", "reflect", 640),
+    ("ssim", "replicate", 640), ("ssim", "reflect", 61)])
+def test_tiled_adjoint_windows_hold_transposed_operators(which, border, size):
+    """For every level of the adjoint's loop and every tile, the window the
+    kernel stages from _adjoint_band_tables_cached holds the tile's rows of
+    the transposed operator bit for bit, inside a span that lies in the
+    image and fits the shared memory laid out for the widest level."""
+    values = _pyramid_taps() if which == "pyramid" else _ssim_taps()
+    start, w, taps = K._adjoint_band_tables_cached(values, size, border,
+                                                   "cpu")
+    ops = K.cumulative_operators([torch.tensor(v) for v in values], size,
+                                 border).transpose(1, 2)
+    kmax = w.shape[1]
+    assert kmax == max(taps)
+    for tile, aligned in _TILES:
+        for lvl, K_l in enumerate(taps):
+            for r0, n in _tiles(size, tile):
+                lo, count, vt = _band_window(start[lvl], w[lvl], K_l, r0, n,
+                                             aligned)
+                assert 0 <= lo and lo + count <= size + (3 if aligned else 0)
+                assert count <= tile + kmax - 1 + (3 if aligned else 0)
+                span = slice(lo, min(lo + count, size))
+                rows = ops[lvl, r0:r0 + n]
+                assert torch.equal(vt[:span.stop - lo].T, rows[:, span])
+                assert not rows[:, :lo].any() and not rows[:, span.stop:].any()
+
+
+def test_band_route_is_chosen_before_launch(monkeypatch):
+    """The route of a band launch follows from the grid's fill and from
+    whether the bands fit a block's shared memory, and nothing else: the
+    adjoint's grid counts images, the forward's images x levels."""
+    fill = {}
+    monkeypatch.setattr(K, "_blocks_per_sm",
+                        lambda depth, H, W, device: fill[depth])
+    fits = {"ok": True}
+    monkeypatch.setattr(K, "_tiled_fits", lambda *a: fits["ok"])
+    monkeypatch.setattr(K, "_ADJOINT_TILED_FILL", 1.0)
+    fill.update({1: 0.9, 5: 4.5, 2: 1.8, 10: 9.0})
+    # forward: a block per tile and level
+    assert K._band_route(False, 5, 1, 480, 640, 87, 87, "cpu") == K._TILED
+    # adjoint: a block per tile; 0.9 blocks per SM is below its threshold
+    assert K._band_route(True, 5, 1, 480, 640, 87, 87, "cpu") == K._PASSES
+    assert K._band_route(True, 5, 2, 480, 640, 87, 87, "cpu") == K._TILED
+    assert K._band_route(True, 1, 2, 480, 640, 11, 11, "cpu") == K._TILED
+    fits["ok"] = False
+    assert K._band_route(False, 5, 2, 480, 640, 640, 640, "cpu") == K._PASSES
+    assert K._band_route(True, 5, 2, 480, 640, 640, 640, "cpu") == K._PASSES
+
+
+def test_launch_counters_count_each_route():
+    K.reset_launches()
+    K._check_launch("blur", 0, K._TILED)
+    K._check_launch("blur", 0, K._TILED_SMALL)
+    K._check_launch("blur", 0, K._PASSES)
+    K._check_launch("patch", 0)
+    assert dict(K.launches) == {"blur": 3, "blur:tiled": 2,
+                                "blur:passes": 1, "patch": 1}
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        K._check_launch("blur", 1, K._TILED)
+    assert K.launches["blur"] == 3 and K.launches["blur:tiled"] == 2
+    K.reset_launches()
+
+
+# --- streaming_min2's 3xTF32 split -------------------------------------------
+# csrc/streaming_min2.cu splits each f32 value a into a_hi = tf32(a) and
+# a_lo = tf32(a - a_hi) (cvt.rna: to nearest, ties away from zero, 10
+# mantissa bits) and sums a_lo·b_hi + a_hi·b_lo + a_hi·b_hi in f32.
+
+def _tf32(x):
+    """Round f32 to TF32 as cvt.rna does: add half of the 13 dropped bits'
+    unit to the magnitude's bits, then drop them (ties away from zero)."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_dists(a, b, terms=3):
+    """n1 + n2 - 2·dot, dot from the TF32 split in f32, clamped at 0."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    dot = ah @ bh.T
+    if terms == 3:
+        dot = (al @ bh.T + ah @ bl.T) + dot
+    n1 = (a * a).sum(-1, dtype=np.float32)
+    n2 = (b * b).sum(-1, dtype=np.float32)
+    return np.maximum(n1[:, None] + n2[None, :] - np.float32(2) * dot, 0)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)  # TF32's unit in the last place at 1
+    x = np.array([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                  one + 3 * ulp / 4, np.float32(3.0)], dtype=np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), np.array([one + ulp, -(one + ulp), one, one + ulp, 3.0],
+                           dtype=np.float32))
+
+
+def test_3xtf32_split_holds_f32_accuracy():
+    """At 512 x 512 x 128: exact on integer descriptors (the lo parts are
+    zero); within 1e-5 (chip_smoke.py's MATCH_ATOL) of the float64
+    distances on unit rows, where a single TF32 product is not."""
+    rng = np.random.default_rng(30)
+    a = rng.integers(0, 4, (512, 128)).astype(np.float32)
+    b = rng.integers(0, 4, (512, 128)).astype(np.float32)
+    assert not _tf32(a - _tf32(a)).any()
+    exact = ((a.astype(np.float64)[:, None] - b[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(_split_dists(a, b), exact)
+    a, b = (rng.standard_normal((512, 128)).astype(np.float32)
+            for _ in range(2))
+    a /= np.linalg.norm(a, axis=1, keepdims=True)
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    ref = ((a64[:, None] - b64[None]) ** 2).sum(-1)
+    err3 = np.abs(_split_dists(a, b) - ref).max()
+    err1 = np.abs(_split_dists(a, b, terms=1) - ref).max()
+    assert err3 <= 1e-5 < err1
