@@ -5,6 +5,11 @@ configuration and the precomputed filters (Gaussian kernels, band
 operators). ``state_from_numpy`` turns a nested dict of numpy arrays,
 exported from the JAX side, into tensors on a device; later slices (HardNet,
 AffNet) load their parameters through it.
+
+The back end's state crosses as the arrays of its pytrees: an Se3 as its
+quaternion data (wxyz, kept as stored, not renormalised) and translation,
+a ``BAState``, ``BAProblem`` or ``PoseGraph`` as its fields. Index arrays
+become int64.
 """
 
 from __future__ import annotations
@@ -14,7 +19,14 @@ from typing import Any, Mapping, Union
 import numpy as np
 import torch
 
-__all__ = ["state_from_numpy"]
+from .geometry.liegroup import Quaternion, Se3, So3
+from .slam.ba import BAProblem, BAState
+from .slam.posegraph import PoseGraph
+
+__all__ = ["state_from_numpy", "se3_from_numpy", "ba_state_from_numpy",
+           "ba_problem_from_numpy", "pose_graph_from_numpy"]
+
+Device = Union[str, torch.device]
 
 
 def state_from_numpy(tree: Union[Mapping[str, Any], Any],
@@ -29,3 +41,42 @@ def state_from_numpy(tree: Union[Mapping[str, Any], Any],
     if arr.dtype == object:
         raise TypeError(f"cannot convert a leaf of type {type(tree)!r}")
     return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def _tensor(a, device: Device, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(a)).copy())
+    return t.to(device=device, dtype=dtype)
+
+
+def se3_from_numpy(wxyz, t, device: Device = "cuda"):
+    """Quaternion data (..., 4) wxyz and translation (..., 3) → Se3."""
+    return Se3(So3(Quaternion(_tensor(wxyz, device, torch.float32))),
+               _tensor(t, device, torch.float32))
+
+
+def ba_state_from_numpy(wxyz, t, points, device: Device = "cuda"):
+    """Camera poses (C, 4) wxyz + (C, 3), points (P, 3) → BAState."""
+    return BAState(se3_from_numpy(wxyz, t, device),
+                   _tensor(points, device, torch.float32))
+
+
+def ba_problem_from_numpy(cam_idx, pt_idx, uv, valid, K,
+                          device: Device = "cuda"):
+    """Observation arrays (O,), (O,), (O, 2), (O,) and K (3, 3) →
+    BAProblem."""
+    return BAProblem(_tensor(cam_idx, device, torch.int64),
+                     _tensor(pt_idx, device, torch.int64),
+                     _tensor(uv, device, torch.float32),
+                     _tensor(valid, device, torch.bool),
+                     _tensor(K, device, torch.float32))
+
+
+def pose_graph_from_numpy(src, dst, meas_wxyz, meas_t, weight, valid,
+                          device: Device = "cuda"):
+    """Edges (E,) src/dst, measured relative poses (E, 4) wxyz + (E, 3),
+    weights (E,) and validity (E,) → PoseGraph."""
+    return PoseGraph(_tensor(src, device, torch.int64),
+                     _tensor(dst, device, torch.int64),
+                     se3_from_numpy(meas_wxyz, meas_t, device),
+                     _tensor(weight, device, torch.float32),
+                     _tensor(valid, device, torch.bool))

@@ -34,6 +34,9 @@ __all__ = [
     "run_5point",
     "polish_essential",
     "decompose_essential_matrix",
+    "essential_from_Rt",
+    "fundamental_from_essential",
+    "relative_camera_motion",
     "motion_from_essential",
     "motion_from_essential_choose_solution",
     "projection_from_KRt",
@@ -364,6 +367,29 @@ def polish_essential(E: torch.Tensor, points1: torch.Tensor,
 # -----------------------------------------------------------------------------
 # Decomposition, triangulation, cheirality
 # -----------------------------------------------------------------------------
+
+def fundamental_from_essential(E: torch.Tensor, K1: torch.Tensor,
+                               K2: torch.Tensor) -> torch.Tensor:
+    """F = K2⁻ᵀ E K1⁻¹."""
+    return inverse_3x3(K2).transpose(-1, -2) @ E @ inverse_3x3(K1)
+
+
+def relative_camera_motion(R1: torch.Tensor, t1: torch.Tensor,
+                           R2: torch.Tensor, t2: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R, t) of camera 2 relative to camera 1 (world→camera poses, t as
+    (..., 3, 1))."""
+    R = R2 @ R1.transpose(-1, -2)
+    return R, t2 - R @ t1
+
+
+def essential_from_Rt(R1: torch.Tensor, t1: torch.Tensor, R2: torch.Tensor,
+                      t2: torch.Tensor) -> torch.Tensor:
+    """E = [t]ₓ R of two world→camera poses."""
+    from .conversions import vector_to_skew_symmetric_matrix
+    R, t = relative_camera_motion(R1, t1, R2, t2)
+    return vector_to_skew_symmetric_matrix(t[..., 0]) @ R
+
 
 def decompose_essential_matrix(E: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor,

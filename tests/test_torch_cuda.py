@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-card's gradients against the CPU's. Every test here needs a CUDA card and
+"""The port's CUDA kernels against their plain PyTorch versions, the
+card's gradients against the CPU's, and the SLAM back end (which has no
+kernel of its own) on the card against the CPU port. Every test here needs a CUDA card and
 skips without one. The file imports nothing of the JAX package
 (``kornia_tpu``), so it also runs where that package's own dependencies
 are missing:
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from kornia_tpu_torch import convert
 from kornia_tpu_torch.feature import matching as t_match
 from kornia_tpu_torch.losses import losses as t_losses
 from kornia_tpu_torch.ops import filters as t_filters
@@ -455,3 +457,233 @@ def test_cuda_streaming_min2_ragged(cuda_device, n, m, d):
     a, b = (torch.rand((r, d), device=cuda_device, generator=gen) / d ** 0.5
             for r in (n, m))
     _check_min2(a, b)
+
+
+# --- the SLAM back end: card against the CPU port ---------------------------------
+# Card and CPU sum in other orders (index_add_ with atomics, cuBLAS and
+# cuSOLVER against LAPACK). With two cameras fixed the BA has no gauge
+# freedom and its path is held tightly; with camera 0 alone the scale is
+# free and only the final cost and the residuals are held.
+
+def _ba_arrays(seed=0, C=5, P=40, noise=0.3):
+    """tests/test_slam.py::make_ba_problem's layout with numpy draws:
+    cameras on a 0.6 rad arc, every camera sees every point."""
+    from kornia_tpu_torch.geometry.liegroup import Se3
+    from kornia_tpu_torch.slam.ba import _project
+    rng = np.random.default_rng(seed)
+    z = torch.zeros(C)
+    gt = Se3.exp(torch.stack([z, z, z, z, torch.linspace(-0.3, 0.3, C), z],
+                             -1))
+    gt = Se3(gt.r, gt.t + torch.stack([torch.linspace(-1, 1, C), z, z], -1))
+    X = (rng.standard_normal((P, 3)) * 1.5 + [0.0, 0.0, 6.0]).astype(
+        np.float32)
+    K_ = np.array([[200.0, 0, 128], [0, 200, 96], [0, 0, 1]], np.float32)
+    cam = np.repeat(np.arange(C), P)
+    pt = np.tile(np.arange(P), C)
+    ci, pi = torch.from_numpy(cam), torch.from_numpy(pt)
+    uv = _project(gt.r.q.data[ci], gt.t[ci], torch.from_numpy(X)[pi],
+                  torch.from_numpy(K_)).numpy()
+    uv = (uv + noise * rng.standard_normal(uv.shape)).astype(np.float32)
+    r0 = Se3.exp(torch.from_numpy(
+        0.03 * rng.standard_normal((C, 6))).float()).r * gt.r
+    t0 = gt.t.numpy() + 0.1 * rng.standard_normal((C, 3))
+    X0 = X + 0.2 * rng.standard_normal((P, 3))
+    return C, P, dict(wxyz=r0.q.data.numpy(), t=t0.astype(np.float32),
+                      points=X0.astype(np.float32), cam=cam, pt=pt, uv=uv,
+                      valid=np.ones(C * P, bool), K=K_)
+
+
+def _ba_on(a, device):
+    return (convert.ba_state_from_numpy(a["wxyz"], a["t"], a["points"],
+                                        device),
+            convert.ba_problem_from_numpy(a["cam"], a["pt"], a["uv"],
+                                          a["valid"], a["K"], device))
+
+
+def _tables(a, P, device):
+    from kornia_tpu_torch.slam.ba_sparse import build_point_tables
+    oi, om = build_point_tables(a["cam"], a["pt"], a["valid"], P)
+    return torch.from_numpy(oi).to(device), torch.from_numpy(om).to(device)
+
+
+def _loop_arrays(N=10, seed=0):
+    """tests/test_slam.py::TestPoseGraph's loop with numpy draws: a chain
+    of N poses and one loop-closure edge, initial poses perturbed."""
+    from kornia_tpu_torch.geometry.liegroup import Se3, So3
+    rng = np.random.default_rng(seed)
+    gt = Se3.exp(torch.from_numpy(0.3 * rng.standard_normal((N, 6))).float())
+    src = np.concatenate([np.arange(N - 1), [0]])
+    dst = np.concatenate([np.arange(1, N), [N - 1]])
+    meas = Se3(So3.from_wxyz(gt.r.q.data[src]), gt.t[src]).inverse() * \
+        Se3(So3.from_wxyz(gt.r.q.data[dst]), gt.t[dst])
+    r0 = Se3.exp(torch.from_numpy(
+        0.1 * rng.standard_normal((N, 6))).float()).r * gt.r
+    t0 = gt.t + torch.from_numpy(0.2 * rng.standard_normal((N, 3))).float()
+    return dict(src=src, dst=dst, mq=meas.r.q.data.numpy(),
+                mt=meas.t.numpy(), wxyz=r0.q.data.numpy(), t=t0.numpy())
+
+
+def _loop_on(a, device):
+    E = a["src"].shape[0]
+    return (convert.se3_from_numpy(a["wxyz"], a["t"], device),
+            convert.pose_graph_from_numpy(a["src"], a["dst"], a["mq"],
+                                          a["mt"], np.ones(E, np.float32),
+                                          np.ones(E, bool), device))
+
+
+def test_cuda_bundle_adjust_matches_cpu(cuda_device):
+    from kornia_tpu_torch.slam import ba as t_ba
+    C, P, a = _ba_arrays()
+    outs = [t_ba.bundle_adjust(*_ba_on(a, d), C, P, num_iters=8,
+                               fix_first_cam=2)
+            for d in (cuda_device, "cpu")]
+    (sg, cg), (sc, cc) = outs
+    np.testing.assert_allclose(cg.cpu().numpy(), cc.numpy(), rtol=1e-3)
+    torch.testing.assert_close(sg.points.cpu(), sc.points, atol=5e-4,
+                               rtol=0)
+    torch.testing.assert_close(sg.poses.t.cpu(), sc.poses.t, atol=5e-4,
+                               rtol=0)
+    torch.testing.assert_close(sg.poses.r.q.data.cpu(), sc.poses.r.q.data,
+                               atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("gnc", [0, 4])
+def test_cuda_bundle_adjust_sparse_matches_cpu(cuda_device, gnc):
+    from kornia_tpu_torch.slam import ba as t_ba
+    from kornia_tpu_torch.slam import ba_sparse as t_bas
+    C, P, a = _ba_arrays(noise=0.1 if gnc else 0.3)
+    kw = dict(num_iters=12, robust="tukey" if gnc else "huber",
+              robust_delta=2.0 if gnc else 3.0, gnc_stages=gnc)
+    res = []
+    for d in (cuda_device, "cpu"):
+        state, prob = _ba_on(a, d)
+        s, c = t_bas.bundle_adjust_sparse(state, prob, *_tables(a, P, d), C,
+                                          P, **kw)
+        res.append((c.cpu().numpy(),
+                    t_ba.reprojection_residuals(s, prob).cpu()))
+    (cg, rg), (cc, rc) = res
+    np.testing.assert_allclose(cg[-1], cc[-1], rtol=1e-4)
+    torch.testing.assert_close(rg, rc, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("group", ["se3", "sim3"])
+def test_cuda_pose_graph_matches_cpu(cuda_device, group):
+    from kornia_tpu_torch.slam import posegraph as t_pg
+    a = _loop_arrays()
+    res = []
+    for d in (cuda_device, "cpu"):
+        poses, graph = _loop_on(a, d)
+        if group == "se3":
+            p, c = t_pg.optimize_pose_graph(poses, graph, num_iters=8)
+        else:
+            p, _, c = t_pg.optimize_pose_graph_sim3(poses, graph)
+        res.append((p, c.cpu().numpy()))
+    (pg, cg), (pc, cc) = res
+    np.testing.assert_allclose(cg, cc, rtol=1e-3, atol=1e-9 * cc[0])
+    torch.testing.assert_close(pg.t.cpu(), pc.t, atol=1e-5, rtol=0)
+    torch.testing.assert_close(pg.r.q.data.cpu(), pc.r.q.data, atol=1e-5,
+                               rtol=0)
+
+
+def test_cuda_pnp_ransac_matches_cpu(cuda_device):
+    from kornia_tpu_torch.geometry.calibration import pnp_ransac
+    rng = np.random.default_rng(3)
+    n, n_out = 128, 25
+    X = (rng.standard_normal((n, 3)) + [0.0, 0.0, 5.0]).astype(np.float32)
+    a = np.array([0.05, -0.1, 0.03])
+    Kx = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    th = np.linalg.norm(a)
+    R = (np.eye(3) + np.sin(th) / th * Kx
+         + (1 - np.cos(th)) / th ** 2 * Kx @ Kx).astype(np.float32)
+    Xc = X @ R.T + np.float32([0.2, 0.1, -0.3])
+    uv = Xc[:, :2] / Xc[:, 2:]
+    uv[:n_out] += 0.5 * rng.standard_normal((n_out, 2))
+    g = -np.log(-np.log(np.maximum(rng.random((256, n)), 1e-30)))
+    out = [pnp_ransac(torch.from_numpy(X).to(d),
+                      torch.from_numpy(uv.astype(np.float32)).to(d), 5e-3,
+                      batch_size=256, gumbel=torch.from_numpy(g).float())
+           for d in (cuda_device, "cpu")]
+    (Rg, tg, ig, _), (Rc, tc, ic, _) = out
+    assert torch.equal(ig.cpu(), ic)
+    assert int(ic.sum()) >= n - n_out - 5
+    torch.testing.assert_close(Rg.cpu(), Rc, atol=1e-5, rtol=0)
+    torch.testing.assert_close(tg.cpu(), tc, atol=1e-5, rtol=0)
+
+
+def test_cuda_incremental_sfm_matches_cpu(cuda_device):
+    from kornia_tpu_torch.geometry.scene import generate_scene
+    from kornia_tpu_torch.slam.sfm import incremental_sfm
+    # (the scene of seed 0 is one the algorithm fails on, in the JAX
+    # package too: final RMS 1.76 px in both)
+    s = generate_scene(4, 48, rotation_scale=0.15, translation_scale=0.4,
+                       generator=torch.Generator().manual_seed(1),
+                       device="cpu")
+    obs = (s["points2d"] + 0.3 * torch.randn(
+        s["points2d"].shape, generator=torch.Generator().manual_seed(101)))
+    vis = np.ones((4, 48), bool)
+    card, cpu = (incremental_sfm(obs.numpy(), vis, s["K"][0], ba_iters=10,
+                                 device=d) for d in (cuda_device, "cpu"))
+    assert np.array_equal(card.point_valid, cpu.point_valid)
+    assert abs(card.final_rms - cpu.final_rms) <= 1e-3
+    assert card.final_rms < 0.8
+
+
+def _lm_loops(device):
+    """The LM loops of the back end at test size, each a callable."""
+    from kornia_tpu_torch.slam import ba as t_ba
+    from kornia_tpu_torch.slam import ba_sparse as t_bas
+    from kornia_tpu_torch.slam import posegraph as t_pg
+    C, P, a = _ba_arrays()
+    state, prob = _ba_on(a, device)
+    oi, om = _tables(a, P, device)
+    poses, graph = _loop_on(_loop_arrays(), device)
+    return {
+        "bundle_adjust": lambda: t_ba.bundle_adjust(state, prob, C, P,
+                                                    num_iters=4),
+        "bundle_adjust_sparse": lambda: t_bas.bundle_adjust_sparse(
+            state, prob, oi, om, C, P, num_iters=4),
+        "bundle_adjust_sparse_gnc": lambda: t_bas.bundle_adjust_sparse(
+            state, prob, oi, om, C, P, num_iters=4, robust="tukey",
+            gnc_stages=2),
+        "optimize_pose_graph": lambda: t_pg.optimize_pose_graph(
+            poses, graph, num_iters=4),
+        "optimize_pose_graph_sim3": lambda: t_pg.optimize_pose_graph_sim3(
+            poses, graph, num_iters=4),
+    }
+
+
+@pytest.mark.parametrize("loop", ["bundle_adjust", "bundle_adjust_sparse",
+                                  "bundle_adjust_sparse_gnc",
+                                  "optimize_pose_graph",
+                                  "optimize_pose_graph_sim3"])
+def test_cuda_lm_loops_make_no_host_sync(cuda_device, loop):
+    """After a warm-up call, a whole LM call runs with every synchronising
+    CUDA operation raising: state, λ and the accept/reject stay on the
+    device."""
+    fn = _lm_loops(cuda_device)[loop]
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out[-1]).all()
+
+
+def test_cuda_non_spd_step_is_rejected(cuda_device):
+    """An indefinite reduced system (λ = -1e3): cholesky_ex reports it on
+    the device, the step is NaN and rejected, nothing raises, and LM goes
+    on from λ = 1e-8."""
+    from kornia_tpu_torch.slam import ba as t_ba
+    S = torch.diag(torch.tensor([1.0, -1.0, 2.0], device=cuda_device))
+    assert torch.isnan(t_ba._cholesky_solve(
+        S, torch.ones(3, device=cuda_device))).all()
+    C, P, a = _ba_arrays()
+    state, prob = _ba_on(a, cuda_device)
+    cost0 = t_ba._cost(state, prob, t_ba._robust_kernels(3.0)["huber"])
+    _, c = t_ba.bundle_adjust(state, prob, C, P, num_iters=6,
+                              fix_first_cam=2, init_lambda=-1e3)
+    c = c.cpu()
+    assert c[0].item() == pytest.approx(cost0.item(), rel=1e-6)
+    assert c[-1].item() < 0.5 * c[0].item()
