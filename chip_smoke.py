@@ -42,9 +42,19 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    path, the Se3 and Sim3 pose graphs on a 2,048-pose ring (a 256-pose
    ring against the CPU), pnp_ransac on 2,000 points with 30% outliers,
    and incremental_sfm at 12 views x 2,000 points (against the CPU). It
-   prints one JSON line of its own.
+   prints one JSON line of its own;
+8. planar: ``HomographyTracker(num_features=512)`` (GFTT corners, RootSIFT,
+   SMNN, homography RANSAC) tracks the 480x640 benchmark image through 8
+   frames warped by a fixed, seeded sequence of homographies: every frame
+   must succeed with its estimated homography within 1 px (mean) and 2 px
+   (max) of the true one at the image corners; the first two frames run on
+   the CPU port too, with the same injected RANSAC noise; ms per frame,
+   stages, the device's busy share, each ported kernel's device time per
+   frame beside its bound, and the structure tensor's blurs (depth 6, every
+   octave) and SIFTFeatureScaleSpace's 960x1280 octave against their plain
+   versions on their named routes. It prints one JSON line of its own.
 
-Each of steps 2, 4, 5 and 6 resets the launch counters just before it
+Each of steps 2, 4, 5, 6 and 8 resets the launch counters just before it
 drives its path and reads them just after; every kernel must have
 launched on its path. Every failure exits non-zero. The last lines are one
 JSON object with the kernels' numbers and ``{"ok": true, "device": {...}}``.
@@ -100,6 +110,14 @@ PG_COST_ATOL = 1e-6    # of the first cost: costs at the rounding floor
 PNP_MAX_DEG = 0.5      # pnp_ransac's rotation error, degrees
 SFM_RMS_MAX, SFM_ATE_MAX = 0.8, 0.05  # tests/test_sfm.py:20,31
 SFM_RMS_ATOL, SFM_CENTRE_ATOL = 1e-3, 1e-3  # incremental_sfm card vs CPU
+# the planar tracker (step 8)
+PLANAR_FRAMES, PLANAR_NF = 8, 512
+PLANAR_XCHECK = 2      # frames also tracked by the CPU port (chained)
+CORNER_MEAN_PX, CORNER_MAX_PX = 1.0, 2.0  # estimated vs true H at corners
+XCHECK_CORNER_PX = 0.5     # card vs CPU port: corners, and inlier counts
+XCHECK_INLIER_RTOL = 0.05  # within 5% of each other
+ML_ATOL = 2e-6   # multi-level blur vs plain, as the multi-level legs hold it
+GFTT_LEVELS = 6  # an octave's levels, folded into the structure tensor batch
 # the route (csrc/banded_blur.cu: the tiled kernel, or two passes through
 # device memory) each blur wrapper takes at each shape of its path, as
 # PERF.md names them: (wrapper, height, width) -> route. The fused blur and
@@ -117,6 +135,14 @@ ROUTES = {
     ("multi_level_blur_adjoint", 240, 320): "passes",
     ("multi_level_blur_adjoint", 120, 160): "passes",
     ("multi_level_blur_adjoint", 60, 80): "passes",
+    # the structure tensor's blurs of the GFTT detector, depth 6 (six
+    # levels); large tiles at 480x640, small ones below
+    ("fused_separable_blur2d", 480, 640): "tiled",
+    ("fused_separable_blur2d", 240, 320): "tiled",
+    ("fused_separable_blur2d", 120, 160): "tiled",
+    ("fused_separable_blur2d", 60, 80): "tiled",
+    # SIFTFeatureScaleSpace's doubled first octave
+    ("multi_level_blur", 960, 1280): "tiled",
 }
 
 
@@ -264,10 +290,10 @@ def _kernel_name(key: str) -> str:
     return head.split("::")[-1].split()[-1]
 
 
-def capture_patch_coords(dev, img):
-    """The (atlas, px, py) of each patch_sample call that SIFTFeature makes
-    on `img`: the pair's own LAFs, 19² orientation and 41² descriptor
-    grids."""
+def capture_patch_coords(dev, img, feature=None):
+    """The (atlas, px, py) of each patch_sample call that `feature`
+    (SIFTFeature by default) makes on `img`: the path's own LAFs, 19²
+    orientation and 41² descriptor grids."""
     from kornia_tpu_torch.feature import laf as laf_mod
     from kornia_tpu_torch.feature.integrated import SIFTFeature
     calls = []
@@ -279,7 +305,7 @@ def capture_patch_coords(dev, img):
 
     laf_mod.patch_sample = spy
     try:
-        SIFTFeature(num_features=NF)(img)
+        (feature or SIFTFeature(num_features=NF))(img)
     finally:
         laf_mod.patch_sample = real
     return calls
@@ -571,7 +597,8 @@ def main_path(K, dev, profile_out) -> dict:
             t2 = time.perf_counter()
             x0 = normalize_points_with_intrinsics(kp0, Kc)
             x1 = normalize_points_with_intrinsics(kp1, Kc)
-            rr = ransac(x0, x1, "essential", inl_th=1.5 / (0.8 * W),
+            rr = ransac(x0, x1, model_type="essential",
+                        inl_th=1.5 / (0.8 * W),
                         batch_size=256, max_iterations=32, mask=valid,
                         generator=gen)
             torch.cuda.synchronize()
@@ -1494,7 +1521,7 @@ def backend_pnp(dev) -> dict:
     X_t, uv_t = torch.from_numpy(X), torch.from_numpy(uv.astype(np.float32))
 
     def run(device):
-        return pnp_ransac(X_t.to(device), uv_t.to(device), 5e-3,
+        return pnp_ransac(X_t.to(device), uv_t.to(device), None, 5e-3,
                           batch_size=S, gumbel=gumbel.to(device))
 
     run(dev)  # warm-up
@@ -1532,8 +1559,8 @@ def backend_sfm(dev) -> dict:
              "t": rng.standard_normal((V, 3, 1)),
              "X": rng.standard_normal((N, 3))}
     noise = 0.3 * rng.standard_normal((V, N, 2))
-    s = generate_scene(V, N, image_size=(480.0, 640.0), rotation_scale=0.15,
-                       translation_scale=0.4,
+    s = generate_scene(num_views=V, num_points=N, image_size=(480.0, 640.0),
+                       rotation_scale=0.15, translation_scale=0.4,
                        draws={k: torch.from_numpy(v) for k, v in
                               draws.items()}, device="cpu")
     obs = (s["points2d"].numpy() + noise).astype(np.float32)
@@ -1589,6 +1616,392 @@ def backend_phase(dev, card: str) -> dict:
     return out
 
 
+# --- step 8: the planar tracker -------------------------------------------
+
+def planar_homographies(h: int, w: int) -> np.ndarray:
+    """The fixed, seeded sequence of target -> frame homographies, one a
+    frame: about the image centre, rotation ramping to 7 deg, scale to 0.92,
+    translation to (28, -20) px and perspective terms to (1.8e-5, -1.2e-5),
+    each with a little seeded jitter. Consecutive frames differ by under
+    25 px at the image corners, so that the tracker's 30 px chaining gate
+    keeps the true matches."""
+    rng = np.random.default_rng(SEED + 8)
+    c = np.array([[1.0, 0.0, (w - 1) / 2], [0.0, 1.0, (h - 1) / 2],
+                  [0.0, 0.0, 1.0]])
+    out = []
+    for i in range(1, PLANAR_FRAMES + 1):
+        f = i / PLANAR_FRAMES
+        ang = math.radians(7.0 * f + rng.uniform(-0.25, 0.25))
+        s = 1.0 - 0.08 * f + rng.uniform(-0.005, 0.005)
+        tx, ty = 28.0 * f + rng.uniform(-1, 1), -20.0 * f + rng.uniform(-1, 1)
+        A = np.array([[s * math.cos(ang), -s * math.sin(ang), tx],
+                      [s * math.sin(ang), s * math.cos(ang), ty],
+                      [1.8e-5 * f, -1.2e-5 * f, 1.0]])
+        out.append(c @ A @ np.linalg.inv(c))
+    return np.stack(out).astype(np.float32)
+
+
+def map_corners(Hm: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The image's four corners mapped by (3, 3) or (1, 3, 3) Hm."""
+    p = torch.tensor([[0.0, 0.0, 1.0], [w - 1.0, 0.0, 1.0],
+                      [w - 1.0, h - 1.0, 1.0], [0.0, h - 1.0, 1.0]],
+                     dtype=torch.float64)
+    q = p @ Hm.reshape(3, 3).detach().cpu().double().T
+    return q[:, :2] / q[:, 2:]
+
+
+def planar_launch_shapes(h: int, w: int):
+    """The shapes at which one image of the tracker (GFTTSIFTFeature on
+    ScalePyramid(3, 1.6, 32)) launches each ported kernel: the pair's
+    (path_launch_shapes, depth 1) and, per octave, the structure tensor's
+    three blurs (k = 7, reflect) over the octave's six levels."""
+    base = path_launch_shapes(h, w)
+    fused = [(hh, ww, k, border, 1)
+             for hh, ww, k, border in base["fused_separable_blur2d"]]
+    for hh, ww in base["multi_level_blur"]:
+        fused += [(hh, ww, 7, "reflect", GFTT_LEVELS)] * 3
+    return dict(base, fused_separable_blur2d=fused)
+
+
+def planar_kernel_times(kern, launches, frames: int) -> dict:
+    """Per ported kernel of one tracked frame (target and frame): its
+    device time in the frame's profile and the sum of its launches' own
+    bounds; the launch list is checked against the counted launches of the
+    whole sequence (`frames` frames), and each blur's route against
+    ROUTES."""
+    from kornia_tpu_torch.ops.pyramid import ScalePyramid
+    shapes = planar_launch_shapes(H, W)
+    kers = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)[0]
+    chain, levels = 2 * sum(k.numel() for k in kers), len(kers)
+    bounds = {
+        "fused_separable_blur2d": [blur_bound(h, w, n, 2 * k)[0]
+                                   for h, w, k, _, n in
+                                   shapes["fused_separable_blur2d"]],
+        "multi_level_blur": [ml_bound(h, w, 1, levels, chain)[0]
+                             for h, w in shapes["multi_level_blur"]],
+        "patch_sample": [patch_bound(rows * W, PLANAR_NF * s)[0]
+                         for rows, s in shapes["patch_sample"]],
+    }
+    per_seq = 2 * frames
+    routes = {}
+    for h, w, _, _, _ in shapes["fused_separable_blur2d"]:
+        key = ("fused_separable_blur2d",
+               expected_route("fused_separable_blur2d", h, w))
+        routes[key] = routes.get(key, 0) + per_seq
+    for h, w in shapes["multi_level_blur"]:
+        key = ("multi_level_blur", expected_route("multi_level_blur", h, w))
+        routes[key] = routes.get(key, 0) + per_seq
+    for (name, route), n in routes.items():
+        if launches.get(f"{name}:{route}") != n:
+            fail(f"planar: {name} launched {launches.get(f'{name}:{route}')}"
+                 f" times on the {route} route, PERF.md's routes give {n}")
+    out = {}
+    for name, names in PAIR_KERNELS.items():
+        if launches.get(name) != per_seq * len(bounds[name]):
+            fail(f"planar: {name}: {launches.get(name)} launches in "
+                 f"{frames} frames, the launch list has "
+                 f"{per_seq * len(bounds[name])}")
+        ms = sum(e.self_device_time_total for e in kern
+                 if _kernel_name(e.key) in names) / 1e3
+        if not ms > 0:
+            fail(f"planar: no device time of {names} in a frame's profile")
+        b = 2 * sum(bounds[name])
+        out[name] = dict(ms_per_frame=ms, bound_per_frame=b,
+                         launches_per_frame=launches[name] // frames)
+        print(f"per frame {name}: {ms:.4f} ms device, bound {b:.5f} ms, "
+              f"{launches[name] // frames} launches")
+    return out
+
+
+def planar_blur_checks(K, filters, dev) -> dict:
+    """The structure tensor's blurs at depth 6 on every octave of the
+    tracker's pyramid, and SIFTFeatureScaleSpace's 960x1280 octave of
+    multi_level_blur (its own launch and the route a SIFTFeatureScaleSpace
+    run takes there), each against its plain version on its named route."""
+    from kornia_tpu_torch.feature.integrated import SIFTFeatureScaleSpace
+    from kornia_tpu_torch.ops.pyramid import ScalePyramid
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    k7 = filters.get_gaussian_kernel1d(7, 1.0, device=dev).reshape(-1)
+    err, per_shape = 0.0, []
+    for hh, ww in path_launch_shapes(H, W)["multi_level_blur"]:
+        x = torch.rand((GFTT_LEVELS, 1, hh, ww), device=dev, generator=gen)
+        route, out = check_route(
+            K, "fused_separable_blur2d", hh, ww,
+            lambda: K.fused_separable_blur2d(x, k7, k7, "reflect"))
+        e = (out - K.fused_separable_blur2d_plain(x, k7, k7, "reflect")
+             ).abs().max().item()
+        err = max(err, e)
+        t = device_ms(lambda: K.fused_separable_blur2d(x, k7, k7, "reflect"))
+        b = blur_bound(hh, ww, GFTT_LEVELS, 14)[0]
+        per_shape.append(dict(shape=[GFTT_LEVELS, hh, ww], k=7, ms=t,
+                              bound_ms=b, route=route, max_abs_err=e))
+        print(f"planar: structure tensor blur {GFTT_LEVELS}x{hh}x{ww} k=7 "
+              f"reflect ({route}): {t:.4f} ms, bound {b:.5f} ms "
+              f"({t / b:.1f}x), max abs err {e:.3e}")
+    if not err <= BLUR_ATOL:
+        fail(f"structure tensor blur disagrees with its plain version: "
+             f"{err} > {BLUR_ATOL}")
+    x = torch.rand((GFTT_LEVELS, 1, H, W), device=dev, generator=gen)
+    big = per_shape[0]
+    fused = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
+                 replaces="kornia_tpu/ops/pallas_kernels.py:239",
+                 per_shape=per_shape, max_abs_err=err, ms=big["ms"],
+                 plain_ms=device_ms(lambda: K.fused_separable_blur2d_plain(
+                     x, k7, k7, "reflect")),
+                 bound_ms=big["bound_ms"],
+                 bound_by=blur_bound(H, W, GFTT_LEVELS, 14)[1],
+                 library_ms=None, tol=BLUR_ATOL)
+
+    # the doubled octave: its own launch against the plain version
+    pyr = ScalePyramid(3, 1.6, 32, double_image=True)
+    kers, _ = pyr._level_kernels(1.6)
+    L, chain = len(kers), 2 * sum(k.numel() for k in kers)
+    x = torch.rand((1, 1, 2 * H, 2 * W), device=dev, generator=gen)
+    route, out = check_route(
+        K, "multi_level_blur", 2 * H, 2 * W,
+        lambda: K.multi_level_blur(x, kers, kers, "replicate"))
+    e = (out - K.multi_level_blur_plain(x, kers, kers, "replicate")
+         ).abs().max().item()
+    t = device_ms(lambda: K.multi_level_blur(x, kers, kers, "replicate"))
+    b_ms, b_by = ml_bound(2 * H, 2 * W, 1, L, chain)
+    print(f"planar: multi_level_blur {2 * H}x{2 * W} L={L} ({route}): "
+          f"{t:.4f} ms, bound {b_ms:.5f} ms ({t / b_ms:.1f}x), max abs err "
+          f"{e:.3e} (tol {ML_ATOL:.0e})")
+    if not e <= ML_ATOL:
+        fail(f"multi_level_blur at {2 * H}x{2 * W} disagrees with its plain "
+             f"version: {e} > {ML_ATOL}")
+    # and a SIFTFeatureScaleSpace run: every octave on its named route
+    target = bench_input(H, W, dev)[0]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    SIFTFeatureScaleSpace(num_features=PLANAR_NF)(target)
+    torch.cuda.synchronize()
+    sss_launches = dict(K.launches)
+    octaves = [(2 * H >> o, 2 * W >> o)
+               for o in range(pyr.n_octaves(H, W))]
+    want = {}
+    for hh, ww in octaves:
+        key = "multi_level_blur:" + expected_route("multi_level_blur", hh, ww)
+        want[key] = want.get(key, 0) + 1
+    print(f"planar: SIFTFeatureScaleSpace 480x640 (doubled: octaves "
+          f"{octaves}) launches {sss_launches}")
+    for key, n in want.items():
+        if sss_launches.get(key) != n:
+            fail(f"SIFTFeatureScaleSpace launched {key} "
+                 f"{sss_launches.get(key)} times, PERF.md's routes give {n}")
+    ml = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
+              replaces="kornia_tpu/ops/pallas_kernels.py:378",
+              max_abs_err=e, ms=t,
+              plain_ms=device_ms(lambda: K.multi_level_blur_plain(
+                  x, kers, kers, "replicate")),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=ML_ATOL)
+    return dict(fused=fused, doubled=ml, doubled_launches=sss_launches)
+
+
+def planar_phase(K, filters, dev) -> dict:
+    """Step 8: the planar tracker on the card (see the module's
+    docstring)."""
+    from kornia_tpu_torch.ops.warp import warp_perspective
+    from kornia_tpu_torch.tracking import planar_tracker as pt
+
+    t_phase = time.perf_counter()
+    target = bench_input(H, W, dev)[0]
+    Hs = torch.from_numpy(planar_homographies(H, W)).to(dev)
+    frames = [warp_perspective(target, Hs[i:i + 1], (H, W))
+              for i in range(PLANAR_FRAMES)]
+    # RANSAC's noise for each frame, shared by the card and the CPU port
+    cpu_gen = torch.Generator().manual_seed(SEED + 9)
+    gumbels = []
+    for _ in range(PLANAR_FRAMES):
+        u = torch.rand((8, 512, PLANAR_NF), generator=cpu_gen).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        gumbels.append(-torch.log(-torch.log(u)))
+    gumbels_dev = [g.to(dev) for g in gumbels]
+    # the tracker's RANSAC results, read by a spy (as capture_patch_coords)
+    found = []
+    real_ransac = pt.ransac
+
+    def spy(*args, **kwargs):
+        res = real_ransac(*args, **kwargs)
+        found.append(res)
+        return res
+
+    def track(device, frames_, gumbels_):
+        tr = pt.HomographyTracker(num_features=PLANAR_NF, device=device)
+        tr.set_target(target.to(device))
+        found.clear()
+        out = [tr(f, gumbel=g) for f, g in zip(frames_, gumbels_)]
+        return out, list(found)
+
+    pt.ransac = spy
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        card, card_res = track(dev, frames, gumbels_dev)
+        torch.cuda.synchronize()
+        launches = dict(K.launches)
+        cpu, cpu_res = track("cpu", [f.cpu() for f in
+                                     frames[:PLANAR_XCHECK]],
+                             gumbels[:PLANAR_XCHECK])
+    finally:
+        pt.ransac = real_ransac
+    print(f"planar: launches over {PLANAR_FRAMES} frames: {launches}")
+    for name in PAIR_KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"planar path never launched kernel {name}")
+    errs = []
+    for i, ((Hc, ok), res) in enumerate(zip(card, card_res)):
+        d = (map_corners(Hc, H, W) - map_corners(Hs[i], H, W)).norm(dim=-1)
+        errs.append([float(d.mean()), float(d.max())])
+        print(f"planar frame {i}: success {bool(ok)}, inliers "
+              f"{int(res.inlier_count)}, RANSAC rounds {res.rounds}, corner "
+              f"error mean {errs[-1][0]:.4f} px max {errs[-1][1]:.4f} px")
+        if not bool(ok):
+            fail(f"planar frame {i}: the tracker failed "
+                 f"({int(res.inlier_count)} inliers)")
+        if not (errs[-1][0] <= CORNER_MEAN_PX and
+                errs[-1][1] <= CORNER_MAX_PX):
+            fail(f"planar frame {i}: corners {errs[-1]} px from the true "
+                 f"homography's (limits {CORNER_MEAN_PX}, {CORNER_MAX_PX})")
+    xcheck = []
+    for i in range(PLANAR_XCHECK):
+        d = float((map_corners(card[i][0], H, W)
+                   - map_corners(cpu[i][0], H, W)).norm(dim=-1).max())
+        nc, nx = int(card_res[i].inlier_count), int(cpu_res[i].inlier_count)
+        xcheck.append(dict(corner_px=d, inliers_card=nc, inliers_cpu=nx))
+        print(f"planar frame {i} card vs CPU port: corners {d:.2e} px apart,"
+              f" inliers {nc} vs {nx}")
+        if not (d <= XCHECK_CORNER_PX and
+                abs(nc - nx) <= XCHECK_INLIER_RTOL * max(nc, nx)):
+            fail(f"planar frame {i}: card and CPU port disagree: {xcheck[-1]}")
+
+    # ms per frame: a fresh tracker, host clock around synchronised calls
+    tr = pt.HomographyTracker(num_features=PLANAR_NF, device=dev)
+    tr.set_target(target)
+    times = []
+    for f, g in zip(frames, gumbels_dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr(f, gumbel=g)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    frame_ms = statistics.median(times)
+    print(f"planar: HomographyTracker 480x640/{PLANAR_NF}f median "
+          f"{frame_ms:.2f} ms/frame, runs {[round(v, 2) for v in times]}")
+
+    # stages: the tracker's steps, synchronised between them
+    from kornia_tpu_torch.geometry.homography import oneway_transfer_error
+    stages = {k: [] for k in ("features x2", "match", "ransac", "lo")}
+    rounds = []
+    for i in range(1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l0, _, d0, v0 = tr.matcher.local_feature(target)
+        l1, _, d1, v1 = tr.matcher.local_feature(frames[i])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, idx, valid = tr.matcher.matcher(d0[0], d1[0], v0[0], v1[0])
+        kp0 = l0[0, :, :, 2]
+        kp1 = l1[0, :, :, 2][idx[:, 1]]
+        err = oneway_transfer_error(kp0[None], kp1[None],
+                                    card[i - 1][0], False)[0]
+        valid = valid & (err < 30.0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rr = real_ransac(kp0, kp1, model_type="homography", inl_th=3.0,
+                         batch_size=512, max_iterations=8, mask=valid,
+                         polish_iters=0, gumbel=gumbels_dev[i])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        real_ransac(kp0, kp1, model_type="homography", inl_th=3.0,
+                    batch_size=512, max_iterations=8, mask=valid,
+                    gumbel=gumbels_dev[i])
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        rounds.append(rr.rounds)
+        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2,
+                                 (t4 - t3) - (t3 - t2))):
+            stages[k].append(v * 1e3)
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    print(f"planar stages (median ms, host clock, synchronised; lo = full "
+          f"RANSAC minus RANSAC without local optimisation): "
+          f"{ {k: round(v, 3) for k, v in stage_ms.items()} }, RANSAC "
+          f"rounds {rounds}")
+
+    # the device's busy share of one frame (chained from frame 0's estimate)
+    tr.previous_homography = card[0][0]
+    _, kern = profile_kernels(lambda: tr(frames[1], gumbel=gumbels_dev[1]))
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    n_kernels = sum(e.count for e in kern)
+    print(f"planar: device busy {busy_ms:.3f} ms of a {frame_ms:.2f} ms "
+          f"frame (idle share {1.0 - busy_ms / frame_ms:.4f}), device kernels "
+          f"launched {n_kernels}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+              f"{e.key[:90]}")
+    per_frame = planar_kernel_times(kern, launches, PLANAR_FRAMES)
+    routes = {k: v for k, v in launches.items() if ":" in k}
+    print(f"planar: routes over {PLANAR_FRAMES} frames {routes}")
+
+    blurs = planar_blur_checks(K, filters, dev)
+    # patch_sample on the tracker's own coordinates (GFTT LAFs, 512)
+    from kornia_tpu_torch.feature.integrated import GFTTSIFTFeature
+    path_ms = path_patch_times(K, capture_patch_coords(
+        dev, target, GFTTSIFTFeature(num_features=PLANAR_NF)), "split")
+    desc = path_ms[-1]
+    atlas, px, py = desc.pop("inputs")
+    for c in path_ms:
+        c.pop("inputs", None)
+    patch = dict(source="kornia_tpu_torch/csrc/patch_sample.cu",
+                 replaces="kornia_tpu/ops/pallas_kernels.py:539",
+                 per_shape=path_ms,
+                 max_abs_err=max(c["max_abs_err"] for c in path_ms),
+                 ms=statistics.mean(desc["kernel_ms"]),
+                 plain_ms=device_ms(lambda: K.patch_sample_plain(atlas, px,
+                                                                 py)),
+                 bound_ms=desc["bound_ms"], bound_by=desc["bound_by"],
+                 library_ms=statistics.mean(desc["library_ms"]),
+                 tol=PATCH_ATOL)
+    # the tracker's octaves of multi_level_blur: the pair's shapes
+    from kornia_tpu_torch.ops.pyramid import ScalePyramid
+    kers, _ = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)
+    x = torch.rand((1, 1, H, W), device=dev)
+    ml_err = (K.multi_level_blur(x, kers, kers, "replicate")
+              - K.multi_level_blur_plain(x, kers, kers, "replicate")
+              ).abs().max().item()
+    b_ms, b_by = ml_bound(H, W, 1, len(kers), 2 * sum(k.numel()
+                                                      for k in kers))
+    ml = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
+              replaces="kornia_tpu/ops/pallas_kernels.py:378",
+              max_abs_err=ml_err,
+              ms=device_ms(lambda: K.multi_level_blur(x, kers, kers,
+                                                      "replicate")),
+              plain_ms=device_ms(lambda: K.multi_level_blur_plain(
+                  x, kers, kers, "replicate")),
+              bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+    results = {"fused_separable_blur2d@planar": blurs["fused"],
+               "multi_level_blur@planar": ml,
+               "patch_sample@planar": patch,
+               "multi_level_blur@double_image": blurs["doubled"]}
+    report(results)
+    # each entry's launches: the tracked sequence's, and for the doubled
+    # octave those of the SIFTFeatureScaleSpace run
+    counts = {name: launches.get(name.split("@")[0], 0)
+              for name in results}
+    counts["multi_level_blur@double_image"] = blurs["doubled_launches"].get(
+        "multi_level_blur", 0)
+    out = dict(frame_ms=frame_ms, frame_runs_ms=times, stage_ms=stage_ms,
+               ransac_rounds=rounds, busy_ms=busy_ms,
+               idle_share=1.0 - busy_ms / frame_ms,
+               kernels_per_frame=n_kernels, per_frame=per_frame,
+               routes=routes, corner_err_px=errs, xcheck=xcheck,
+               inliers=[int(r.inlier_count) for r in card_res],
+               seconds=time.perf_counter() - t_phase)
+    print(f"planar phase: {out['seconds']:.1f} s")
+    print(json.dumps({"planar": out}))
+    return dict(kernels=results, counts=counts, **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -1623,9 +2036,13 @@ def main() -> int:
         phases = {"train": train_phase(K, dev), "match": match_phase(K, dev),
                   "fast_patches": fast_patches_phase(K, dev)}
     backend = backend_phase(dev, card)
+    with f32_precision():
+        planar = planar_phase(K, filters, dev)
     for ph in phases.values():
         entries += [(name, r, ph["launches"]) for name, r in
                     ph["kernels"].items()]
+    entries += [(name, r, planar["counts"]) for name, r in
+                planar["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on its path")
@@ -1650,7 +2067,10 @@ def main() -> int:
                           phases["fast_patches"]["pair_ms"],
                       "fast_patches_bf16_kernel_ms_per_pair":
                           phases["fast_patches"]["per_pair_ms"],
-                      "backend_seconds": backend["seconds"]}))
+                      "backend_seconds": backend["seconds"],
+                      "planar_frame_ms": planar["frame_ms"],
+                      "planar_stage_ms": planar["stage_ms"],
+                      "planar_device_busy_ms": planar["busy_ms"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

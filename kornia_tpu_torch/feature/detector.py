@@ -1,40 +1,62 @@
-"""Multi-scale DoG keypoint detection (counterpart of
-``kornia_tpu/feature/detector.py``, the part the two-view path reaches).
+"""Multi-scale keypoint detection (counterpart of
+``kornia_tpu/feature/detector.py``).
 
-Per octave: DoG response over all levels at once, one quadratic fit over
-the (level, y, x) volume, 3-D NMS, and a fixed-K top-k; then one global
-top-k over all octaves. Output is padded to K with a validity mask:
-(lafs (B, K, 2, 3), responses (B, K), valid (B, K)).
+Per octave: the response over all levels at once (the DoG of adjacent
+levels, or a response function such as GFTT on every level folded into the
+batch), one quadratic fit over the (level, y, x) volume, 3-D NMS, and a
+fixed-K top-k; then one global top-k over all octaves. Output is padded to
+K with a validity mask: (lafs (B, K, 2, 3), responses (B, K), valid (B, K)).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
 from ..core.dtype import as_float
 from ..core.sort import top_k
-from ..geometry.subpix import max_pool3d_same, nms3d, quad_fit3d_planes
+from ..geometry.subpix import max_pool3d_same, nms2d, nms3d, quad_fit3d_planes
 from ..ops.pyramid import ScalePyramid
 from .laf import laf_from_center_scale_ori
-from .responses import dog_response
+from .responses import dog_response, gftt_response
 
-__all__ = ["ScaleSpaceDetector"]
+__all__ = ["ScaleSpaceDetector", "detect_features_single_scale"]
+
+
+def detect_features_single_scale(resp: torch.Tensor, num_features: int,
+                                 nms_size: int = 3,
+                                 minima_are_also_good: bool = False
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Single-scale detection: (B, 1, H, W) response → the top-K after NMS
+    (xy (B, K, 2), response (B, K), valid (B, K))."""
+    resp = as_float(resp)
+    B, _, H, W = resp.shape
+    r = resp.abs() if minima_are_also_good else resp
+    vals, idx = top_k(nms2d(r, (nms_size, nms_size)).reshape(B, -1),
+                      num_features)
+    xy = torch.stack([(idx % W).to(torch.float32),
+                      (idx // W).to(torch.float32)], dim=-1)
+    return xy, vals, vals > 0
 
 
 class ScaleSpaceDetector:
-    """SIFT-style multi-scale detector on a DoG scale space (the other
-    responses of the reference wait for a later slice)."""
+    """SIFT-style multi-scale detector. `resp` is "dog" (adjacent-level
+    differences) or a response function called on every level with its
+    sigma in octave pixels; GFTT by default, as in the reference."""
 
     def __init__(self, num_features: int = 500, mr_size: float = 6.0,
+                 resp: Optional[Union[str, Callable]] = None,
                  scale_pyr: Optional[ScalePyramid] = None,
-                 minima_are_also_good: bool = False,
+                 nms_size: int = 3, minima_are_also_good: bool = False,
                  strict_maxima_bonus: float = 10.0):
         self.num_features = num_features
         self.mr_size = mr_size
+        self.resp = resp if resp is not None else gftt_response
         self.scale_pyr = scale_pyr if scale_pyr is not None else ScalePyramid(
-            3, 1.6, 15)
+            3, 1.6, 15, double_image=False)
+        self.nms_size = nms_size
         self.minima_are_also_good = minima_are_also_good
         self.strict_maxima_bonus = strict_maxima_bonus
 
@@ -47,9 +69,17 @@ class ScaleSpaceDetector:
         octaves, sigmas, dists = self.scale_pyr(img)
         all_x, all_y, all_resp, all_scale = [], [], [], []
         for stack, sig, dist in zip(octaves, sigmas, dists):
-            _, L, _, h, w = stack.shape
-            d = dog_response(stack)  # (B, L-1, C, h, w)
-            resp = torch.cat([d, d[:, -1:]], dim=1)[:, :, 0]  # (B, L, h, w)
+            _, L, C, h, w = stack.shape
+            if self.resp == "dog":
+                d = dog_response(stack)  # (B, L-1, C, h, w)
+                resp = torch.cat([d, d[:, -1:]], dim=1)[:, :, 0]
+            else:
+                # every level at once, folded into the batch, with
+                # scale-normalised scores (sigma in octave pixels) so that
+                # extrema stay comparable across levels
+                resp = self.resp(stack.reshape(B * L, C, h, w),
+                                 sigmas=(sig / dist).reshape(B * L))
+                resp = resp.reshape(B, L, C, h, w)[:, :, 0]  # (B, L, h, w)
             vol = resp[:, None]  # (B, 1, L, h, w)
             # one fit serves both signs: fitting -vol negates dval only
             ox, oy, osc, dval = quad_fit3d_planes(vol)

@@ -19,6 +19,7 @@ from ..ops.pyramid import pyrdown
 
 __all__ = [
     "get_laf_scale",
+    "scale_laf",
     "get_laf_center",
     "get_laf_orientation",
     "set_laf_orientation",
@@ -41,6 +42,13 @@ def get_laf_scale(laf: torch.Tensor) -> torch.Tensor:
     check_laf(laf)
     d = (det_2x2(laf[..., :2, :2]) + 1e-10).abs()
     return torch.sqrt(d)[..., None, None]
+
+
+def scale_laf(laf: torch.Tensor, scale_coef) -> torch.Tensor:
+    """Multiply the linear part by a coefficient."""
+    A = laf[..., :2, :2] * torch.as_tensor(scale_coef, dtype=laf.dtype,
+                                           device=laf.device)
+    return torch.cat([A, laf[..., :2, 2:]], dim=-1)
 
 
 def get_laf_center(laf: torch.Tensor) -> torch.Tensor:
@@ -84,6 +92,8 @@ def laf_from_center_scale_ori(xy: torch.Tensor,
 
 def extract_patches_from_pyramid(img: torch.Tensor, laf: torch.Tensor,
                                  PS: int = 32,
+                                 normalize_lafs_before: bool = True,
+                                 pallas_fallback_budget: int = 64,
                                  patch_mode: Optional[str] = None
                                  ) -> torch.Tensor:
     """Scale-aware patch extraction: each LAF samples the pyramid level
@@ -98,7 +108,10 @@ def extract_patches_from_pyramid(img: torch.Tensor, laf: torch.Tensor,
     exactly, 'bf16' rounds as the TPU kernel's bf16 mode does, on both
     devices (the reference's CPU path ignores the mode). Level bookkeeping
     follows the reference: level = clamp(floor(log2(2·scale / PS))), and
-    LAFs past the last level built get zero patches."""
+    LAFs past the last level built get zero patches. `normalize_lafs_before`
+    is accepted and unused, as in the reference; `pallas_fallback_budget`,
+    the reference's count of oversized keypoints its TPU kernel resamples
+    outside its window, has no effect here: no keypoint is windowed."""
     img = as_float(img)
     mode = patch_mode or "split"
     B, N = laf.shape[:2]

@@ -6,7 +6,7 @@ conventions."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -65,15 +65,21 @@ class LAFOrienter:
     current orientation."""
 
     def __init__(self, patch_size: int = 32, num_angular_bins: int = 36,
+                 angle_detector: Optional[Callable] = None,
                  patch_mode: Optional[str] = None):
+        if angle_detector is not None:
+            raise NotImplementedError(
+                "LAFOrienter(angle_detector=) is not ported yet: only the "
+                "gradient histogram orients")
         self.patch_size = patch_size
         self.num_angular_bins = num_angular_bins
+        self.angle_detector = angle_detector
         self.patch_mode = patch_mode
 
     def __call__(self, laf: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
         B, N = laf.shape[:2]
         patches = extract_patches_from_pyramid(img, laf, self.patch_size,
-                                               self.patch_mode)
+                                               patch_mode=self.patch_mode)
         patches = patches.reshape(B * N, *patches.shape[2:])
         angles = patch_dominant_gradient_orientation(
             patches, self.num_angular_bins).reshape(B, N)

@@ -107,9 +107,9 @@ def _gn_step(world_points, img_points, Rm, tm, sw):
 
 @f32_matmul_precision
 def pnp_ransac(world_points: torch.Tensor, img_points: torch.Tensor,
-               inl_th: float, mask: Optional[torch.Tensor] = None,
-               batch_size: int = 256, gn_iters: int = 5,
-               generator: Optional[torch.Generator] = None,
+               generator: Optional[torch.Generator], inl_th: float,
+               mask: Optional[torch.Tensor] = None,
+               batch_size: int = 256, gn_iters: int = 5, *,
                gumbel: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
@@ -118,9 +118,10 @@ def pnp_ransac(world_points: torch.Tensor, img_points: torch.Tensor,
     inlier set, each kept only if it lowers the truncated cost.
 
     world_points (N, 3); img_points (N, 2) normalised camera coordinates;
-    inl_th in normalised units; gumbel (batch_size, N) injects the sampling
-    noise. Returns (R (3, 3), t (3,), inliers (N,), inlier count),
-    world→camera."""
+    `generator` (in the place of the reference's `key`; None takes the
+    default one) draws the sampling noise, or gumbel (batch_size, N)
+    injects it; inl_th in normalised units. Returns (R (3, 3), t (3,),
+    inliers (N,), inlier count), world→camera."""
     world_points = as_float(world_points)
     img_points = as_float(img_points)
     N = world_points.shape[0]

@@ -1,8 +1,9 @@
 """Epipolar geometry (counterpart of ``kornia_tpu/geometry/epipolar.py``,
-the part the two-view path reaches): the weighted 8-point and the 5-point
-essential solvers, the manifold polish of essential candidates, epipolar
-distances, essential decomposition, triangulation and the cheirality choice
-of (R, t).
+the part the front ends and the back end reach): the weighted 8-point, the
+7-point and the 5-point essential solvers, the manifold polish of
+essential candidates, epipolar lines and distances, essential and
+homography decompositions, triangulation and the cheirality choice of
+(R, t).
 
 The 5-point solver is the reference's hidden-variable resultant: the ten
 cubic constraints on E = xE1 + yE2 + zE3 + E4 form a 10x10 matrix C(z);
@@ -23,15 +24,25 @@ import torch
 
 from ..core.check import check_shape
 from ..core.dtype import as_float
-from ..core.linalg import (f32_matmul_precision, gauss_det, inverse_3x3,
+from ..core.linalg import (det_3x3, f32_matmul_precision, gauss_det,
+                           inverse_3x3,
                            lstsq_nullspace, nullspace_inverse_iteration,
                            nullspace_qr)
 from .homography import normalize_points
-from .solvers import multiply_deg_one_poly, multiply_deg_two_one_poly, poly_roots
+from .solvers import (multiply_deg_one_poly, multiply_deg_two_one_poly,
+                      poly_roots, solve_cubic)
 
 __all__ = [
     "run_8point",
+    "run_7point",
     "run_5point",
+    "find_fundamental",
+    "normalize_transformation",
+    "compute_correspond_epilines",
+    "decompose_homography_matrix",
+    "motion_from_homography_choose_solution",
+    "left_to_right_epipolar_distance",
+    "right_to_left_epipolar_distance",
     "polish_essential",
     "decompose_essential_matrix",
     "essential_from_Rt",
@@ -86,6 +97,61 @@ def run_8point(points1: torch.Tensor, points2: torch.Tensor,
     F = T2.transpose(-1, -2) @ F @ T1
     norm = torch.linalg.vector_norm(F.reshape(-1, 9), dim=-1)[..., None, None]
     return F / norm.clamp_min(1e-9)
+
+
+def run_7point(points1: torch.Tensor, points2: torch.Tensor) -> torch.Tensor:
+    """7-point algorithm (B, 7, 2) x2 → (B, 3, 3, 3): up to three
+    fundamental matrices, scaled to F[2, 2] = ±1; zero roots of the cubic
+    give the pencil's F2 member (the reference's padding)."""
+    check_shape(points1, ["B", "7", "2"], "points1")
+    points1 = as_float(points1)
+    points2 = as_float(points2)
+    B = points1.shape[0]
+    p1n, T1 = normalize_points(points1)
+    p2n, T2 = normalize_points(points2)
+    # the exact 2-dimensional nullspace by Householder QR of Aᵀ
+    V = nullspace_qr(_design_matrix(p1n, p2n))  # (B, 9, 2)
+    F1 = V[..., :, 0].reshape(B, 3, 3)
+    F2 = V[..., :, 1].reshape(B, 3, 3)
+    D = F1 - F2
+    # det(F2 + λ·D) as a cubic: its values at λ = -1, 0, 1, 2 through the
+    # exact inverse Vandermonde
+    dvals = torch.stack([det_3x3(F2 + lam * D) for lam in
+                         (-1.0, 0.0, 1.0, 2.0)], dim=-1)  # (B, 4)
+    v_inv = torch.as_tensor(np.linalg.inv(np.vander([-1.0, 0.0, 1.0, 2.0],
+                                                    4)),
+                            dtype=points1.dtype, device=points1.device)
+    lams = solve_cubic(dvals @ v_inv.T)  # (B, 3)
+    Fs = F2[:, None] + lams[..., None, None] * D[:, None]
+    Fs = T2.transpose(-1, -2)[:, None] @ Fs @ T1[:, None]
+    norm = Fs[..., 2:3, 2:3].abs().clamp_min(1e-9)
+    return Fs / torch.where(Fs[..., 2:3, 2:3] >= 0, norm, -norm)
+
+
+def find_fundamental(points1: torch.Tensor, points2: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None,
+                     method: str = "8POINT") -> torch.Tensor:
+    """The weighted 8-point F, or the 7-point candidates."""
+    if method.upper() == "8POINT":
+        return run_8point(points1, points2, weights)
+    if method.upper() == "7POINT":
+        return run_7point(points1, points2)
+    raise ValueError(f"unknown method {method}")
+
+
+def normalize_transformation(M: torch.Tensor,
+                             eps: float = 1e-8) -> torch.Tensor:
+    """Scale so that the last element is 1."""
+    last = M[..., -1:, -1:]
+    return M / (last + torch.where(last >= 0, eps, -eps))
+
+
+def compute_correspond_epilines(points: torch.Tensor,
+                                F: torch.Tensor) -> torch.Tensor:
+    """Epipolar lines F·p of (B, N, 2) points, scaled to a unit normal."""
+    lines = _to_homog(as_float(points)) @ F.transpose(-1, -2)
+    n = torch.linalg.vector_norm(lines[..., :2], dim=-1, keepdim=True)
+    return lines / n.clamp_min(1e-9)
 
 
 # -----------------------------------------------------------------------------
@@ -441,6 +507,74 @@ def triangulate_points(P1: torch.Tensor, P2: torch.Tensor,
     return X_h[..., :3] / (w + torch.where(w >= 0, 1e-9, -1e-9))
 
 
+def decompose_homography_matrix(H: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """A calibrated homography H = R + t·nᵀ/d (normalised coordinates) →
+    its four (R, t, n) candidates by Faugeras' SVD method:
+    (R (B, 4, 3, 3), t (B, 4, 3, 1), n (B, 4, 3, 1)), each plane normal
+    turned toward the camera (n_z > 0)."""
+    U, D, Vt = torch.linalg.svd(H)
+    d1, d2, d3 = D[..., 0], D[..., 1], D[..., 2]
+    s = torch.linalg.det(U) * torch.linalg.det(Vt)
+    d1 = d1 / d2
+    d3 = d3 / d2
+    span = (d1 * d1 - d3 * d3).clamp_min(1e-12)
+    x1 = torch.sqrt(((d1 * d1 - 1.0) / span).clamp_min(0.0))
+    x3 = torch.sqrt(((1.0 - d3 * d3) / span).clamp_min(0.0))
+    sin_t = torch.sqrt(((d1 * d1 - 1.0) * (1.0 - d3 * d3)).clamp_min(0.0)) \
+        / (d1 + d3).clamp_min(1e-9)
+    cos_t = (1.0 + d1 * d3) / (d1 + d3).clamp_min(1e-9)
+    V = Vt.transpose(-1, -2)
+    zero, one = torch.zeros_like(x1), torch.ones_like(x1)
+    Rs, ts, ns = [], [], []
+    for e1 in (1.0, -1.0):
+        for e3 in (1.0, -1.0):
+            st = e1 * e3 * sin_t
+            Rp = torch.stack([torch.stack([cos_t, zero, -st], -1),
+                              torch.stack([zero, one, zero], -1),
+                              torch.stack([st, zero, cos_t], -1)], -2)
+            tp = torch.stack([e1 * x1, zero, -e3 * x3], dim=-1)[..., None] \
+                * (d1 - d3)[..., None, None]
+            np_ = torch.stack([e1 * x1, zero, e3 * x3], dim=-1)[..., None]
+            R = s[..., None, None] * U @ Rp @ Vt
+            t = U @ tp
+            n = V @ np_
+            flip = torch.sign(n[..., 2, 0] + 1e-12)[..., None, None]
+            Rs.append(R)
+            ts.append(t * flip)
+            ns.append(n * flip)
+    return (torch.stack(Rs, dim=-3), torch.stack(ts, dim=-3),
+            torch.stack(ns, dim=-3))
+
+
+def motion_from_homography_choose_solution(
+        H: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
+        mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The (R, t, n) of the four homography decompositions that puts the
+    most triangulated (masked) points in front of both cameras
+    (normalised coordinates) → (R (B, 3, 3), t (B, 3, 1), n (B, 3, 1))."""
+    Rs, ts, ns = decompose_homography_matrix(H)
+    B = H.shape[0]
+    eye = torch.eye(3, dtype=H.dtype, device=H.device).expand(B, 3, 3)
+    P1 = torch.cat([eye, torch.zeros((B, 3, 1), dtype=H.dtype,
+                                     device=H.device)], dim=-1)
+    counts = []
+    for i in range(4):
+        X = triangulate_points(P1, torch.cat([Rs[:, i], ts[:, i]], dim=-1),
+                               x1, x2)
+        X2 = torch.einsum("bij,bnj->bni", Rs[:, i], X) \
+            + ts[:, i][..., 0][:, None]
+        ok = (X[..., 2] > 0) & (X2[..., 2] > 0)
+        if mask is not None:
+            ok = ok & mask
+        counts.append(ok.sum(-1))
+    best = torch.argmax(torch.stack(counts, dim=-1), dim=-1)
+    rows = torch.arange(B, device=H.device)
+    return Rs[rows, best], ts[rows, best], ns[rows, best]
+
+
 @f32_matmul_precision
 def motion_from_essential_choose_solution(
         E: torch.Tensor, K1: torch.Tensor, K2: torch.Tensor,
@@ -502,3 +636,19 @@ def symmetrical_epipolar_distance(pts1: torch.Tensor, pts2: torch.Tensor,
                + 1.0 / (l21[..., 0] ** 2 + l21[..., 1] ** 2).clamp_min(eps))
     out = num * den_inv
     return out if squared else torch.sqrt(out + eps)
+
+
+def left_to_right_epipolar_distance(pts1: torch.Tensor, pts2: torch.Tensor,
+                                    Fm: torch.Tensor) -> torch.Tensor:
+    """Distance of p2 from its epipolar line F·p1."""
+    p2 = _to_homog(as_float(pts2))
+    line1_in_2 = _to_homog(as_float(pts1)) @ Fm.transpose(-1, -2)
+    num = (p2 * line1_in_2).sum(-1).abs()
+    return num / torch.sqrt(line1_in_2[..., 0] ** 2
+                            + line1_in_2[..., 1] ** 2 + 1e-12)
+
+
+def right_to_left_epipolar_distance(pts1: torch.Tensor, pts2: torch.Tensor,
+                                    Fm: torch.Tensor) -> torch.Tensor:
+    """Distance of p1 from its epipolar line Fᵀ·p2."""
+    return left_to_right_epipolar_distance(pts2, pts1, Fm.transpose(-1, -2))

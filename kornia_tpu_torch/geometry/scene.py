@@ -16,12 +16,12 @@ from .epipolar import (essential_from_Rt, fundamental_from_essential,
 __all__ = ["generate_scene"]
 
 
-def generate_scene(num_views: int = 2, num_points: int = 30,
+def generate_scene(generator: Optional[torch.Generator] = None,
+                   num_views: int = 2, num_points: int = 30,
                    image_size=(120.0, 160.0), rotation_scale: float = 0.2,
                    translation_scale: float = 0.5,
-                   generator: Optional[torch.Generator] = None,
-                   draws: Optional[Mapping[str, torch.Tensor]] = None,
-                   device: Union[str, torch.device] = "cuda"
+                   device: Union[str, torch.device] = "cuda", *,
+                   draws: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> Dict[str, torch.Tensor]:
     """Random cameras (camera 0 at the origin) looking at N points.
 

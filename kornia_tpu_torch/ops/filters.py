@@ -57,10 +57,12 @@ def normalize_kernel2d(kernel: torch.Tensor) -> torch.Tensor:
     return kernel / kernel.abs().sum(dim=(-2, -1), keepdim=True)
 
 
-def get_gaussian_kernel1d(kernel_size: int, sigma,
+def get_gaussian_kernel1d(kernel_size: int, sigma, force_even: bool = False,
                           dtype: torch.dtype = torch.float32,
                           device: Device = None) -> torch.Tensor:
-    """(1, K) normalized Gaussian (one row per sigma)."""
+    """(1, K) normalized Gaussian (one row per sigma). `force_even` is
+    accepted and, as in the reference, changes nothing: K is used as
+    given."""
     sigma = torch.as_tensor(sigma, dtype=dtype, device=device).reshape(-1, 1)
     x = torch.arange(kernel_size, dtype=dtype, device=sigma.device) \
         - (kernel_size - 1) / 2
@@ -93,13 +95,15 @@ def get_gaussian_kernel2d(kernel_size, sigma,
         sy = sx = sigma
     else:
         sy, sx = sigma[0], sigma[1]
-    gy = get_gaussian_kernel1d(ky, sy, dtype, device)
-    gx = get_gaussian_kernel1d(kx, sx, dtype, device)
+    gy = get_gaussian_kernel1d(ky, sy, dtype=dtype, device=device)
+    gx = get_gaussian_kernel1d(kx, sx, dtype=dtype, device=device)
     return gy[..., :, None] * gx[..., None, :]
 
 
 _SOBEL_X = [[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]
 _DIFF_X = [[0.0, 0.0, 0.0], [-0.5, 0.0, 0.5], [0.0, 0.0, 0.0]]
+_DIFF_XX = [[0.0, 0.0, 0.0], [1.0, -2.0, 1.0], [0.0, 0.0, 0.0]]
+_DIFF_XY = [[-0.25, 0.0, 0.25], [0.0, 0.0, 0.0], [0.25, 0.0, -0.25]]
 
 
 def get_sobel_kernel2d(dtype: torch.dtype = torch.float32,
@@ -115,15 +119,37 @@ def get_diff_kernel2d(dtype: torch.dtype = torch.float32,
     return torch.stack([gx, gx.T])
 
 
+def _sobel_kernel2d_2nd(dtype: torch.dtype = torch.float32,
+                        device: Device = None) -> torch.Tensor:
+    """(3, 5, 5): the sobel-of-sobel second-order kernels [gxx, gxy, gyy]."""
+    smooth = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], dtype=dtype,
+                          device=device)
+    d2 = torch.tensor([-1.0, 0.0, 2.0, 0.0, -1.0], dtype=dtype, device=device)
+    d1a = torch.tensor([-1.0, -2.0, 0.0, 2.0, 1.0], dtype=dtype,
+                       device=device)
+    gxx = torch.outer(smooth, d2)
+    gxy = torch.outer(d1a, -d1a)
+    return torch.stack([gxx, gxy, gxx.T])
+
+
+def _diff_kernel2d_2nd(dtype: torch.dtype = torch.float32,
+                       device: Device = None) -> torch.Tensor:
+    """(3, 3, 3): central second differences [gxx, gxy, gyy]."""
+    gxx = torch.tensor(_DIFF_XX, dtype=dtype, device=device)
+    gxy = torch.tensor(_DIFF_XY, dtype=dtype, device=device)
+    return torch.stack([gxx, gxy, gxx.T])
+
+
 # -----------------------------------------------------------------------------
 # Filtering
 # -----------------------------------------------------------------------------
 
 def filter2d(x: torch.Tensor, kernel: torch.Tensor,
-             border_type: str = "reflect",
-             normalized: bool = False) -> torch.Tensor:
-    """Correlate (B, C, H, W) with a (1|B, kH, kW) kernel per channel,
-    'same' size (no kernel flip, like the reference)."""
+             border_type: str = "reflect", normalized: bool = False,
+             padding: str = "same") -> torch.Tensor:
+    """Correlate (B, C, H, W) with a (1|B, kH, kW) kernel per channel (no
+    kernel flip, like the reference): 'same' size, the border padded by
+    `border_type`, or with `padding` 'valid' only where the kernel fits."""
     x = as_float(x)
     check(x.ndim == 4, f"filter2d expects (B,C,H,W), got {tuple(x.shape)}")
     check(kernel.ndim == 3,
@@ -133,8 +159,9 @@ def filter2d(x: torch.Tensor, kernel: torch.Tensor,
     if normalized:
         kernel = normalize_kernel2d(kernel)
     kh, kw = kernel.shape[-2:]
-    x = _pad2d(x, (kh // 2, (kh - 1) // 2, kw // 2, (kw - 1) // 2),
-               border_type)
+    if padding == "same":
+        x = _pad2d(x, (kh // 2, (kh - 1) // 2, kw // 2, (kw - 1) // 2),
+                   border_type)
     if kernel.shape[0] == 1:
         return F.conv2d(x, kernel.expand(C, kh, kw)[:, None], groups=C)
     # per-sample kernels: one grouped convolution over (B·C) channels
@@ -191,13 +218,19 @@ def gaussian_blur2d(x: torch.Tensor, kernel_size, sigma,
                     border_type)
 
 
-def spatial_gradient(x: torch.Tensor, mode: str = "sobel",
+def spatial_gradient(x: torch.Tensor, mode: str = "sobel", order: int = 1,
                      normalized: bool = True) -> torch.Tensor:
-    """(B, C, H, W) → (B, C, 2, H, W) first derivatives [d/dx, d/dy],
-    replicate border (second order waits for a later slice)."""
+    """(B, C, H, W) → (B, C, 2, H, W) first derivatives [d/dx, d/dy]
+    (order 1) or (B, C, 3, H, W) second ones [d²/dx², d²/dxdy, d²/dy²]
+    (order 2), replicate border; `normalized` divides each kernel by the
+    sum of its absolute taps."""
     x = as_float(x)
-    kern = (get_sobel_kernel2d(x.dtype, x.device) if mode == "sobel"
-            else get_diff_kernel2d(x.dtype, x.device))
+    if order == 1:
+        kern = (get_sobel_kernel2d(x.dtype, x.device) if mode == "sobel"
+                else get_diff_kernel2d(x.dtype, x.device))
+    else:
+        kern = (_sobel_kernel2d_2nd(x.dtype, x.device) if mode == "sobel"
+                else _diff_kernel2d_2nd(x.dtype, x.device))
     if normalized:
         kern = normalize_kernel2d(kern)
     B, C, H, W = x.shape

@@ -1,6 +1,6 @@
 """Image pyramids (counterpart of ``kornia_tpu/ops/pyramid.py``, the part
-the two-view path and training reach): ``pyrdown``, ``build_pyramid`` and
-the SIFT ``ScalePyramid``.
+the front ends and training reach): ``pyrdown``, ``build_pyramid``,
+``upscale_double`` and the SIFT ``ScalePyramid``.
 
 Every octave's levels come from one ``multi_level_blur`` call: the
 sequential blur chain as cumulative banded operators, all levels at once
@@ -22,7 +22,7 @@ from .filters import filter2d_separable, gaussian_blur2d, get_gaussian_kernel1d
 from .kernels import multi_level_blur
 from .warp import resize
 
-__all__ = ["pyrdown", "build_pyramid", "ScalePyramid"]
+__all__ = ["pyrdown", "build_pyramid", "upscale_double", "ScalePyramid"]
 
 _PYR_TAPS = [1.0, 4.0, 6.0, 4.0, 1.0]
 
@@ -35,7 +35,7 @@ def pyrdown(input: torch.Tensor, border_type: str = "reflect",
     blurred = filter2d_separable(x, k, k, border_type)
     H, W = x.shape[-2:]
     return resize(blurred, (int(float(H) / factor), int(float(W) / factor)),
-                  align_corners=align_corners)
+                  interpolation="bilinear", align_corners=align_corners)
 
 
 def build_pyramid(input: torch.Tensor, max_level: int,
@@ -49,21 +49,29 @@ def build_pyramid(input: torch.Tensor, max_level: int,
     return pyramid
 
 
+def upscale_double(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear 2x upsampling with corner-aligned sampling positions."""
+    return resize(as_float(x), (x.shape[-2] * 2, x.shape[-1] * 2),
+                  interpolation="bilinear", align_corners=True)
+
+
 class ScalePyramid:
     """SIFT-style scale pyramid: per octave a (B, L, C, h, w) level stack
-    with sigma and pixel-distance bookkeeping, L = n_levels + 3. (The
-    reference's double_image option waits for a later slice.)"""
+    with sigma and pixel-distance bookkeeping, L = n_levels + 3. With
+    `double_image` the first octave is the input upsampled 2x (pixel
+    distance 0.5)."""
 
     def __init__(self, n_levels: int = 3, init_sigma: float = 1.6,
-                 min_size: int = 15):
+                 min_size: int = 15, double_image: bool = False):
         self.n_levels = n_levels
         self.init_sigma = init_sigma
         self.min_size = min_size
+        self.double_image = double_image
         self.extra_levels = 3
         self.sigma_step = 2.0 ** (1.0 / n_levels)
 
     def n_octaves(self, h: int, w: int) -> int:
-        size = min(h, w)
+        size = min(h, w) * (2 if self.double_image else 1)
         n = 0
         while size >= self.min_size:
             n += 1
@@ -76,9 +84,13 @@ class ScalePyramid:
 
     def get_first_level(self, input: torch.Tensor
                         ) -> Tuple[torch.Tensor, float, float]:
-        x, pixel_dist = input, 1.0
+        if self.double_image:
+            x, pixel_dist = upscale_double(input), 0.5
+        else:
+            x, pixel_dist = input, 1.0
         # bring the image to init_sigma, assuming a capture sigma of 0.5
-        cur_sigma = 0.5
+        # input pixels
+        cur_sigma = 0.5 / pixel_dist
         if self.init_sigma > cur_sigma:
             sigma = math.sqrt(self.init_sigma ** 2 - cur_sigma ** 2)
             x = gaussian_blur2d(x, self.get_kernel_size(sigma), sigma,
@@ -132,6 +144,6 @@ class ScalePyramid:
             # next octave: halve the level with sigma 2·init_sigma
             next_base = levels[self.n_levels]
             h, w = next_base.shape[-2:]
-            cur = resize(next_base, (h // 2, w // 2))
+            cur = resize(next_base, (h // 2, w // 2), interpolation="bilinear")
             pixel_dist *= 2.0
         return octaves, sigmas_out, dists_out

@@ -128,8 +128,12 @@ def warp_grid(M_norm: torch.Tensor, dsize: Tuple[int, int],
 def warp_perspective(image: torch.Tensor, M: torch.Tensor,
                      dsize: Tuple[int, int], mode: str = "bilinear",
                      padding_mode: str = "zeros",
-                     align_corners: bool = True) -> torch.Tensor:
-    """Warp by (B, 3, 3) homographies M: src → dst."""
+                     align_corners: bool = True,
+                     fill_value: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Warp by (B, 3, 3) homographies M: src → dst. With `fill_value`
+    (one value per channel), pixels that sample outside the source take
+    it: a warped constant-1 mask blends it in, as the reference does."""
     image = as_float(image)
     check_shape(image, ["B", "C", "H", "W"], "image")
     check_shape(M, ["B", "3", "3"], "M")
@@ -138,17 +142,48 @@ def warp_perspective(image: torch.Tensor, M: torch.Tensor,
     M_norm = normalize_homography(M.to(image.dtype), tuple(image.shape[-2:]),
                                   dsize)
     grid = warp_grid(inverse_3x3(M_norm), dsize, image.dtype)
+    if fill_value is not None:
+        out = grid_sample(image, grid, mode, "zeros", align_corners)
+        mask = grid_sample(torch.ones_like(image[:, :1]), grid, mode, "zeros",
+                           align_corners)
+        fill = torch.as_tensor(fill_value, dtype=image.dtype,
+                               device=image.device).reshape(1, -1, 1, 1)
+        return out + (1.0 - mask) * fill
     return grid_sample(image, grid, mode, padding_mode, align_corners)
 
 
+def _size_of_side(H: int, W: int, size: int, side: str) -> Tuple[int, int]:
+    """An int target size for one side (short, long, vert or horz), the
+    other side scaled to keep the aspect ratio."""
+    if side == "short":
+        if H < W:
+            return size, max(1, int(round(W * size / H)))
+        return max(1, int(round(H * size / W))), size
+    if side == "long":
+        if H > W:
+            return size, max(1, int(round(W * size / H)))
+        return max(1, int(round(H * size / W))), size
+    if side == "vert":
+        return size, W
+    return H, size
+
+
 def resize(image: torch.Tensor, size: Union[int, Tuple[int, int]],
-           align_corners: Optional[bool] = None) -> torch.Tensor:
+           interpolation: str = "bilinear",
+           align_corners: Optional[bool] = None, side: str = "short",
+           antialias: bool = False) -> torch.Tensor:
     """Bilinear resize with the reference's half-pixel sampling positions
-    (align_corners=False) or corner-aligned ones (other interpolations
-    wait for a later slice)."""
+    (align_corners=False) or corner-aligned ones. An int `size` is the
+    target of `side` ("short", "long", "vert" or "horz"), the aspect ratio
+    kept. Other interpolations and antialiasing raise NotImplementedError
+    (they wait for a later slice)."""
+    if interpolation != "bilinear" or antialias:
+        raise NotImplementedError(
+            f"resize interpolation={interpolation!r} antialias={antialias} "
+            f"is not ported yet")
     image = as_float(image)
     H, W = image.shape[-2:]
-    h, w = (size, size) if isinstance(size, int) else size
+    h, w = _size_of_side(H, W, size, side) if isinstance(size, int) else size
     if h <= 0 or w <= 0:
         raise ValueError(f"resize target must be positive, got {(h, w)}")
     if (h, w) == (H, W):

@@ -20,7 +20,7 @@ reference calls the triangulation once per point).
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -76,11 +76,13 @@ def _retriangulate(Ps: torch.Tensor, obs: np.ndarray, vis: np.ndarray,
 
 
 def incremental_sfm(observations, visible, K, ba_iters: int = 10,
+                    generator: Optional[torch.Generator] = None,
                     device: Union[str, torch.device] = "cuda") -> SfmResult:
     """Reconstruct cameras and points from multi-view tracks.
 
     observations (V, P, 2) pixels and visible (V, P) bool, as arrays or
-    tensors; K (3, 3)."""
+    tensors; K (3, 3). `generator` stands in the place of the reference's
+    `key`, which it draws nothing from: both are unused."""
     obs = np.array(_host(observations), np.float32)
     vis = np.array(_host(visible), bool)
     dev = torch.device(device)

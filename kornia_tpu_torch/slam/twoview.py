@@ -58,7 +58,7 @@ def two_view_pose(img0: torch.Tensor, img1: torch.Tensor, K: torch.Tensor,
                   num_features: int = 512, ransac_batch: int = 256,
                   ransac_iters: int = 32, inl_th_px: float = 1.5,
                   feature: Optional[object] = None,
-                  device: Device = "cuda",
+                  device: Device = "cuda", *,
                   gumbel: Optional[torch.Tensor] = None) -> TwoViewResult:
     """Relative pose between two calibrated (1, 1, H, W) views.
 
@@ -74,7 +74,8 @@ def two_view_pose(img0: torch.Tensor, img1: torch.Tensor, K: torch.Tensor,
         x0 = normalize_points_with_intrinsics(kp0, K)
         x1 = normalize_points_with_intrinsics(kp1, K)
         f = 0.5 * (K[0, 0] + K[1, 1])
-        res = ransac(x0, x1, "essential", inl_th=float(inl_th_px / f),
+        res = ransac(x0, x1, model_type="essential",
+                     inl_th=float(inl_th_px / f),
                      batch_size=ransac_batch, max_iterations=ransac_iters,
                      mask=valid, generator=generator, gumbel=gumbel)
         eye = torch.eye(3, dtype=torch.float32, device=K.device)[None]

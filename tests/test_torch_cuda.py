@@ -600,8 +600,8 @@ def test_cuda_pnp_ransac_matches_cpu(cuda_device):
     uv[:n_out] += 0.5 * rng.standard_normal((n_out, 2))
     g = -np.log(-np.log(np.maximum(rng.random((256, n)), 1e-30)))
     out = [pnp_ransac(torch.from_numpy(X).to(d),
-                      torch.from_numpy(uv.astype(np.float32)).to(d), 5e-3,
-                      batch_size=256, gumbel=torch.from_numpy(g).float())
+                      torch.from_numpy(uv.astype(np.float32)).to(d), None,
+                      5e-3, batch_size=256, gumbel=torch.from_numpy(g).float())
            for d in (cuda_device, "cpu")]
     (Rg, tg, ig, _), (Rc, tc, ic, _) = out
     assert torch.equal(ig.cpu(), ic)
@@ -615,7 +615,8 @@ def test_cuda_incremental_sfm_matches_cpu(cuda_device):
     from kornia_tpu_torch.slam.sfm import incremental_sfm
     # (the scene of seed 0 is one the algorithm fails on, in the JAX
     # package too: final RMS 1.76 px in both)
-    s = generate_scene(4, 48, rotation_scale=0.15, translation_scale=0.4,
+    s = generate_scene(num_views=4, num_points=48, rotation_scale=0.15,
+                       translation_scale=0.4,
                        generator=torch.Generator().manual_seed(1),
                        device="cpu")
     obs = (s["points2d"] + 0.3 * torch.randn(
@@ -687,3 +688,70 @@ def test_cuda_non_spd_step_is_rejected(cuda_device):
     c = c.cpu()
     assert c[0].item() == pytest.approx(cost0.item(), rel=1e-6)
     assert c[-1].item() < 0.5 * c[0].item()
+
+
+# --- the planar front end: GFTT blurs, the doubled octave, the tracker -----
+
+# the tracker's octaves (GFTTSIFTFeature on ScalePyramid(3, 1.6, 32) at
+# 480x640); the structure tensor blurs every level of an octave at once
+GFTT_OCTAVES = [(480, 640), (240, 320), (120, 160), (60, 80)]
+
+
+@pytest.mark.parametrize("shape", GFTT_OCTAVES)
+def test_cuda_structure_tensor_blur_matches_plain(cuda_device, shape):
+    """gaussian_blur2d(·, 7, 1.0, "reflect") over six levels, as
+    feature/responses.py::_structure_tensor calls it: one tiled launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    x = torch.rand((6, 1) + shape, device=cuda_device, generator=gen)
+    out = _counted("fused_separable_blur2d", "tiled",
+                   lambda: t_filters.gaussian_blur2d(x, 7, 1.0, "reflect"))
+    k = _gauss(7, 1.0, cuda_device)
+    ref = K.fused_separable_blur2d_plain(x, k, k, "reflect")
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_doubled_octave_matches_plain(cuda_device):
+    """SIFTFeatureScaleSpace's first octave at 960x1280: one tiled
+    multi-level launch within 2e-6 of the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    x = torch.rand((1, 1, 960, 1280), device=cuda_device, generator=gen)
+    pyr = t_pyr.ScalePyramid(3, 1.6, 32, double_image=True)
+    kers, _ = pyr._level_kernels(1.6)
+    out = _counted("multi_level_blur", "tiled",
+                   lambda: K.multi_level_blur(x, kers, kers, "replicate"))
+    ref = K.multi_level_blur_plain(x, kers, kers, "replicate")
+    torch.testing.assert_close(out, ref, atol=2e-6, rtol=0)
+
+
+def test_cuda_homography_tracker_matches_cpu(cuda_device):
+    """HomographyTracker on one warped frame, card against the CPU port
+    with the same injected RANSAC noise: corners within 0.5 px, and within
+    1 px of the true homography."""
+    from kornia_tpu_torch.ops.warp import warp_perspective
+    from kornia_tpu_torch.tracking.planar_tracker import HomographyTracker
+    gen = torch.Generator().manual_seed(22)
+    target = t_filters.gaussian_blur2d(torch.rand((1, 1, 240, 320),
+                                                  generator=gen), 3, 1.0)
+    a = np.deg2rad(4.0)
+    Ht = torch.tensor([[0.97 * np.cos(a), -0.97 * np.sin(a), 12.0],
+                       [0.97 * np.sin(a), 0.97 * np.cos(a), -6.0],
+                       [1e-5, 0.0, 1.0]], dtype=torch.float32)
+    frame = warp_perspective(target, Ht[None], (240, 320))
+    u = torch.rand((8, 512, 256), generator=gen).clamp_min(1e-38)
+    gumbel = -torch.log(-torch.log(u))
+    corners = torch.tensor([[0.0, 0, 1], [319, 0, 1], [319, 239, 1],
+                            [0, 239, 1]], dtype=torch.float64)
+
+    def mapped(Hm):
+        q = corners @ Hm.reshape(3, 3).cpu().double().T
+        return q[:, :2] / q[:, 2:]
+
+    out = []
+    for d in (cuda_device, "cpu"):
+        tr = HomographyTracker(num_features=256, device=d)
+        tr.set_target(target)
+        Hm, ok = tr(frame, gumbel=gumbel.to(d))
+        assert bool(ok)
+        out.append(mapped(Hm))
+    assert (out[0] - out[1]).norm(dim=-1).max() <= 0.5
+    assert (out[0] - mapped(Ht)).norm(dim=-1).max() <= 1.0

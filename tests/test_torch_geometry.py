@@ -251,8 +251,8 @@ def test_ransac_with_reference_noise():
     ref = j_ransac(jnp.asarray(x1), jnp.asarray(x2), key, "essential",
                    inl_th=th, batch_size=S, max_iterations=T,
                    mask=jnp.asarray(mask))
-    out = t_ransac(_t(x1), _t(x2), "essential", inl_th=th, batch_size=S,
-                   max_iterations=T, mask=_t(mask),
+    out = t_ransac(_t(x1), _t(x2), model_type="essential", inl_th=th,
+                   batch_size=S, max_iterations=T, mask=_t(mask),
                    gumbel=_replay_gumbel(key, T, S, n))
     np.testing.assert_array_equal(out.inliers.numpy(), _np(ref.inliers))
     assert int(out.inlier_count) == int(ref.inlier_count) > 0.6 * n

@@ -1,0 +1,83 @@
+"""The port's public signatures against the JAX package's.
+
+For every public function and class of ``kornia_tpu_torch`` that has a
+same-named twin in the same module of ``kornia_tpu``, the parameter names
+(of ``__init__`` for a class) must be the twin's, in the twin's order, so
+that a positional call binds as it does in the reference. Only these
+differences are allowed:
+
+- ``key`` → ``generator`` (``torch.Generator`` in the place of a
+  ``jax.random`` key);
+- keyword-only ``gumbel`` (RANSAC's injected sampling noise) or ``draws``
+  (the scene generator's injected normal draws), after the twin's
+  parameters;
+- ``use_pallas`` → ``streaming``, ``pallas_mode`` → ``patch_mode``;
+- a trailing ``device``.
+"""
+
+import importlib
+import inspect
+import pkgutil
+
+import pytest
+
+import kornia_tpu_torch
+
+_RENAMES = {"key": "generator", "use_pallas": "streaming",
+            "pallas_mode": "patch_mode"}
+_INJECTED = ("gumbel", "draws")
+
+
+def _public(module):
+    for name, obj in sorted(vars(module).items()):
+        if name.startswith("_"):
+            continue
+        if (inspect.isfunction(obj) or inspect.isclass(obj)) and \
+                getattr(obj, "__module__", None) == module.__name__:
+            yield name, obj
+
+
+def _twins():
+    pairs = []
+    for info in pkgutil.walk_packages(kornia_tpu_torch.__path__,
+                                      "kornia_tpu_torch."):
+        port = importlib.import_module(info.name)
+        try:
+            ref = importlib.import_module(
+                "kornia_tpu" + info.name[len("kornia_tpu_torch"):])
+        except ModuleNotFoundError:
+            continue  # a module of the port's own (kernels, convert, sort)
+        for name, obj in _public(port):
+            if hasattr(ref, name):
+                pairs.append(pytest.param(obj, getattr(ref, name),
+                                          id=f"{info.name[17:]}.{name}"))
+    return pairs
+
+
+def _params(obj):
+    fn = obj.__init__ if inspect.isclass(obj) else obj
+    return [p for p in inspect.signature(fn).parameters.values()
+            if p.name != "self"]
+
+
+@pytest.mark.parametrize("port,ref", _twins())
+def test_signature_follows_the_reference(port, ref):
+    got = _params(port)
+    got = [p for p in got if not (p.kind is p.KEYWORD_ONLY
+                                  and p.name in _INJECTED)]
+    if got and got[-1].name == "device":
+        got = got[:-1]
+    want = [_RENAMES.get(p.name, p.name) for p in _params(ref)]
+    assert [p.name for p in got] == want
+
+
+def test_the_twins_are_found():
+    """The walk reaches every ported module with a twin, this slice's
+    included."""
+    ids = {p.id for p in _twins()}
+    assert len(ids) >= 160
+    for name in ("ops.warp.resize", "ops.filters.spatial_gradient",
+                 "feature.detector.ScaleSpaceDetector",
+                 "geometry.ransac.ransac", "geometry.ransac.RANSAC",
+                 "tracking.planar_tracker.HomographyTracker"):
+        assert name in ids

@@ -138,7 +138,8 @@ def test_port_imports_no_jax():
         " 'kornia_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'kornia_tpu.'))"
-        " for k, v in sys.modules.items() if v is not None)\n")
+        " for k, v in sys.modules.items() if v is not None)\n"
+        "assert 'kornia_tpu_torch.tracking.planar_tracker' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=REPO, timeout=120)
