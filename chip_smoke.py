@@ -52,9 +52,25 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    stages, the device's busy share, each ported kernel's device time per
    frame beside its bound, and the structure tensor's blurs (depth 6, every
    octave) and SIFTFeatureScaleSpace's 960x1280 octave against their plain
-   versions on their named routes. It prints one JSON line of its own.
+   versions on their named routes. It prints one JSON line of its own;
+9. vo: visual odometry and loop closure (BASELINE config 3). A room
+   (tex_size 512) is made and rendered on the card; the walk (100 frames of
+   ``walk_trajectory``, degraded) runs through ``VisualOdometry(num_features=
+   512, ransac_iters=32, ransac_batch=256, incremental_ba=False,
+   global_ba_passes=6)`` with ``refine=True``: frames/s over the whole run,
+   the tracking time of each frame, the global BA's time, keyframes and
+   the ATE (at most 5% of the path). The tracking step's stages are timed
+   on its first frames; the closed circuit (48 frames of
+   ``loop_trajectory``) runs and ``close_loops`` must accept an edge 12 or
+   more frames apart without raising the ATE by more than 0.05 m; the first
+   4 frames run on the CPU port too with the same injected noise (the same
+   keyframes and branch choices, rotations within 1e-3 rad, inlier counts
+   within 2%); 5 tracked frames are profiled (device busy, idle share, each
+   ported kernel's device time a frame beside its bound), and each kernel
+   is held against its plain version on a rendered frame. It prints one
+   JSON line of its own.
 
-Each of steps 2, 4, 5, 6 and 8 resets the launch counters just before it
+Each of steps 2, 4, 5, 6, 8 and 9 resets the launch counters just before it
 drives its path and reads them just after; every kernel must have
 launched on its path. Every failure exits non-zero. The last lines are one
 JSON object with the kernels' numbers and ``{"ok": true, "device": {...}}``.
@@ -1663,12 +1679,13 @@ def planar_launch_shapes(h: int, w: int):
     return dict(base, fused_separable_blur2d=fused)
 
 
-def planar_kernel_times(kern, launches, frames: int) -> dict:
-    """Per ported kernel of one tracked frame (target and frame): its
-    device time in the frame's profile and the sum of its launches' own
-    bounds; the launch list is checked against the counted launches of the
-    whole sequence (`frames` frames), and each blur's route against
-    ROUTES."""
+def gftt_kernel_times(kern, launches, what: str, n_detect: int,
+                      images: int, n_profiled: int, nf: int) -> dict:
+    """Per ported kernel of one frame of a GFTTSIFTFeature path (`images`
+    detections a frame, `nf` features): its device time in a profile of
+    `n_profiled` frames and the sum of its launches' own bounds; the launch
+    list is checked against the launches counted over the path's
+    `n_detect` detections, and each blur's route against ROUTES."""
     from kornia_tpu_torch.ops.pyramid import ScalePyramid
     shapes = planar_launch_shapes(H, W)
     kers = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)[0]
@@ -1679,37 +1696,38 @@ def planar_kernel_times(kern, launches, frames: int) -> dict:
                                    shapes["fused_separable_blur2d"]],
         "multi_level_blur": [ml_bound(h, w, 1, levels, chain)[0]
                              for h, w in shapes["multi_level_blur"]],
-        "patch_sample": [patch_bound(rows * W, PLANAR_NF * s)[0]
+        "patch_sample": [patch_bound(rows * W, nf * s)[0]
                          for rows, s in shapes["patch_sample"]],
     }
-    per_seq = 2 * frames
     routes = {}
     for h, w, _, _, _ in shapes["fused_separable_blur2d"]:
         key = ("fused_separable_blur2d",
                expected_route("fused_separable_blur2d", h, w))
-        routes[key] = routes.get(key, 0) + per_seq
+        routes[key] = routes.get(key, 0) + n_detect
     for h, w in shapes["multi_level_blur"]:
         key = ("multi_level_blur", expected_route("multi_level_blur", h, w))
-        routes[key] = routes.get(key, 0) + per_seq
+        routes[key] = routes.get(key, 0) + n_detect
     for (name, route), n in routes.items():
         if launches.get(f"{name}:{route}") != n:
-            fail(f"planar: {name} launched {launches.get(f'{name}:{route}')}"
-                 f" times on the {route} route, PERF.md's routes give {n}")
+            fail(f"{what}: {name} launched "
+                 f"{launches.get(f'{name}:{route}')} times on the {route} "
+                 f"route, PERF.md's routes give {n}")
     out = {}
     for name, names in PAIR_KERNELS.items():
-        if launches.get(name) != per_seq * len(bounds[name]):
-            fail(f"planar: {name}: {launches.get(name)} launches in "
-                 f"{frames} frames, the launch list has "
-                 f"{per_seq * len(bounds[name])}")
+        if launches.get(name) != n_detect * len(bounds[name]):
+            fail(f"{what}: {name}: {launches.get(name)} launches in "
+                 f"{n_detect} detections, the launch list has "
+                 f"{n_detect * len(bounds[name])}")
         ms = sum(e.self_device_time_total for e in kern
-                 if _kernel_name(e.key) in names) / 1e3
+                 if _kernel_name(e.key) in names) / 1e3 / n_profiled
         if not ms > 0:
-            fail(f"planar: no device time of {names} in a frame's profile")
-        b = 2 * sum(bounds[name])
+            fail(f"{what}: no device time of {names} in the frames' profile")
+        b = images * sum(bounds[name])
+        n = images * len(bounds[name])
         out[name] = dict(ms_per_frame=ms, bound_per_frame=b,
-                         launches_per_frame=launches[name] // frames)
-        print(f"per frame {name}: {ms:.4f} ms device, bound {b:.5f} ms, "
-              f"{launches[name] // frames} launches")
+                         launches_per_frame=n)
+        print(f"{what} per frame {name}: {ms:.4f} ms device, bound "
+              f"{b:.5f} ms, {n} launches")
     return out
 
 
@@ -1939,7 +1957,8 @@ def planar_phase(K, filters, dev) -> dict:
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
-    per_frame = planar_kernel_times(kern, launches, PLANAR_FRAMES)
+    per_frame = gftt_kernel_times(kern, launches, "planar",
+                                  2 * PLANAR_FRAMES, 2, 1, PLANAR_NF)
     routes = {k: v for k, v in launches.items() if ":" in k}
     print(f"planar: routes over {PLANAR_FRAMES} frames {routes}")
 
@@ -2002,6 +2021,419 @@ def planar_phase(K, filters, dev) -> dict:
     return dict(kernels=results, counts=counts, **out)
 
 
+# --- step 9: visual odometry and loop closure ------------------------------
+
+# benchmarks/ate_bench.py's protocol at 480x640 with ATE_RESULTS.json's VO
+# overrides (incremental_ba=False, global_ba_passes=6, ransac_iters=32)
+VO_NF = 512
+VO_KW = dict(num_features=VO_NF, ransac_iters=32, ransac_batch=256,
+             incremental_ba=False, global_ba_passes=6)
+VO_WALK, VO_LOOP = 100, 48       # frames of the walk and of the loop
+VO_ATE_PCT = 5.0      # the refined walk's ATE, % of path length: a sanity
+#                       limit (parity with the reference is held on the CPU)
+LOOP_SLACK = 0.05     # closed ATE at most open ATE + this (metres;
+#                       tests/test_loop_closure.py:62)
+LOOP_MIN_SEP = 12
+VO_XCHECK = 4         # walk frames also tracked by the CPU port
+VO_XCHECK_RAD = 1e-3  # card vs CPU port: rotations, and inlier counts
+VO_XCHECK_INL = 0.02  # within 2% of each other
+VO_PROFILE = 5        # tracked frames under torch.profiler
+
+
+def vo_setup(dev):
+    """K (f = 0.8 W) and the room (tex_size 512), made on the card from a
+    seeded generator."""
+    from kornia_tpu_torch.utils.render import make_room_scene
+    Kt = torch.tensor([[0.8 * W, 0.0, W / 2], [0.0, 0.8 * W, H / 2],
+                       [0.0, 0.0, 1.0]], device=dev)
+    scene = make_room_scene(torch.Generator(dev).manual_seed(SEED + 7),
+                            tex_size=512, device=dev)
+    return Kt, scene
+
+
+def _cam_centres(poses) -> np.ndarray:
+    return np.stack([-p[:3, :3].T @ p[:3, 3] for p in poses])
+
+
+def _ate_pct(poses, gt_c: np.ndarray, length: float) -> float:
+    from kornia_tpu_torch.metrics.metrics import ate_rmse
+    a = ate_rmse(torch.from_numpy(_cam_centres(poses).astype(np.float64)),
+                 torch.from_numpy(gt_c.astype(np.float64)), with_scale=True)
+    return 100.0 * float(a) / length
+
+
+def _path_length(gt_c: np.ndarray) -> float:
+    return float(np.sum(np.linalg.norm(np.diff(gt_c, axis=0), axis=1)))
+
+
+class _StepSpy:
+    """Records each pair step's host read (vo.py::_read_step): its time
+    and its diagnostics (use_pnp at 2, use_h at 7)."""
+
+    def __init__(self, vo_mod):
+        self.mod, self.real = vo_mod, vo_mod._read_step
+        self.reads = []
+
+    def __enter__(self):
+        def spy(*args):
+            h = self.real(*args)
+            self.reads.append((time.perf_counter(), h))
+            return h
+        self.mod._read_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._read_step = self.real
+
+
+def vo_walk(K, dev, Kt, scene) -> dict:
+    """The walk: rendered and degraded on the card, then run(refine=True)
+    with the launch counters reset just before and read just after."""
+    from kornia_tpu_torch.slam import vo as vo_mod
+    from kornia_tpu_torch.utils.render import (degrade_sequence,
+                                               render_sequence,
+                                               walk_trajectory)
+    traj = walk_trajectory(VO_WALK, depth=10.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames, _ = render_sequence(scene, Kt, traj, H, W)
+    frames = degrade_sequence(frames,
+                              torch.Generator(dev).manual_seed(SEED + 5))
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    vo = vo_mod.VisualOdometry(Kt, device=dev, **VO_KW)
+    # frame i's tracking time: from its detection to the host read of its
+    # pair step; the global BA timed around _refine_tracks
+    starts, ba_s = [], []
+    detect, refine = vo._detect_fn(), vo._refine_tracks
+
+    def timed_detect(img):
+        starts.append(time.perf_counter())
+        return detect(img)
+
+    def timed_refine(*args):
+        t = time.perf_counter()
+        out = refine(*args)
+        torch.cuda.synchronize()
+        ba_s.append(time.perf_counter() - t)
+        return out
+
+    vo._detect_jit, vo._refine_tracks = timed_detect, timed_refine
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    with _StepSpy(vo_mod) as spy:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = vo.run(frames, gen, refine=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(K.launches)
+    track_ms = [(t - s) * 1e3 for s, (t, _) in zip(starts[1:], spy.reads)]
+    gt_c = _cam_centres(traj)
+    L = _path_length(gt_c)
+    for i, p in enumerate(res.poses):
+        if not np.isfinite(p).all():
+            fail(f"vo walk: pose {i} is not finite")
+    if vo.kf_frames[0] != 0:
+        fail(f"vo walk: first keyframe {vo.kf_frames[0]}, not frame 0")
+    ate = _ate_pct(res.poses, gt_c, L)
+    out = dict(frames=VO_WALK, render_s=render_s, run_s=run_s,
+               frames_per_s=VO_WALK / run_s,
+               track_ms_median=statistics.median(track_ms),
+               track_ms_p90=float(np.percentile(track_ms, 90)),
+               global_ba_s=sum(ba_s), keyframes=len(vo.kf_frames),
+               path_m=L, ate_pct=ate,
+               use_pnp=int(sum(bool(h["diag"][2]) for _, h in spy.reads)),
+               use_h=int(sum(bool(h["diag"][7]) for _, h in spy.reads)),
+               launches=launches)
+    print(f"vo walk {VO_WALK}x{H}x{W}/{VO_NF}f: render+degrade "
+          f"{render_s:.2f} s, run {run_s:.2f} s ({out['frames_per_s']:.3f} "
+          f"frames/s), tracking median {out['track_ms_median']:.1f} ms p90 "
+          f"{out['track_ms_p90']:.1f} ms, global BA {out['global_ba_s']:.2f} "
+          f"s, {out['keyframes']} keyframes, PnP on {out['use_pnp']} / H on "
+          f"{out['use_h']} of {VO_WALK - 1} steps, ATE {ate:.3f}% of "
+          f"{L:.2f} m")
+    print(f"vo walk launches: {launches}")
+    if not ate < VO_ATE_PCT:
+        fail(f"vo walk: refined ATE {ate:.3f}% of the path, limit "
+             f"{VO_ATE_PCT}%")
+    return dict(out, frames_list=frames, traj=traj)
+
+
+def vo_stages(dev, Kt, frames) -> dict:
+    """The tracking step's stages on the walk's first frames
+    (refine=False), each call synchronised: detection, essential RANSAC,
+    homography RANSAC, PnP, and the rest of the pair step (matching, pose
+    choice, triangulation, map update)."""
+    from kornia_tpu_torch.slam import vo as vo_mod
+    vo = vo_mod.VisualOdometry(Kt, device=dev, **VO_KW)
+    times = {k: [] for k in ("detect", "essential", "homography", "pnp",
+                             "pair")}
+    real = {"ransac": vo_mod.ransac, "pnp_ransac": vo_mod.pnp_ransac}
+    detect, pair = vo._detect_fn(), vo._pair_fn()
+
+    def clock(key, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            k = key(args) if callable(key) else key
+            times[k].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapped
+
+    vo_mod.ransac = clock(lambda a: a[3], real["ransac"])
+    vo_mod.pnp_ransac = clock("pnp", real["pnp_ransac"])
+    vo._detect_jit = clock("detect", detect)
+    vo._pair_jit = clock("pair", pair)
+    try:
+        vo.run(frames[:9], torch.Generator(dev).manual_seed(SEED + 12),
+               refine=False)
+    finally:
+        vo_mod.ransac, vo_mod.pnp_ransac = real["ransac"], real["pnp_ransac"]
+    med = {k: statistics.median(v) for k, v in times.items()}
+    med["map update and rest"] = med.pop("pair") - med["essential"] \
+        - med["homography"] - med["pnp"]
+    print(f"vo stages (median ms over 8 steps, synchronised): "
+          f"{ {k: round(v, 2) for k, v in med.items()} }")
+    return med
+
+
+def vo_loop(dev, Kt, scene) -> dict:
+    """The closed circuit: run(refine=True), then close_loops with
+    tests/test_loop_closure.py's parameters."""
+    from kornia_tpu_torch.slam.loop_closure import close_loops
+    from kornia_tpu_torch.slam.vo import VisualOdometry
+    from kornia_tpu_torch.utils.render import (loop_trajectory,
+                                               render_sequence)
+    traj = loop_trajectory(VO_LOOP, rx=1.2, rz=2.4)
+    frames, _ = render_sequence(scene, Kt, traj, H, W)
+    vo = VisualOdometry(Kt, device=dev, **VO_KW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = vo.run(frames, torch.Generator(dev).manual_seed(SEED + 13),
+                 refine=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    f = float(Kt[0, 0])
+    t0 = time.perf_counter()
+    closed, edges = close_loops(vo.frame_cache, res.poses, Kt.cpu().numpy(),
+                                min_separation=LOOP_MIN_SEP, sim_th=0.75,
+                                min_inliers=15, min_inlier_frac=0.35,
+                                inl_th=1.5 / f, loop_weight=10.0,
+                                pg_iters=40, device=dev)
+    torch.cuda.synchronize()
+    close_s = time.perf_counter() - t0
+    gt_c = _cam_centres(traj)
+    L = _path_length(gt_c)
+    open_pct, closed_pct = _ate_pct(res.poses, gt_c, L), \
+        _ate_pct(closed, gt_c, L)
+    out = dict(frames=VO_LOOP, run_s=run_s, close_s=close_s,
+               keyframes=len(vo.kf_frames), path_m=L,
+               ate_open_pct=open_pct, ate_closed_pct=closed_pct,
+               edges=[(e.i, e.j, e.num_inliers, round(e.similarity, 4))
+                      for e in edges])
+    print(f"vo loop {VO_LOOP}x{H}x{W}: run {run_s:.2f} s, close_loops "
+          f"{close_s:.2f} s, {out['keyframes']} keyframes, edges "
+          f"{out['edges']}, ATE open {open_pct:.3f}% closed "
+          f"{closed_pct:.3f}% of {L:.2f} m")
+    if not any(e.i - e.j >= LOOP_MIN_SEP for e in edges):
+        fail(f"vo loop: no accepted loop edge {LOOP_MIN_SEP} or more frames "
+             f"apart: {out['edges']}")
+    slack_pct = 100.0 * LOOP_SLACK / L
+    if not closed_pct < open_pct + slack_pct:
+        fail(f"vo loop: closing raised the ATE from {open_pct:.3f}% to "
+             f"{closed_pct:.3f}% (slack {slack_pct:.3f}%)")
+    return out
+
+
+def vo_draws(n_steps: int):
+    """Seeded CPU Gumbel noise of each pair step (essential and homography
+    RANSAC, PnP), shared by the card and the CPU port."""
+    gen = torch.Generator().manual_seed(SEED + 14)
+    tiny = torch.finfo(torch.float32).tiny
+
+    def g(shape):
+        u = torch.rand(shape, generator=gen).clamp_min(tiny)
+        return -torch.log(-torch.log(u))
+
+    ri, rb = VO_KW["ransac_iters"], VO_KW["ransac_batch"]
+    return [(g((ri, rb, VO_NF)), g((ri, rb, VO_NF)), g((rb // 2, VO_NF)))
+            for _ in range(n_steps)]
+
+
+def vo_xcheck(dev, Kt, frames) -> dict:
+    """The walk's first frames (refine=False) on the card and on the CPU
+    port with the same injected noise."""
+    from kornia_tpu_torch.slam import vo as vo_mod
+    draws = vo_draws(VO_XCHECK - 1)
+    runs = {}
+    for where, fr, dr in (
+            ("card", frames[:VO_XCHECK],
+             [tuple(d.to(dev) for d in s) for s in draws]),
+            ("cpu", [f.cpu() for f in frames[:VO_XCHECK]], draws)):
+        vo = vo_mod.VisualOdometry(Kt.cpu(), device=dev if where == "card"
+                                   else "cpu", **VO_KW)
+        with _StepSpy(vo_mod) as spy:
+            res = vo.run(fr, refine=False, draws=dr)
+        runs[where] = dict(res=res, kf=list(vo.kf_frames),
+                           flags=[(bool(h["diag"][2]), bool(h["diag"][7]))
+                                  for _, h in spy.reads])
+    c, x = runs["card"], runs["cpu"]
+    rot = [angle_of_rotation(torch.from_numpy(a[:3, :3] @ b[:3, :3].T))
+           for a, b in zip(c["res"].poses, x["res"].poses)]
+    inl = list(zip(c["res"].num_inliers, x["res"].num_inliers))
+    out = dict(keyframes_card=c["kf"], keyframes_cpu=x["kf"],
+               flags_card=c["flags"], flags_cpu=x["flags"],
+               rot_diff_rad=rot, inliers=inl)
+    print(f"vo card vs CPU port, {VO_XCHECK} frames: keyframes {c['kf']} / "
+          f"{x['kf']}, (use_pnp, use_h) {c['flags']} / {x['flags']}, "
+          f"rotations apart {[f'{r:.2e}' for r in rot]} rad, inliers {inl}")
+    if c["kf"] != x["kf"] or c["flags"] != x["flags"]:
+        fail(f"vo: card and CPU port took other decisions: {out}")
+    if not max(rot) <= VO_XCHECK_RAD:
+        fail(f"vo: card and CPU port rotations {max(rot):.3e} rad apart "
+             f"(limit {VO_XCHECK_RAD})")
+    for a, b in inl:
+        if abs(a - b) > VO_XCHECK_INL * max(a, b):
+            fail(f"vo: card and CPU port inlier counts {a} and {b}")
+    return out
+
+
+def vo_profile(dev, Kt, frames, track_ms: float) -> dict:
+    """VO_PROFILE tracked frames (detection, pair step, host read) under
+    torch.profiler, after the keyframe's detection: device busy ms, idle
+    share against the walk's median tracking time, kernels a frame. Only
+    the device is traced: with the host's operators traced too (190k
+    launches in 5 frames) this part took about two minutes."""
+    from kornia_tpu_torch.core.linalg import f32_precision
+    from kornia_tpu_torch.slam import vo as vo_mod
+    vo = vo_mod.VisualOdometry(Kt, device=dev, **VO_KW)
+    detect, pair = vo._detect_fn(), vo._pair_fn()
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    inl_th = float(np.float32(vo.inl_th_px / vo._focal))
+    with f32_precision():
+        kf = detect(frames[0])
+        state = [torch.zeros(VO_NF, device=dev), torch.tensor(False,
+                                                               device=dev),
+                 torch.eye(3, device=dev), torch.zeros(3, device=dev)]
+
+        def frames_fn():
+            for i in range(1, VO_PROFILE + 1):
+                cur = detect(frames[i])
+                out = pair(*kf, *cur, vo.K, gen, inl_th, *state)
+                vo_mod._read_step(out[0], out[1], out[3], out[7], *cur,
+                                  out[4], out[5], out[6])
+
+        frames_fn()  # warm: the same frames once outside the profile
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            frames_fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / VO_PROFILE
+    n_k = sum(e.count for e in kern) / VO_PROFILE
+    print(f"vo profile: device busy {busy:.3f} ms of a {track_ms:.1f} ms "
+          f"frame (idle share {1.0 - busy / track_ms:.4f}), {n_k:.0f} "
+          f"kernels a frame")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / VO_PROFILE:9.3f} ms a "
+              f"frame x{e.count // VO_PROFILE:<6d} {e.key[:90]}")
+    return dict(busy_ms=busy, idle_share=1.0 - busy / track_ms,
+                kernels_per_frame=n_k, kern=kern)
+
+
+def vo_phase(K, filters, dev) -> dict:
+    """Step 9: visual odometry and loop closure on the card (see the
+    module's docstring)."""
+    t_phase = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return out
+
+    Kt, scene = part("setup", vo_setup, dev)
+    walk = part("walk", vo_walk, K, dev, Kt, scene)
+    frames = walk.pop("frames_list")
+    walk.pop("traj")
+    launches = walk.pop("launches")
+    for name in PAIR_KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"vo path never launched kernel {name}")
+    stages = part("stages", vo_stages, dev, Kt, frames)
+    loop = part("loop", vo_loop, dev, Kt, scene)
+    xcheck = part("xcheck", vo_xcheck, dev, Kt, frames)
+    prof = part("profile", vo_profile, dev, Kt, frames,
+                walk["track_ms_median"])
+    per_frame = gftt_kernel_times(prof.pop("kern"), launches, "vo", VO_WALK,
+                                  1, VO_PROFILE, VO_NF)
+
+    # each kernel against its plain version on the VO's own inputs: the
+    # first-level blur and octave 0 of a rendered, degraded frame, and the
+    # patch coordinates of its GFTT detection
+    from kornia_tpu_torch.feature.integrated import GFTTSIFTFeature
+    from kornia_tpu_torch.ops.pyramid import ScalePyramid
+    img = frames[1]
+    k15 = filters.get_gaussian_kernel1d(15, 1.6, device=dev).reshape(-1)
+    blur = lambda: K.fused_separable_blur2d(img, k15, k15,  # noqa: E731
+                                            "replicate")
+    e_blur = (blur() - K.fused_separable_blur2d_plain(
+        img, k15, k15, "replicate")).abs().max().item()
+    b_ms, b_by = blur_bound(H, W, 1, 30)
+    fused = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
+                 replaces="kornia_tpu/ops/pallas_kernels.py:239",
+                 max_abs_err=e_blur, ms=device_ms(blur),
+                 plain_ms=device_ms(lambda: K.fused_separable_blur2d_plain(
+                     img, k15, k15, "replicate")),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                 tol=BLUR_ATOL)
+    kers, _ = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)
+    ml = lambda: K.multi_level_blur(img, kers, kers,  # noqa: E731
+                                    "replicate")
+    e_ml = (ml() - K.multi_level_blur_plain(img, kers, kers, "replicate")
+            ).abs().max().item()
+    b_ms, b_by = ml_bound(H, W, 1, len(kers),
+                          2 * sum(k.numel() for k in kers))
+    mlr = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
+               replaces="kornia_tpu/ops/pallas_kernels.py:378",
+               max_abs_err=e_ml, ms=device_ms(ml),
+               plain_ms=device_ms(lambda: K.multi_level_blur_plain(
+                   img, kers, kers, "replicate")),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+    path_ms = path_patch_times(K, capture_patch_coords(
+        dev, img, GFTTSIFTFeature(num_features=VO_NF)), "split")
+    desc = path_ms[-1]
+    atlas, px, py = desc.pop("inputs")
+    for c in path_ms:
+        c.pop("inputs", None)
+    patch = dict(source="kornia_tpu_torch/csrc/patch_sample.cu",
+                 replaces="kornia_tpu/ops/pallas_kernels.py:539",
+                 max_abs_err=max(c["max_abs_err"] for c in path_ms),
+                 ms=statistics.mean(desc["kernel_ms"]),
+                 plain_ms=device_ms(lambda: K.patch_sample_plain(atlas, px,
+                                                                 py)),
+                 bound_ms=desc["bound_ms"], bound_by=desc["bound_by"],
+                 library_ms=statistics.mean(desc["library_ms"]),
+                 tol=PATCH_ATOL)
+    results = {"fused_separable_blur2d@vo": fused,
+               "multi_level_blur@vo": mlr, "patch_sample@vo": patch}
+    report(results)
+    counts = {name: launches.get(name.split("@")[0], 0) for name in results}
+    out = dict(walk=walk, stage_ms=stages, loop=loop, xcheck=xcheck,
+               per_frame=per_frame, **prof,
+               routes={k: v for k, v in launches.items() if ":" in k},
+               part_s=part_s, seconds=time.perf_counter() - t_phase)
+    print(f"vo phase: {out['seconds']:.1f} s, parts "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} }")
+    print(json.dumps({"vo": out}))
+    return dict(kernels=results, counts=counts, **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -2038,11 +2470,14 @@ def main() -> int:
     backend = backend_phase(dev, card)
     with f32_precision():
         planar = planar_phase(K, filters, dev)
+    vo = vo_phase(K, filters, dev)
     for ph in phases.values():
         entries += [(name, r, ph["launches"]) for name, r in
                     ph["kernels"].items()]
     entries += [(name, r, planar["counts"]) for name, r in
                 planar["kernels"].items()]
+    entries += [(name, r, vo["counts"]) for name, r in
+                vo["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on its path")
@@ -2070,7 +2505,12 @@ def main() -> int:
                       "backend_seconds": backend["seconds"],
                       "planar_frame_ms": planar["frame_ms"],
                       "planar_stage_ms": planar["stage_ms"],
-                      "planar_device_busy_ms": planar["busy_ms"]}))
+                      "planar_device_busy_ms": planar["busy_ms"],
+                      "vo_frames_per_s": vo["walk"]["frames_per_s"],
+                      "vo_ate_pct": vo["walk"]["ate_pct"],
+                      "vo_track_ms": vo["walk"]["track_ms_median"],
+                      "vo_stage_ms": vo["stage_ms"],
+                      "vo_idle_share": vo["idle_share"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

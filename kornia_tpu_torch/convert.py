@@ -9,7 +9,8 @@ AffNet) load their parameters through it.
 The back end's state crosses as the arrays of its pytrees: an Se3 as its
 quaternion data (wxyz, kept as stored, not renormalised) and translation,
 a ``BAState``, ``BAProblem`` or ``PoseGraph`` as its fields. Index arrays
-become int64.
+become int64. A rendered scene crosses as its four arrays
+(``plane_scene_from_numpy``), so that both packages render the same room.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ import torch
 from .geometry.liegroup import Quaternion, Se3, So3
 from .slam.ba import BAProblem, BAState
 from .slam.posegraph import PoseGraph
+from .utils.render import PlaneScene
 
 __all__ = ["state_from_numpy", "se3_from_numpy", "ba_state_from_numpy",
-           "ba_problem_from_numpy", "pose_graph_from_numpy"]
+           "ba_problem_from_numpy", "pose_graph_from_numpy",
+           "plane_scene_from_numpy"]
 
 Device = Union[str, torch.device]
 
@@ -80,3 +83,13 @@ def pose_graph_from_numpy(src, dst, meas_wxyz, meas_t, weight, valid,
                      se3_from_numpy(meas_wxyz, meas_t, device),
                      _tensor(weight, device, torch.float32),
                      _tensor(valid, device, torch.bool))
+
+
+def plane_scene_from_numpy(origins, edge_u, edge_v, textures,
+                           device: Device = "cuda") -> PlaneScene:
+    """Rectangles (P, 3) origins, u and v edges and (P, Ht, Wt) textures →
+    PlaneScene (float32)."""
+    return PlaneScene(_tensor(origins, device, torch.float32),
+                      _tensor(edge_u, device, torch.float32),
+                      _tensor(edge_v, device, torch.float32),
+                      _tensor(textures, device, torch.float32))

@@ -29,6 +29,8 @@ __all__ = [
     "filter2d_separable",
     "gaussian_blur2d",
     "spatial_gradient",
+    "get_motion_kernel2d",
+    "motion_blur",
 ]
 
 _PAD_MODES = {"reflect": "reflect", "replicate": "replicate",
@@ -239,3 +241,66 @@ def spatial_gradient(x: torch.Tensor, mode: str = "sobel", order: int = 1,
                 (kh // 2, kh // 2, kw // 2, kw // 2), "replicate")
     out = F.conv2d(xp, kern[:, None])
     return out.reshape(B, C, nk, H, W)
+
+
+def get_motion_kernel2d(kernel_size: int, angle, direction=0.0,
+                        dtype: torch.dtype = torch.float32,
+                        mode: str = "nearest",
+                        device: Device = None) -> torch.Tensor:
+    """(B, K, K) motion-blur kernel: a horizontal line with an intensity
+    ramp set by `direction`, rotated by `angle` degrees about the kernel
+    centre (counter-clockwise in image coordinates, y down) by resampling,
+    `mode` "nearest" (the reference's default) or "bilinear"; each kernel
+    sums to one."""
+    angle = torch.atleast_1d(torch.as_tensor(angle, dtype=dtype,
+                                             device=device))
+    dev = angle.device
+    direction = torch.as_tensor(direction, dtype=dtype,
+                                device=dev).expand(angle.shape)
+    k = kernel_size
+    direction = (direction.clamp(-1.0, 1.0) + 1.0) / 2.0
+    ramp = direction[:, None] + (1.0 - 2.0 * direction[:, None]) * \
+        torch.arange(k, dtype=dtype, device=dev) / (k - 1)
+    kern = torch.zeros((angle.shape[0], k, k), dtype=dtype, device=dev)
+    kern[:, k // 2, :] = ramp
+    # inverse-mapped sampling of the line kernel about the centre
+    theta = -torch.deg2rad(angle)
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    ys, xs = torch.meshgrid(torch.arange(k, dtype=dtype, device=dev),
+                            torch.arange(k, dtype=dtype, device=dev),
+                            indexing="ij")
+    c = (k - 1) / 2.0
+    xs0, ys0 = xs - c, ys - c
+    xr = cos[:, None, None] * xs0 + sin[:, None, None] * ys0 + c
+    yr = -sin[:, None, None] * xs0 + cos[:, None, None] * ys0 + c
+    x0 = torch.floor(xr).to(torch.int64)
+    y0 = torch.floor(yr).to(torch.int64)
+    wx = xr - x0
+    wy = yr - y0
+    batch = torch.arange(angle.shape[0], device=dev)[:, None, None]
+
+    def tap(yy, xx):
+        valid = (yy >= 0) & (yy < k) & (xx >= 0) & (xx < k)
+        vals = kern[batch, yy.clamp(0, k - 1), xx.clamp(0, k - 1)]
+        return torch.where(valid, vals, 0.0)
+
+    if mode == "nearest":
+        out = tap(torch.round(yr).to(torch.int64),
+                  torch.round(xr).to(torch.int64))
+    else:
+        out = (tap(y0, x0) * (1 - wx) * (1 - wy)
+               + tap(y0, x0 + 1) * wx * (1 - wy)
+               + tap(y0 + 1, x0) * (1 - wx) * wy
+               + tap(y0 + 1, x0 + 1) * wx * wy)
+    return out / out.sum(dim=(-2, -1), keepdim=True)
+
+
+def motion_blur(x: torch.Tensor, kernel_size: int, angle, direction=0.0,
+                border_type: str = "constant",
+                mode: str = "nearest") -> torch.Tensor:
+    """Blur (B, C, H, W) along a line of `kernel_size` pixels at `angle`
+    degrees (one angle, or one per sample)."""
+    x = as_float(x)
+    kernel = get_motion_kernel2d(kernel_size, angle, direction,
+                                 dtype=x.dtype, mode=mode, device=x.device)
+    return filter2d(x, kernel, border_type)

@@ -1,1 +1,1 @@
-"""SLAM front end: two-view relative pose."""
+"""SLAM: two-view pose, visual odometry, loop closure and the optimisation back end."""

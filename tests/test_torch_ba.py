@@ -44,6 +44,7 @@ from kornia_tpu_torch.losses import robust as t_rob
 from kornia_tpu_torch.slam import ba as t_ba
 from kornia_tpu_torch.slam import ba_sparse as t_bas
 from tests.test_slam import make_ba_problem
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NUM_ITERS = 6
 

@@ -755,3 +755,76 @@ def test_cuda_homography_tracker_matches_cpu(cuda_device):
         out.append(mapped(Hm))
     assert (out[0] - out[1]).norm(dim=-1).max() <= 0.5
     assert (out[0] - mapped(Ht)).norm(dim=-1).max() <= 1.0
+
+
+def _room():
+    """A room (tex_size 128) on the CPU and K at 120x160 (f = 0.8 W)."""
+    from kornia_tpu_torch.utils.render import make_room_scene
+    return make_room_scene(torch.Generator().manual_seed(7), tex_size=128,
+                           device="cpu"), torch.tensor(
+        [[128.0, 0.0, 80.0], [0.0, 128.0, 60.0], [0.0, 0.0, 1.0]])
+
+
+def test_cuda_render_scene_matches_cpu(cuda_device):
+    """render_scene at 120x160 on the card against the CPU port, the same
+    room: image 1e-5 on at least 99.5% of the pixels (a plane's edge may
+    go to the other plane), depth 1e-4 relative."""
+    from dataclasses import replace
+
+    from kornia_tpu_torch.utils.render import render_scene, walk_trajectory
+    scene, Kt = _room()
+    card = replace(scene, **{f: getattr(scene, f).to(cuda_device) for f in
+                             ("origins", "edge_u", "edge_v", "textures")})
+    for T in walk_trajectory(4):
+        img_c, z_c = render_scene(card, Kt, T, 120, 160)
+        img, z = render_scene(scene, Kt, T, 120, 160)
+        assert img_c.is_cuda
+        err = (img_c.cpu() - img).abs()
+        assert float((err <= 1e-5).float().mean()) >= 0.995
+        torch.testing.assert_close(z_c.cpu(), z, rtol=1e-4, atol=0)
+
+
+def test_cuda_vo_pair_step_matches_cpu(cuda_device):
+    """One VisualOdometry pair step (keyframe 0 → frame 1, then frame 1 →
+    frame 2 against the first step's map) on the card against the CPU port,
+    the same features and injected noise: the same matches and branch
+    choices, rotations 1e-4, translations 1e-3, inlier counts within 2%."""
+    from kornia_tpu_torch.slam.vo import VisualOdometry
+    from kornia_tpu_torch.utils.render import render_sequence, walk_trajectory
+    scene, Kt = _room()
+    frames, _ = render_sequence(scene, Kt, walk_trajectory(12)[:3], 120, 160)
+    gen = torch.Generator().manual_seed(3)
+
+    def gumbel(shape):
+        u = torch.rand(shape, generator=gen).clamp_min(1e-38)
+        return -torch.log(-torch.log(u))
+
+    draws = [(gumbel((8, 128, 128)), gumbel((8, 128, 128)),
+              gumbel((64, 128))) for _ in range(2)]
+    cpu = VisualOdometry(Kt, num_features=128, ransac_iters=8,
+                         ransac_batch=128, device="cpu")
+    feats = [cpu._detect_fn()(f) for f in frames]
+    inl_th = float(np.float32(cpu.inl_th_px / cpu._focal))
+    outs = {}
+    for d in (cuda_device, "cpu"):
+        vo = VisualOdometry(Kt, num_features=128, ransac_iters=8,
+                            ransac_batch=128, device=d)
+        pair = vo._pair_fn()
+        state = (torch.zeros(128, device=d), torch.tensor(False, device=d),
+                 torch.eye(3, device=d), torch.zeros(3, device=d))
+        steps = []
+        for i in (1, 2):
+            f0 = [x.to(d) for x in feats[i - 1]]
+            f1 = [x.to(d) for x in feats[i]]
+            out = pair(*f0, *f1, vo.K, None, inl_th, *state,
+                       tuple(g.to(d) for g in draws[i - 1]))
+            steps.append([o.cpu() for o in out])
+            state = (out[4], torch.tensor(True, device=d), out[0], out[1])
+        outs[str(d)] = steps
+    for c, x in zip(outs[str(cuda_device)], outs["cpu"]):
+        R, t, inl, n, depth, idx, track, diag = c
+        assert torch.equal(idx, x[5])
+        assert torch.equal(diag[[2, 6, 7]], x[7][[2, 6, 7]])
+        torch.testing.assert_close(R, x[0], atol=1e-4, rtol=0)
+        torch.testing.assert_close(t, x[1], atol=1e-3, rtol=0)
+        assert abs(int(n) - int(x[3])) <= 0.02 * max(int(n), int(x[3]))

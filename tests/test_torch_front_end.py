@@ -30,6 +30,7 @@ from kornia_tpu_torch.geometry import subpix as t_subpix
 from kornia_tpu_torch.ops import filters as t_filters
 from kornia_tpu_torch.ops import pyramid as t_pyr
 from kornia_tpu_torch.ops import warp as t_warp
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NF = 96
 

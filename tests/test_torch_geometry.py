@@ -27,6 +27,7 @@ from kornia_tpu_torch.geometry.conversions import \
     normalize_points_with_intrinsics as t_norm_k
 from kornia_tpu_torch.geometry.homography import normalize_points as t_norm
 from kornia_tpu_torch.geometry.ransac import ransac as t_ransac
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

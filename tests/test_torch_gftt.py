@@ -32,6 +32,7 @@ from kornia_tpu_torch.feature import responses as t_resp
 from kornia_tpu_torch.ops import filters as t_filters
 from kornia_tpu_torch.ops import pyramid as t_pyr
 from kornia_tpu_torch.ops import warp as t_warp
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NF = 64
 

@@ -21,6 +21,7 @@ from kornia_tpu.ops.filters import get_gaussian_kernel1d as jax_gauss1d
 from kornia_tpu_torch.losses import losses as t_losses
 from kornia_tpu_torch.ops import kernels as K
 from kornia_tpu_torch.ops import pyramid as t_pyr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BORDERS = ["reflect", "replicate", "circular", "constant"]
 SIGMAS = [1.23, 1.55, 1.95]

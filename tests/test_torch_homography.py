@@ -28,6 +28,7 @@ from kornia_tpu_torch.geometry import epipolar as t_epi
 from kornia_tpu_torch.geometry import homography as t_hom
 from kornia_tpu_torch.geometry import ransac as t_ran
 from kornia_tpu_torch.geometry import solvers as t_sol
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 K_PIX = np.array([[100.0, 0, 64], [0, 100, 48], [0, 0, 1]], np.float32)
 

@@ -19,6 +19,7 @@ from kornia_tpu.ops import pallas_kernels as pk
 from kornia_tpu.ops.filters import get_gaussian_kernel1d as jax_gauss1d
 from kornia_tpu_torch.convert import state_from_numpy
 from kornia_tpu_torch.ops import kernels as K
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BORDERS = ["reflect", "replicate", "circular", "constant"]
 # [0, 1] images: f32 products summed in another order than the reference

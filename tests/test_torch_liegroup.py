@@ -25,6 +25,7 @@ from kornia_tpu.geometry import conversions as jc
 from kornia_tpu.geometry import liegroup as jl
 from kornia_tpu_torch.geometry import conversions as tc
 from kornia_tpu_torch.geometry import liegroup as tl
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ANGLES = [0.0, 1e-5, 0.3, math.pi - 1e-3]
 ATOL = 2e-6

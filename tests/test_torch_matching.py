@@ -17,6 +17,7 @@ from kornia_tpu.feature import matching as j_match
 from kornia_tpu.ops import pallas_kernels as pk
 from kornia_tpu_torch.feature import matching as t_match
 from kornia_tpu_torch.ops import kernels as K
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _int_descs(seed, n, m, d):

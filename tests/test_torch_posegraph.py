@@ -25,6 +25,7 @@ from kornia_tpu.slam import posegraph as j_pg
 from kornia_tpu_torch import convert
 from kornia_tpu_torch.geometry import liegroup as tl
 from kornia_tpu_torch.slam import posegraph as t_pg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N = 10
 

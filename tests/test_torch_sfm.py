@@ -37,6 +37,7 @@ from kornia_tpu_torch.geometry.epipolar import (projection_from_KRt,
 from kornia_tpu_torch.geometry.scene import generate_scene as t_scene
 from kornia_tpu_torch.metrics import metrics as t_met
 from kornia_tpu_torch.slam import sfm as t_sfm
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

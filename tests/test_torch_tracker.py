@@ -24,6 +24,7 @@ from kornia_tpu.tracking.planar_tracker import \
 from kornia_tpu_torch.geometry.homography import oneway_transfer_error
 from kornia_tpu_torch.ops.warp import warp_perspective
 from kornia_tpu_torch.tracking import planar_tracker as t_track
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 S_IMG, NF = 96, 128
 T, S = 8, 512  # the tracker's RANSAC rounds and batch

@@ -22,6 +22,7 @@ from scipy.ndimage import gaussian_filter
 from kornia_tpu.slam.twoview import two_view_pose as jax_two_view_pose
 from kornia_tpu_torch.convert import state_from_numpy
 from kornia_tpu_torch.slam.twoview import two_view_pose
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 H = W = 128
