@@ -68,12 +68,31 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    within 2%); 5 tracked frames are profiled (device busy, idle share, each
    ported kernel's device time a frame beside its bound), and each kernel
    is held against its plain version on a rendered frame. It prints one
-   JSON line of its own.
+   JSON line of its own;
+10. learned: learned local features and dense matching. (a) BASELINE
+   config 2: ``two_view_pose`` with SIFTFeature's DoG detector, the gradient
+   orientation (19²) and HardNet on 32² patches, at 480x640/1024f, RANSAC
+   256 x 32: ms per pair, stages, the device's busy share and kernels per
+   pair, each kernel's launches, device time and bound per pair, the pose
+   (for information: the weights are untrained); (b) GFTTAffNetHardNet and
+   HesAffNetHardNet through ``match_pair`` at 480x640/1024f with autograd
+   on; each kernel call of (a) and (b) captured and held against its plain
+   version; (c) ``LoFTR(LoFTRConfig())`` (coarse 256, fine 128, 4 + 1 layer
+   pairs, 8 heads, top_k 512) on the same pair: ms per pair, peak memory,
+   busy share, valid matches and their essential-RANSAC pose (for
+   information); then config 2 and GFTTAffNetHardNet at 256x256/512f on the
+   card and on the CPU port with the same injected noise (the same
+   keypoints, LAFs within 1e-4 of their largest entry, descriptors of the
+   same LAFs within 1e-4, 99% of matches equal, inlier counts within 2%),
+   and LoFTR at 240x320 on both (maps, tokens and confidences within 1e-4
+   of their largest entry; the fine stage fed the CPU's coarse matches,
+   keypoints within 1e-3 px). It prints one JSON line of its own.
 
-Each of steps 2, 4, 5, 6, 8 and 9 resets the launch counters just before it
-drives its path and reads them just after; every kernel must have
-launched on its path. Every failure exits non-zero. The last lines are one
-JSON object with the kernels' numbers and ``{"ok": true, "device": {...}}``.
+Each of steps 2, 4, 5, 6, 8, 9 and 10 (its paths (a) and (b)) resets the
+launch counters just before it drives its path and reads them just after;
+every kernel must have launched on its path. Every failure exits non-zero.
+The last lines are one JSON object with the kernels' numbers and
+``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 before printing any result.
 """
 
@@ -262,17 +281,18 @@ def patch_bound(atlas_numel: int, samples: int):
     return bound(atlas_numel * 4 + 3 * samples * 4, 13 * samples)
 
 
-def path_launch_shapes(h: int, w: int):
+def path_launch_shapes(h: int, w: int, patch_sizes=(19, 41)):
     """The shapes at which one image of the pair launches each ported
     kernel (SIFTFeature: ScalePyramid(3, 1.6, 32), 19² orientation and 41²
-    descriptor patches): the first-level blur (k = 15, replicate), the
-    pyrdown blurs (k = 5, reflect) of each patch atlas, one multi-level
-    launch per octave, and the atlas rows and samples per keypoint of each
-    patch call. Mirrors ops/pyramid.py and feature/laf.py."""
+    descriptor patches; BASELINE config 2 describes 32² patches): the
+    first-level blur (k = 15, replicate), the pyrdown blurs (k = 5, reflect)
+    of each patch atlas, one multi-level launch per octave, and the atlas
+    rows and samples per keypoint of each patch call. Mirrors
+    ops/pyramid.py and feature/laf.py."""
     from kornia_tpu_torch.ops.pyramid import ScalePyramid
     fused = [(h, w, 15, "replicate")]
     patches = []
-    for ps in (19, 41):
+    for ps in patch_sizes:
         hh, ww, rows = h, w, h
         for _ in range(max(1, min(h, w) // ps) - 1):
             fused.append((hh, ww, 5, "reflect"))
@@ -671,13 +691,14 @@ def profile_kernels(fn):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def pair_kernel_times(kern, launches) -> dict:
+def pair_kernel_times(kern, launches, patch_sizes=(19, 41),
+                      what: str = "per pair") -> dict:
     """Per ported kernel of the pair: its device time summed over the
     profiled pair's CUDA kernels, and the sum of each launch's own bound at
     its own shape (both images). Fails where the launch list disagrees with
     the counted launches."""
     from kornia_tpu_torch.ops.pyramid import ScalePyramid
-    shapes = path_launch_shapes(H, W)
+    shapes = path_launch_shapes(H, W, patch_sizes)
     kers = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)[0]
     chain, levels = 2 * sum(k.numel() for k in kers), len(kers)
     bounds = {
@@ -719,7 +740,7 @@ def pair_kernel_times(kern, launches) -> dict:
         out[name] = dict(ms_per_pair=ms, bound_per_pair=b,
                          loss_per_pair=ms - b, launches=launches[name],
                          cuda_kernels={k: round(v, 5) for k, v in by.items()})
-        print(f"per pair {name}: {ms:.4f} ms device, bound {b:.5f} ms, "
+        print(f"{what} {name}: {ms:.4f} ms device, bound {b:.5f} ms, "
               f"{launches[name]} launches, kernels {out[name]['cuda_kernels']}")
     return out
 
@@ -2434,6 +2455,464 @@ def vo_phase(K, filters, dev) -> dict:
     return dict(kernels=results, counts=counts, **out)
 
 
+# --- step 10: learned features and dense matching ------------------------------
+
+LEARNED_XCHECK_RTOL = 1e-4  # card vs CPU port: LAFs, of their largest entry
+LEARNED_DESC_ATOL = 1e-4    # ... descriptors of the same LAFs (unit rows)
+LEARNED_AGREE = 0.99        # ... share of equal matches (near ties may swap)
+LEARNED_INLIER_RTOL = 0.02  # ... inlier counts within 2% of each other
+LOFTR_RTOL = 1e-4           # LoFTR card vs CPU: maps, tokens, confidences
+LOFTR_FINE_PX = 1e-3        # ... fine keypoints, teacher-forced
+LOFTR_XH, LOFTR_XW = 240, 320
+CAPTURE_TOL = {"fused_separable_blur2d": BLUR_ATOL,
+               "multi_level_blur": BLUR_ATOL, "patch_sample": PATCH_ATOL}
+
+
+def config2_feature(dev, nf: int = NF):
+    """BASELINE config 2's front end: SIFTFeature's DoG scale-space
+    detector, the gradient orientation on 19² patches and HardNet on 32²
+    patches (weights from the port's seeded default initialisation)."""
+    from kornia_tpu_torch.feature.hardnet import HardNet
+    from kornia_tpu_torch.feature.integrated import (LAFDescriptor,
+                                                     LAFOrienter,
+                                                     LocalFeature,
+                                                     SIFTFeature)
+    return LocalFeature(SIFTFeature(num_features=nf).detector,
+                        LAFDescriptor(HardNet(device=dev), 32),
+                        LAFOrienter(19))
+
+
+def capture_launches(K, fn) -> dict:
+    """Run fn once with a spy on each front-end kernel wrapper: the cloned
+    arguments of every call, by wrapper name."""
+    from kornia_tpu_torch.feature import laf as laf_mod
+    from kornia_tpu_torch.ops import pyramid as pyr_mod
+    calls = {name: [] for name in PAIR_KERNELS}
+    sites = [(K, "fused_separable_blur2d"), (pyr_mod, "multi_level_blur"),
+             (laf_mod, "patch_sample")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
+
+    def spy(name, real):
+        def call(*args, **kwargs):
+            calls[name].append((tuple(a.clone() if torch.is_tensor(a) else a
+                                      for a in args), dict(kwargs)))
+            return real(*args, **kwargs)
+        return call
+
+    try:
+        for mod, name, real in saved:
+            setattr(mod, name, spy(name, real))
+        fn()
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return calls
+
+
+def check_captured(K, calls: dict, what: str) -> dict:
+    """Each captured call again through its kernel and its plain version:
+    the largest difference per wrapper (fails beyond CAPTURE_TOL) and the
+    routes the blurs took."""
+    out = {}
+    for name, cs in calls.items():
+        if not cs:
+            fail(f"{what}: no call of {name} captured")
+        kern, plain = getattr(K, name), getattr(K, name + "_plain")
+        err, routes = 0.0, {}
+        for args, kwargs in cs:
+            if name == "patch_sample":
+                got = kern(*args, **kwargs)
+            else:
+                route, got = route_of(K, name, lambda: kern(*args, **kwargs))
+                routes[route] = routes.get(route, 0) + 1
+            err = max(err, (got - plain(*args, **kwargs)).abs().max().item())
+        if not err <= CAPTURE_TOL[name]:
+            fail(f"{what}: {name} disagrees with its plain version on the "
+                 f"path's inputs: max abs err {err}")
+        shapes = sorted({tuple(a[0].shape) for a, _ in cs})
+        out[name] = dict(calls=len(cs), max_abs_err=err, routes=routes,
+                         shapes=[list(t) for t in shapes])
+        print(f"{what} {name}: {len(cs)} calls against the plain version, "
+              f"max abs err {err:.3e}, routes {routes}, shapes {shapes}")
+    return out
+
+
+def counted_run(K, fn, what: str) -> dict:
+    """Launch counters set to 0 just before fn, read just after; every
+    front-end kernel must have launched."""
+    torch.cuda.synchronize()
+    K.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    print(f"{what} launches: {launches}")
+    for name in PAIR_KERNELS:
+        if launches.get(name, 0) <= 0:
+            fail(f"{what} never launched kernel {name}")
+    return launches
+
+
+def median_ms(fn, n: int = 5):
+    """Host clock around n synchronised calls: (median, every run)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def device_profile(fn):
+    """fn once under a device-only torch.profiler trace: (busy ms, kernels
+    launched, the device-side entries)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kern) / 1e3,
+            sum(e.count for e in kern), kern)
+
+
+def learned_config2(K, dev) -> dict:
+    """(a) BASELINE config 2 at 480x640/1024f through two_view_pose."""
+    from kornia_tpu_torch.core.linalg import f32_precision
+    from kornia_tpu_torch.feature.matching import DescriptorMatcher
+    from kornia_tpu_torch.geometry.conversions import \
+        normalize_points_with_intrinsics
+    from kornia_tpu_torch.geometry.ransac import ransac
+    from kornia_tpu_torch.slam.twoview import two_view_pose
+    img0, img1, Kc = bench_input(H, W, dev)
+    feat = config2_feature(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pair = lambda: two_view_pose(img0, img1, Kc, generator=gen,  # noqa: E731
+                                 num_features=NF, feature=feat, device=dev)
+    launches = counted_run(K, pair, "learned (a) config 2 pair")
+    res = pair()
+    rot = math.degrees(angle_of_rotation(res.R))
+    print(f"learned (a) pose (for information: untrained weights): rotation "
+          f"{rot:.4f} deg, t {res.t.reshape(-1).tolist()}, inliers "
+          f"{int(res.num_inliers)} of {int(res.inliers.numel())}")
+    pair_ms, runs = median_ms(pair)
+    print(f"learned (a) two_view_pose 480x640/1024f: median {pair_ms:.2f} "
+          f"ms/pair, runs {[round(v, 2) for v in runs]}")
+    matcher = DescriptorMatcher("smnn", 0.95)
+    stages = {k: [] for k in ("features x2", "match", "ransac")}
+    for _ in range(3):
+        with f32_precision():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            l0, _, d0, v0 = feat(img0)
+            l1, _, d1, v1 = feat(img1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, idx, valid = matcher(d0[0], d1[0], v0[0], v1[0])
+            kp1 = l1[0, :, :, 2][idx[:, 1]]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            x0 = normalize_points_with_intrinsics(l0[0, :, :, 2], Kc)
+            x1 = normalize_points_with_intrinsics(kp1, Kc)
+            ransac(x0, x1, model_type="essential", inl_th=1.5 / (0.8 * W),
+                   batch_size=256, max_iterations=32, mask=valid,
+                   generator=gen)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[k].append(v * 1e3)
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    print(f"learned (a) stages (median ms, host clock, synchronised): "
+          f"{ {k: round(v, 3) for k, v in stage_ms.items()} }")
+    pair()  # warm, then one pair traced on the device only
+    busy, n_k, kern = device_profile(pair)
+    print(f"learned (a) device busy {busy:.3f} ms of a {pair_ms:.2f} ms pair "
+          f"(idle share {1.0 - busy / pair_ms:.4f}), {n_k} kernels")
+    per_pair = pair_kernel_times(kern, launches, (19, 32),
+                                 "learned (a) per pair")
+    calls = capture_launches(K, lambda: feat(img0))
+    checks = check_captured(K, calls, "learned (a)")
+    return dict(launches=launches, pair_ms=pair_ms, runs_ms=runs,
+                stage_ms=stage_ms, busy_ms=busy, idle_share=1.0 - busy
+                / pair_ms, kernels_per_pair=n_k, per_pair=per_pair,
+                checks=checks, rotation_deg=rot,
+                inliers=int(res.num_inliers),
+                desc_call=calls["patch_sample"][-1][0][:3])
+
+
+def learned_presets(K, dev) -> dict:
+    """(b) GFTTAffNetHardNet and HesAffNetHardNet through match_pair at
+    480x640/1024f, with autograd on (no torch.no_grad around them)."""
+    from kornia_tpu_torch.feature.integrated import (GFTTAffNetHardNet,
+                                                     HesAffNetHardNet)
+    from kornia_tpu_torch.slam.twoview import match_pair
+    if not torch.is_grad_enabled():
+        fail("learned (b) must run with autograd on")
+    img0, img1, _ = bench_input(H, W, dev)
+    out = {}
+    for cls in (GFTTAffNetHardNet, HesAffNetHardNet):
+        feat = cls(num_features=NF, device=dev)
+        name = cls.__name__
+        run = lambda: match_pair(img0, img1, NF, feature=feat,  # noqa: E731
+                                 device=dev)
+        launches = counted_run(K, run, f"learned (b) {name}")
+        m = run()
+        ms, runs = median_ms(run, 3)
+        n_valid = int(m["valid"].sum())
+        print(f"learned (b) {name} match_pair 480x640/1024f: median "
+              f"{ms:.2f} ms/pair, runs {[round(v, 2) for v in runs]}, "
+              f"{n_valid} matches")
+        calls = capture_launches(K, lambda: feat(img0))
+        out[name] = dict(launches=launches, pair_ms=ms, matches=n_valid,
+                         checks=check_captured(K, calls,
+                                               f"learned (b) {name}"))
+    return out
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def learned_xcheck(dev) -> dict:
+    """Config 2 and GFTTAffNetHardNet at 256x256/512f on the card and on the
+    CPU port with the same injected RANSAC noise: the same keypoints, LAFs
+    within 1e-4 of their largest entry, descriptors of the same LAFs (the
+    CPU's) within 1e-4, 99% of the matches equal (near ties may swap),
+    inlier counts within 2%. End to end, a keypoint's centre moves by up to
+    a few thousandths of a pixel in the detector's subpixel fit and HardNet
+    follows the shift (up to 3.5e-4 on config 2 on an H100): the
+    end-to-end descriptor differences are printed, and the matches they
+    give are what is held."""
+    from kornia_tpu_torch.core.linalg import f32_precision
+    from kornia_tpu_torch.feature.integrated import GFTTAffNetHardNet
+    from kornia_tpu_torch.slam.twoview import match_pair, two_view_pose
+    img0, img1, Kc = bench_input(XH, XW, dev)
+    gen = torch.Generator().manual_seed(3)
+    u = torch.rand((32, 256, XNF), generator=gen).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    gumbel = -torch.log(-torch.log(u))
+    makers = {"config2": lambda d: config2_feature(d, XNF),
+              "GFTTAffNetHardNet": lambda d: GFTTAffNetHardNet(XNF,
+                                                                device=d)}
+    out = {}
+    for name, make in makers.items():
+        res = []
+        for d in (dev, torch.device("cpu")):
+            feat = make(d)
+            a, b, k = (t.to(d) for t in (img0, img1, Kc))
+            with f32_precision():
+                det = feat(a)
+            res.append(dict(
+                feat=feat, det=det,
+                match=match_pair(a, b, XNF, feature=feat, device=d),
+                pose=two_view_pose(a, b, k, num_features=XNF, feature=feat,
+                                   device=d, gumbel=gumbel.to(d))))
+        g, c = res
+        (gl, _, gd, gv), (cl, _, cd, cv) = g["det"], c["det"]
+        if not torch.equal(gv.cpu(), cv):
+            fail(f"learned xcheck {name}: card and CPU keep other keypoints")
+        v = cv[0]
+        laf_rel = _rel(gl[0][v], cl[0][v])
+        with f32_precision():
+            forced = g["feat"].descriptor(img0, cl.to(dev))
+        forced_err = float((forced.cpu() - cd)[0][v].abs().max())
+        e2e = (gd.cpu() - cd)[0][v].abs().amax(-1)
+        e2e_share = float((e2e <= LEARNED_DESC_ATOL).float().mean())
+        gm, cm = g["match"], c["match"]
+        mv = cm["valid"][0]
+        agree = float((gm["matches"][0].cpu() == cm["matches"][0])
+                      .all(-1)[mv].float().mean())
+        ni = (int(g["pose"].num_inliers), int(c["pose"].num_inliers))
+        out[name] = dict(keypoints=int(v.sum()), laf_rel=laf_rel,
+                         forced_desc_err=forced_err,
+                         e2e_desc_share=e2e_share,
+                         e2e_desc_err=float(e2e.max()), match_agree=agree,
+                         inliers=ni)
+        print(f"learned xcheck {name} 256x256/512f card vs CPU: "
+              f"{int(v.sum())} keypoints, LAFs {laf_rel:.2e} of the largest, "
+              f"descriptors on the CPU's LAFs {forced_err:.2e}, end to end "
+              f"{float(e2e.max()):.2e} ({e2e_share:.4f} within "
+              f"{LEARNED_DESC_ATOL}), matches equal {agree:.4f}, inliers "
+              f"{ni}")
+        if not laf_rel <= LEARNED_XCHECK_RTOL:
+            fail(f"learned xcheck {name}: LAFs {laf_rel} apart")
+        if not forced_err <= LEARNED_DESC_ATOL:
+            fail(f"learned xcheck {name}: descriptors of the same LAFs "
+                 f"{forced_err} apart")
+        if not agree >= LEARNED_AGREE:
+            fail(f"learned xcheck {name}: matches agree {agree}")
+        if abs(ni[0] - ni[1]) > LEARNED_INLIER_RTOL * max(ni):
+            fail(f"learned xcheck {name}: inlier counts {ni}")
+    return out
+
+
+def loftr_pair(dev) -> dict:
+    """(c) LoFTR(LoFTRConfig()) on the 480x640 benchmark pair: ms per pair,
+    peak memory, busy share, valid matches, and their essential-RANSAC pose
+    (for information: the weights are untrained)."""
+    from kornia_tpu_torch.core.linalg import f32_precision
+    from kornia_tpu_torch.feature.loftr import LoFTR, LoFTRConfig
+    from kornia_tpu_torch.geometry.conversions import \
+        normalize_points_with_intrinsics
+    from kornia_tpu_torch.geometry.epipolar import \
+        motion_from_essential_choose_solution
+    from kornia_tpu_torch.geometry.ransac import ransac
+    img0, img1, Kc = bench_input(H, W, dev)
+    model = LoFTR(LoFTRConfig(), device=dev)
+    data = {"image0": img0, "image1": img1}
+    model(data)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = model(data)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms, runs = median_ms(lambda: model(data))
+    busy, n_k, kern = device_profile(lambda: model(data))
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+    v = out["valid"][0]
+    n_valid = int(v.sum())
+    K_ = model.cfg.top_k
+    if not (out["keypoints0"].shape == out["keypoints1"].shape == (1, K_, 2)
+            and torch.isfinite(out["keypoints1"]).all()
+            and torch.isfinite(out["confidence"]).all()):
+        fail("LoFTR: keypoints of another shape, or non-finite outputs")
+    # the valid matches through essential RANSAC (with fewer than 5 the
+    # minimal samples repeat matches: the pose is then noise)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    with f32_precision():
+        x0 = normalize_points_with_intrinsics(out["keypoints0"][0], Kc)
+        x1 = normalize_points_with_intrinsics(out["keypoints1"][0], Kc)
+        rr = ransac(x0, x1, model_type="essential", inl_th=1.5 / (0.8 * W),
+                    batch_size=256, max_iterations=32, mask=v, generator=gen)
+        eye = torch.eye(3, device=dev)[None]
+        R, t, _ = motion_from_essential_choose_solution(
+            rr.model[None], eye, eye, x0[None], x1[None],
+            mask=rr.inliers[None])
+    pose = dict(rotation_deg=math.degrees(angle_of_rotation(R[0])),
+                t=t[0].reshape(-1).tolist(), inliers=int(rr.inlier_count))
+    print(f"learned (c) LoFTR 480x640 (coarse 256, fine 128, 4+1 layer "
+          f"pairs, 8 heads, top_k 512): median {ms:.2f} ms/pair, runs "
+          f"{[round(x, 2) for x in runs]}, peak {peak / 2**20:.1f} MiB, "
+          f"device busy {busy:.3f} ms (busy share {busy / ms:.4f}), {n_k} "
+          f"kernels, {n_valid} valid matches, pose (for information) {pose}")
+    return dict(pair_ms=ms, runs_ms=runs, peak_bytes=peak, busy_ms=busy,
+                busy_share=busy / ms, kernels_per_pair=n_k,
+                valid_matches=n_valid, pose=pose)
+
+
+def loftr_xcheck(dev) -> dict:
+    """LoFTR(LoFTRConfig()) at 240x320 on the card and on the CPU port: the
+    backbone's maps, the transformer's tokens and the confidence matrix
+    within 1e-4 of their largest entry; the fine stage on the card fed the
+    CPU's coarse matches (teacher-forced: top-k ties cannot change which
+    cells are compared), keypoints within 1e-3 px."""
+    from kornia_tpu_torch.feature.loftr import LoFTR, LoFTRConfig, \
+        _coarse_match
+    cfg = LoFTRConfig()
+    cpu = LoFTR(cfg, device="cpu")
+    card = LoFTR(cfg, cpu.params, device=dev)
+    img0, img1, _ = bench_input(LOFTR_XH, LOFTR_XW, dev)
+    st_g = card.coarse_stage(img0, img1)
+    st_c = cpu.coarse_stage(img0.cpu(), img1.cpu())
+    rel = {k: _rel(st_g[k], st_c[k]) for k in ("c0", "f0", "c1", "f1", "t0",
+                                              "t1", "conf")}
+    i, j, _, v = _coarse_match(cfg, st_c["conf"], st_c["hw0"], st_c["hw1"],
+                               cfg.top_k)
+    kp_c = cpu.fine_stage(st_c, i, j)
+    kp_g = card.fine_stage(st_g, i.to(dev), j.to(dev))
+    fine_px = max(float((g.cpu() - c).abs().max()) for g, c in zip(kp_g,
+                                                                    kp_c))
+    print(f"learned LoFTR card vs CPU at {LOFTR_XH}x{LOFTR_XW}: "
+          f"{ {k: f'{x:.2e}' for k, x in rel.items()} } of the largest "
+          f"entry, fine keypoints (teacher-forced, {cfg.top_k} cells, "
+          f"{int(v.sum())} valid) {fine_px:.2e} px")
+    if not max(rel.values()) <= LOFTR_RTOL:
+        fail(f"LoFTR: card and CPU apart by {rel}")
+    if not fine_px <= LOFTR_FINE_PX:
+        fail(f"LoFTR: fine keypoints {fine_px} px apart")
+    return dict(rel=rel, fine_px=fine_px, valid=int(v.sum()))
+
+
+def learned_phase(K, filters, dev) -> dict:
+    """Step 10: learned local features and dense matching (see the
+    module's docstring)."""
+    t_phase = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        r = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return r
+
+    a = part("config2", learned_config2, K, dev)
+    b = part("presets", learned_presets, K, dev)
+    c = part("loftr", loftr_pair, dev)
+    xcheck = part("xcheck", learned_xcheck, dev)
+    loftr_x = part("loftr_xcheck", loftr_xcheck, dev)
+
+    # the kernels line's entries: each kernel on the config-2 path, the
+    # patch kernel on its 32² HardNet call (1024 x 1024 samples)
+    img = bench_input(H, W, dev)[0]
+    errs = {name: max([a["checks"][name]["max_abs_err"]]
+                      + [p["checks"][name]["max_abs_err"]
+                         for p in b.values()])
+            for name in PAIR_KERNELS}
+    k15 = filters.get_gaussian_kernel1d(
+        15, math.sqrt(1.6 ** 2 - 0.5 ** 2), device=dev).reshape(-1)
+    b_ms, b_by = blur_bound(H, W, 1, 30)
+    fused = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
+                 replaces="kornia_tpu/ops/pallas_kernels.py:239",
+                 max_abs_err=errs["fused_separable_blur2d"],
+                 ms=device_ms(lambda: K.fused_separable_blur2d(
+                     img, k15, k15, "replicate")),
+                 plain_ms=device_ms(lambda: K.fused_separable_blur2d_plain(
+                     img, k15, k15, "replicate")),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                 tol=BLUR_ATOL)
+    from kornia_tpu_torch.ops.pyramid import ScalePyramid
+    kers, _ = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)
+    b_ms, b_by = ml_bound(H, W, 1, len(kers),
+                          2 * sum(k.numel() for k in kers))
+    mlr = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
+               replaces="kornia_tpu/ops/pallas_kernels.py:378",
+               max_abs_err=errs["multi_level_blur"],
+               ms=device_ms(lambda: K.multi_level_blur(img, kers, kers,
+                                                       "replicate")),
+               plain_ms=device_ms(lambda: K.multi_level_blur_plain(
+                   img, kers, kers, "replicate")),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+    desc = path_patch_times(K, [a.pop("desc_call")], "split")[0]
+    atlas, px, py = desc.pop("inputs")
+    patch = dict(source="kornia_tpu_torch/csrc/patch_sample.cu",
+                 replaces="kornia_tpu/ops/pallas_kernels.py:539",
+                 max_abs_err=max(errs["patch_sample"], desc["max_abs_err"]),
+                 ms=statistics.mean(desc["kernel_ms"]),
+                 plain_ms=device_ms(lambda: K.patch_sample_plain(atlas, px,
+                                                                 py)),
+                 bound_ms=desc["bound_ms"], bound_by=desc["bound_by"],
+                 library_ms=statistics.mean(desc["library_ms"]),
+                 tol=PATCH_ATOL)
+    results = {"fused_separable_blur2d@learned": fused,
+               "multi_level_blur@learned": mlr,
+               "patch_sample@learned": patch}
+    report(results)
+    counts = {name: a["launches"].get(name.split("@")[0], 0)
+              for name in results}
+    out = dict(config2=a, presets=b, loftr=c, xcheck=xcheck,
+               loftr_xcheck=loftr_x, part_s=part_s,
+               seconds=time.perf_counter() - t_phase)
+    print(f"learned phase: {out['seconds']:.1f} s, parts "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} }")
+    print(json.dumps({"learned": out}))
+    return dict(kernels=results, counts=counts, **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -2471,6 +2950,8 @@ def main() -> int:
     with f32_precision():
         planar = planar_phase(K, filters, dev)
     vo = vo_phase(K, filters, dev)
+    with f32_precision():
+        learned = learned_phase(K, filters, dev)
     for ph in phases.values():
         entries += [(name, r, ph["launches"]) for name, r in
                     ph["kernels"].items()]
@@ -2478,6 +2959,8 @@ def main() -> int:
                 planar["kernels"].items()]
     entries += [(name, r, vo["counts"]) for name, r in
                 vo["kernels"].items()]
+    entries += [(name, r, learned["counts"]) for name, r in
+                learned["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on its path")
@@ -2510,7 +2993,19 @@ def main() -> int:
                       "vo_ate_pct": vo["walk"]["ate_pct"],
                       "vo_track_ms": vo["walk"]["track_ms_median"],
                       "vo_stage_ms": vo["stage_ms"],
-                      "vo_idle_share": vo["idle_share"]}))
+                      "vo_idle_share": vo["idle_share"],
+                      "learned_config2_pair_ms": learned["config2"]["pair_ms"],
+                      "learned_config2_stage_ms":
+                          learned["config2"]["stage_ms"],
+                      "learned_config2_idle_share":
+                          learned["config2"]["idle_share"],
+                      "learned_preset_pair_ms": {
+                          k: v["pair_ms"]
+                          for k, v in learned["presets"].items()},
+                      "loftr_pair_ms": learned["loftr"]["pair_ms"],
+                      "loftr_peak_bytes": learned["loftr"]["peak_bytes"],
+                      "loftr_valid_matches":
+                          learned["loftr"]["valid_matches"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,31 @@
 """State carried across from the JAX package.
 
-The two-view slice has no learned weights; what must agree is the
+For the front end without learned weights, what must agree is the
 configuration and the precomputed filters (Gaussian kernels, band
 operators). ``state_from_numpy`` turns a nested dict of numpy arrays,
-exported from the JAX side, into tensors on a device; later slices (HardNet,
-AffNet) load their parameters through it.
+exported from the JAX side, into tensors on a device.
 
 The back end's state crosses as the arrays of its pytrees: an Se3 as its
 quaternion data (wxyz, kept as stored, not renormalised) and translation,
 a ``BAState``, ``BAProblem`` or ``PoseGraph`` as its fields. Index arrays
 become int64. A rendered scene crosses as its four arrays
 (``plane_scene_from_numpy``), so that both packages render the same room.
+
+The learned nets cross as their parameter dicts (``*_from_numpy``): HardNet,
+OriNet and AffNet store OIHW conv weights, as torch does; LoFTR stores its
+convs HWIO, which become OIHW.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Union
+from typing import Any, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from .feature.affnet import AffNet, OriNet
+from .feature.hardnet import HardNet
+from .feature.loftr import LoFTR, LoFTRConfig
 from .geometry.liegroup import Quaternion, Se3, So3
 from .slam.ba import BAProblem, BAState
 from .slam.posegraph import PoseGraph
@@ -27,7 +33,8 @@ from .utils.render import PlaneScene
 
 __all__ = ["state_from_numpy", "se3_from_numpy", "ba_state_from_numpy",
            "ba_problem_from_numpy", "pose_graph_from_numpy",
-           "plane_scene_from_numpy"]
+           "plane_scene_from_numpy", "hardnet_from_numpy",
+           "orinet_from_numpy", "affnet_from_numpy", "loftr_from_numpy"]
 
 Device = Union[str, torch.device]
 
@@ -93,3 +100,30 @@ def plane_scene_from_numpy(origins, edge_u, edge_v, textures,
                       _tensor(edge_u, device, torch.float32),
                       _tensor(edge_v, device, torch.float32),
                       _tensor(textures, device, torch.float32))
+
+
+def hardnet_from_numpy(params: Mapping[str, Any],
+                       device: Device = "cuda") -> HardNet:
+    """The JAX HardNet's param dict → HardNet."""
+    return HardNet(params, device)
+
+
+def orinet_from_numpy(params: Mapping[str, Any],
+                      device: Device = "cuda") -> OriNet:
+    """The JAX OriNet's param dict → OriNet."""
+    return OriNet(params, device=device)
+
+
+def affnet_from_numpy(params: Mapping[str, Any],
+                      device: Device = "cuda") -> AffNet:
+    """The JAX AffNet's param dict → AffNet."""
+    return AffNet(params, device)
+
+
+def loftr_from_numpy(params: Mapping[str, Any],
+                     cfg: Optional[LoFTRConfig] = None,
+                     device: Device = "cuda") -> LoFTR:
+    """The JAX LoFTR's param dict (4-D conv weights HWIO) → LoFTR."""
+    out = {k: np.asarray(v) for k, v in params.items()}
+    return LoFTR(cfg, {k: v.transpose(3, 2, 0, 1) if v.ndim == 4 else v
+                       for k, v in out.items()}, device=device)

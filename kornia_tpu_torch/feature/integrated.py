@@ -1,40 +1,37 @@
 """Integrated local-feature pipelines (counterpart of
-``kornia_tpu/feature/integrated.py``): detector → orientation → patch
-extraction → descriptor on padded fixed-K sets, the SIFT and GFTT presets,
-and the two-image matcher front end."""
+``kornia_tpu/feature/integrated.py``): detector → affine shape →
+orientation → patch extraction → descriptor on padded fixed-K sets, the
+SIFT, GFTT and AffNet + HardNet presets, and the two-image matcher front
+end."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
-from ..core.check import check
 from ..core.dtype import as_float
+from ..ops.color import rgb_to_grayscale
 from ..ops.pyramid import ScalePyramid
+from .affnet import LAFAffNetShapeEstimator
 from .detector import ScaleSpaceDetector
+from .hardnet import HardNet
 from .laf import extract_patches_from_pyramid, get_laf_center, scale_laf
 from .matching import DescriptorMatcher
 from .orientation import LAFOrienter
-from .responses import gftt_response
+from .responses import gftt_response, hessian_response
 from .siftdesc import SIFTDescriptor
 
 __all__ = ["LAFDescriptor", "LocalFeature", "SIFTFeature",
-           "GFTTSIFTFeature", "SIFTFeatureScaleSpace", "LocalFeatureMatcher"]
+           "GFTTSIFTFeature", "SIFTFeatureScaleSpace", "GFTTAffNetHardNet",
+           "HesAffNetHardNet", "LocalFeatureMatcher"]
 
-
-def _gray(img: torch.Tensor) -> torch.Tensor:
-    check(img.shape[1] == 1,
-          "only grayscale (B, 1, H, W) input is ported; colour waits for "
-          "ops/color.py")
-    return img
+Device = Union[str, torch.device]
 
 
 class LAFDescriptor:
-    """Extract a patch per LAF and run a patch descriptor.
-    `grayscale_descriptor` describes the grey image; input is grey (1
-    channel) until colour conversion is ported, so both settings read the
-    same patches."""
+    """Extract a patch per LAF and run a patch descriptor;
+    `grayscale_descriptor` converts a colour image to grey first."""
 
     def __init__(self, patch_descriptor=None, patch_size: int = 41,
                  grayscale_descriptor: bool = True,
@@ -46,24 +43,22 @@ class LAFDescriptor:
 
     def __call__(self, img: torch.Tensor, lafs: torch.Tensor) -> torch.Tensor:
         B, N = lafs.shape[:2]
-        patches = extract_patches_from_pyramid(_gray(img), lafs,
-                                               self.patch_size,
+        if self.grayscale and img.shape[1] == 3:
+            img = rgb_to_grayscale(img)
+        patches = extract_patches_from_pyramid(img, lafs, self.patch_size,
                                                patch_mode=self.patch_mode)
         descs = self.descriptor(patches.reshape(B * N, *patches.shape[2:]))
         return descs.reshape(B, N, -1)
 
 
 class LocalFeature:
-    """detector → orientation → description; `scale_laf_coef` scales the
-    LAFs before description. An affine shape module (`aff_module`) waits
-    for AffNet's port."""
+    """detector → affine shape (`aff_module`) → orientation → description
+    of the grey image (colour input is converted); `scale_laf_coef` scales
+    the LAFs before description."""
 
     def __init__(self, detector, descriptor: LAFDescriptor,
                  orienter: Optional[LAFOrienter] = None,
                  aff_module=None, scale_laf_coef: float = 1.0):
-        if aff_module is not None:
-            raise NotImplementedError(
-                "LocalFeature(aff_module=) is not ported yet")
         self.detector = detector
         self.descriptor = descriptor
         self.orienter = orienter
@@ -74,8 +69,12 @@ class LocalFeature:
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
         """→ (lafs, responses, descriptors, valid)."""
-        gray = _gray(as_float(img))
+        gray = as_float(img)
+        if gray.shape[1] == 3:
+            gray = rgb_to_grayscale(gray)
         lafs, resps, valid = self.detector(gray)
+        if self.aff_module is not None:
+            lafs = self.aff_module(lafs, gray)
         if self.orienter is not None:
             lafs = self.orienter(lafs, gray)
         if self.scale_laf_coef != 1.0:
@@ -129,6 +128,48 @@ class SIFTFeatureScaleSpace(LocalFeature):
         desc = SIFTDescriptor(patch_size=41, rootsift=rootsift)
         super().__init__(detector, LAFDescriptor(desc, 41),
                          None if upright else LAFOrienter(19))
+
+
+class GFTTAffNetHardNet(LocalFeature):
+    """GFTT corners over a pyramid that starts at twice the input size,
+    AffNet shapes (upright), the gradient-histogram orientation (unless
+    `upright`) and HardNet descriptors of 32² patches. `params` are
+    HardNet's, `affnet_params` AffNet's (the reference's dicts); without
+    them each net is initialised from its seeded generator."""
+
+    def __init__(self, num_features: int = 500, upright: bool = False,
+                 params: Optional[Mapping] = None,
+                 affnet_params: Optional[Mapping] = None,
+                 device: Device = "cuda"):
+        super().__init__(*_affnet_hardnet(gftt_response, num_features,
+                                          upright, params, affnet_params,
+                                          device))
+
+
+class HesAffNetHardNet(LocalFeature):
+    """GFTTAffNetHardNet's pipeline over Hessian blobs."""
+
+    def __init__(self, num_features: int = 500, upright: bool = False,
+                 params: Optional[Mapping] = None,
+                 affnet_params: Optional[Mapping] = None,
+                 device: Device = "cuda"):
+        super().__init__(*_affnet_hardnet(hessian_response, num_features,
+                                          upright, params, affnet_params,
+                                          device))
+
+
+def _affnet_hardnet(resp, num_features, upright, params, affnet_params,
+                    device):
+    """(detector, descriptor, orienter, aff_module) of the AffNet + HardNet
+    presets."""
+    detector = ScaleSpaceDetector(
+        num_features, resp=resp,
+        scale_pyr=ScalePyramid(3, 1.6, 32, double_image=True), mr_size=6.0)
+    return (detector, LAFDescriptor(HardNet(params, device), 32),
+            None if upright else LAFOrienter(19),
+            LAFAffNetShapeEstimator(affnet_params,
+                                    preserve_orientation=False,
+                                    device=device))
 
 
 class LocalFeatureMatcher:

@@ -1,7 +1,7 @@
 """Keypoint orientation (counterpart of ``kornia_tpu/feature/orientation.py``):
 the dominant gradient direction of a smoothed 36-bin histogram over the
 patch, with parabolic peak refinement and the reference's sign and offset
-conventions."""
+conventions, or a learned angle detector (OriNet) in its place."""
 
 from __future__ import annotations
 
@@ -12,12 +12,20 @@ import torch
 import torch.nn.functional as F
 
 from ..core.dtype import as_float
+from ..ops.color import rgb_to_grayscale
 from ..ops.filters import (get_gaussian_discrete_kernel1d,
                            get_gaussian_kernel2d, spatial_gradient)
 from .laf import (extract_patches_from_pyramid, get_laf_orientation,
                   set_laf_orientation)
 
-__all__ = ["patch_dominant_gradient_orientation", "LAFOrienter"]
+__all__ = ["patch_dominant_gradient_orientation", "LAFOrienter", "PassLAF"]
+
+
+class PassLAF:
+    """Identity stand-in for an orientation or affine-shape estimator."""
+
+    def __call__(self, laf: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+        return laf
 
 
 def patch_dominant_gradient_orientation(patch: torch.Tensor,
@@ -62,15 +70,12 @@ def patch_dominant_gradient_orientation(patch: torch.Tensor,
 
 class LAFOrienter:
     """Rotate LAFs by the estimated patch orientation, added to the
-    current orientation."""
+    current orientation. `angle_detector` maps (B·N, 1, PS, PS) patches to
+    radians (OriNet); without it the gradient histogram orients."""
 
     def __init__(self, patch_size: int = 32, num_angular_bins: int = 36,
                  angle_detector: Optional[Callable] = None,
                  patch_mode: Optional[str] = None):
-        if angle_detector is not None:
-            raise NotImplementedError(
-                "LAFOrienter(angle_detector=) is not ported yet: only the "
-                "gradient histogram orients")
         self.patch_size = patch_size
         self.num_angular_bins = num_angular_bins
         self.angle_detector = angle_detector
@@ -81,8 +86,14 @@ class LAFOrienter:
         patches = extract_patches_from_pyramid(img, laf, self.patch_size,
                                                patch_mode=self.patch_mode)
         patches = patches.reshape(B * N, *patches.shape[2:])
-        angles = patch_dominant_gradient_orientation(
-            patches, self.num_angular_bins).reshape(B, N)
+        if patches.shape[1] == 3:
+            patches = rgb_to_grayscale(patches)
+        if self.angle_detector is None:
+            angles = patch_dominant_gradient_orientation(
+                patches, self.num_angular_bins)
+        else:
+            angles = self.angle_detector(patches)
+        angles = angles.reshape(B, N)
         prev = get_laf_orientation(laf)[..., 0]
         return set_laf_orientation(laf,
                                    (torch.rad2deg(angles) + prev)[..., None])

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
-card's gradients against the CPU's, and the SLAM back end (which has no
-kernel of its own) on the card against the CPU port. Every test here needs a CUDA card and
-skips without one. The file imports nothing of the JAX package
+card's gradients against the CPU's, and the SLAM back end and the learned
+features (which have no kernel of their own) on the card against the CPU
+port. Every test here needs a CUDA card and skips without one. The file imports nothing of the JAX package
 (``kornia_tpu``), so it also runs where that package's own dependencies
 are missing:
 
@@ -828,3 +828,104 @@ def test_cuda_vo_pair_step_matches_cpu(cuda_device):
         torch.testing.assert_close(R, x[0], atol=1e-4, rtol=0)
         torch.testing.assert_close(t, x[1], atol=1e-3, rtol=0)
         assert abs(int(n) - int(x[3])) <= 0.02 * max(int(n), int(x[3]))
+
+
+# --- learned features and LoFTR (no kernels of their own) -----------------------
+
+def _smooth(shape, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(shape, generator=gen)
+    return t_filters.gaussian_blur2d(x, 5, 1.2).to(device)
+
+
+def _net_pair(name, device):
+    """The same seeded net on the CPU and on `device`."""
+    from kornia_tpu_torch.feature import affnet, hardnet
+    cls = {"hardnet": hardnet.HardNet, "orinet": affnet.OriNet,
+           "affnet": affnet.AffNet}[name]
+    cpu = cls(device="cpu")
+    return cpu, cls({k: v for k, v in cpu.params.items()}, device=device)
+
+
+@pytest.mark.parametrize("name", ["hardnet", "orinet", "affnet"])
+def test_cuda_learned_patch_nets_match_cpu(cuda_device, name):
+    cpu, card = _net_pair(name, cuda_device)
+    x = _smooth((256, 1, 32, 32), 7, "cpu")
+    out = card(x.to(cuda_device)).cpu()
+    ref = cpu(x)
+    if name == "orinet":  # angles: compare on the circle
+        d = torch.remainder(out - ref + np.pi, 2 * np.pi) - np.pi
+        assert float(d.abs().max()) <= 1e-5
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def test_cuda_affnet_shape_estimator_matches_cpu(cuda_device):
+    """AffNet's shapes on 32² patches sampled by the patch kernel."""
+    from kornia_tpu_torch.feature.affnet import LAFAffNetShapeEstimator
+    from kornia_tpu_torch.feature.laf import laf_from_center_scale_ori
+    gen = torch.Generator().manual_seed(8)
+    img = _smooth((1, 1, 240, 320), 9, "cpu")
+    xy = torch.rand((1, 200, 2), generator=gen) * torch.tensor([280.0,
+                                                                200.0]) + 20
+    lafs = laf_from_center_scale_ori(
+        xy, 2 + 10 * torch.rand((1, 200, 1, 1), generator=gen),
+        360 * torch.rand((1, 200, 1), generator=gen))
+    cpu = LAFAffNetShapeEstimator(device="cpu")
+    card = LAFAffNetShapeEstimator(cpu.net.params, device=cuda_device)
+    before = K.launches["patch_sample"]
+    out = card(lafs.to(cuda_device), img.to(cuda_device)).cpu()
+    assert K.launches["patch_sample"] == before + 1
+    ref = cpu(lafs, img)
+    scale = ref[..., :2].abs().max()
+    torch.testing.assert_close(out, ref, atol=1e-4 * float(scale), rtol=0)
+
+
+def test_cuda_gftt_affnet_hardnet_runs_with_grad_enabled(cuda_device):
+    """The preset on a card tensor with autograd on: the frozen weights
+    give coordinates that do not require grad, so the patch kernel (which
+    refuses inputs that do) runs for AffNet, the orienter and HardNet."""
+    from kornia_tpu_torch.feature.integrated import GFTTAffNetHardNet
+    assert torch.is_grad_enabled()
+    img = _smooth((1, 1, 240, 320), 10, cuda_device)
+    feat = GFTTAffNetHardNet(256, device=cuda_device)
+    before = K.launches["patch_sample"]
+    lafs, resps, descs, valid = feat(img)
+    assert K.launches["patch_sample"] == before + 3
+    assert descs.shape == (1, 256, 128) and int(valid.sum()) > 100
+    assert not descs.requires_grad
+    assert torch.isfinite(lafs).all() and torch.isfinite(descs).all()
+
+
+def test_cuda_loftr_matches_cpu(cuda_device):
+    """The small LoFTR on a 64x96 pair: backbone maps, tokens and the
+    confidence matrix within 1e-4 of their largest entry, the same coarse
+    matches, fine keypoints within 1e-3 px (the fine stage fed the CPU's
+    matches)."""
+    from kornia_tpu_torch.feature import loftr
+    cfg = loftr.LoFTRConfig(coarse_dim=64, fine_dim=32, num_coarse_layers=1,
+                            num_heads=4, top_k=32, border_rm=0)
+    cpu = loftr.LoFTR(cfg, device="cpu")
+    card = loftr.LoFTR(cfg, cpu.params, device=cuda_device)
+    x = _smooth((1, 1, 64, 104), 11, "cpu")
+    a, b = x[..., 8:].contiguous(), x[..., :-8].contiguous()
+    st_c = cpu.coarse_stage(a, b)
+    st_g = card.coarse_stage(a.to(cuda_device), b.to(cuda_device))
+    for k in ("c0", "f0", "c1", "f1", "t0", "t1", "conf"):
+        ref = st_c[k]
+        torch.testing.assert_close(st_g[k].cpu(), ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+    i, j, s, v = loftr._coarse_match(cfg, st_c["conf"], st_c["hw0"],
+                                     st_c["hw1"], 32)
+    kp_c = cpu.fine_stage(st_c, i, j)
+    kp_g = card.fine_stage(st_g, i.to(cuda_device), j.to(cuda_device))
+    for g, c in zip(kp_g, kp_c):
+        torch.testing.assert_close(g.cpu()[v], c[v], atol=1e-3, rtol=0)
+    pairs = lambda i, j, v: {(int(p), int(q)) for p, q, ok in  # noqa: E731
+                             zip(i[0].tolist(), j[0].tolist(), v[0].tolist())
+                             if ok}
+    i_g, j_g, _, v_g = loftr._coarse_match(cfg, st_g["conf"], st_g["hw0"],
+                                           st_g["hw1"], 32)
+    assert pairs(i_g, j_g, v_g) == pairs(i, j, v) and int(v.sum()) > 0
+    out = card({"image0": a.to(cuda_device), "image1": b.to(cuda_device)})
+    assert int(out["valid"].sum()) == int(v.sum())

@@ -245,7 +245,8 @@ def test_doubled_image_sift_matches_reference(detections):
 
 def test_presets_follow_the_reference():
     """SIFTFeature passes resp="dog" and double_image through; the GFTT
-    preset runs the GFTT response; options not ported yet raise."""
+    preset runs the GFTT response; an angle detector and an affine shape
+    module are kept and called."""
     for double in (False, True):
         f = t_int.SIFTFeature(32, True, double)
         assert f.detector.resp == "dog"
@@ -255,7 +256,19 @@ def test_presets_follow_the_reference():
     assert g.detector.resp is t_resp.gftt_response
     assert not g.detector.scale_pyr.double_image
     assert t_int.SIFTFeatureScaleSpace(32, upright=True).orienter is None
-    with pytest.raises(NotImplementedError):
-        t_int.LAFOrienter(19, 36, lambda p: p)
-    with pytest.raises(NotImplementedError):
-        t_int.LocalFeature(g.detector, g.descriptor, aff_module=object())
+    calls = []
+
+    def angle(p):
+        calls.append("angle")
+        return torch.zeros(p.shape[0])
+
+    def shape(laf, img):
+        calls.append("shape")
+        return laf
+
+    ori = t_int.LAFOrienter(19, 36, angle)
+    assert ori.angle_detector is angle
+    f = t_int.LocalFeature(g.detector, g.descriptor, ori, aff_module=shape)
+    assert f.aff_module is shape
+    f(_t(_image(3, 64, 64)))
+    assert calls == ["shape", "angle"]

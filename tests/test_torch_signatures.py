@@ -79,5 +79,14 @@ def test_the_twins_are_found():
     for name in ("ops.warp.resize", "ops.filters.spatial_gradient",
                  "feature.detector.ScaleSpaceDetector",
                  "geometry.ransac.ransac", "geometry.ransac.RANSAC",
-                 "tracking.planar_tracker.HomographyTracker"):
+                 "tracking.planar_tracker.HomographyTracker",
+                 "feature.hardnet.HardNet", "feature.affnet.AffNet",
+                 "feature.affnet.OriNet",
+                 "feature.affnet.LAFAffNetShapeEstimator",
+                 "feature.orientation.PassLAF",
+                 "feature.integrated.GFTTAffNetHardNet",
+                 "feature.integrated.HesAffNetHardNet",
+                 "feature.loftr.LoFTR", "feature.loftr.LoFTRConfig",
+                 "feature.loftr.loftr_backbone",
+                 "ops.color.rgb_to_grayscale"):
         assert name in ids
