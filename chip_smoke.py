@@ -11,7 +11,7 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    version on the same CUDA tensors at the path's shapes, and times
    kernel, plain version and (where one exists) the single PyTorch call
    that computes the same function: device time of the wrapper's calls
-   summed by torch.profiler;
+   summed by torch.profiler, with the L2 flushed before each call;
 2. drives ``two_view_pose`` on the benchmark's input (a blurred random
    480x640 image and its 4 px shift, 1024 features) on the card, with every
    launch counter reset just before and read just after, checks the pose
@@ -86,11 +86,32 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    same LAFs within 1e-4, 99% of matches equal, inlier counts within 2%),
    and LoFTR at 240x320 on both (maps, tokens and confidences within 1e-4
    of their largest entry; the fine stage fed the CPU's coarse matches,
-   keypoints within 1e-3 px). It prints one JSON line of its own.
+   keypoints within 1e-3 px). It prints one JSON line of its own;
+11. keynet_stereo: (a) ``KeyNetAffNetHardNet(2048)`` (Key.Net's published
+   width: 8 filters, 3 levels, kernel 5; the default detector config: 4
+   pyramid levels, 1 up level, NMS 15) through ``two_view_pose`` at 480x640,
+   RANSAC 256 x 32, and ``KeyNetHardNet(2048)`` through ``match_pair`` with
+   autograd on: ms per pair, stages, busy share, kernels and each kernel's
+   launches, device time and bound per pair, every kernel call captured and
+   held against its plain version on the route ROUTES lists; card vs CPU
+   at 256x256/512f (Key.Net's response, keypoints, LAFs, descriptors of the
+   same LAFs, matches). (b) stereo depth on a rendered rectified pair
+   (the room of step 9, f = 0.8 W, 0.12 m baseline) at 480x640:
+   ``undistort_image`` with a fixed Brown-Conrady distortion (timed, card
+   vs CPU), both distortion models' round trips on the pixel grid (1e-3
+   px), then ``stereo_matching`` (D = 64, window 9, soft-argmin, LR check),
+   ``disparity_to_depth``, the Q-matrix points, ``depth_to_3d``,
+   ``depth_to_normals`` and ``warp_frame_depth``: ms per stage and whole,
+   peak memory, the LR-valid share and the median disparity error against
+   the renderer's depth (the winner's within 2 px); card vs CPU at 120x160,
+   D = 16. (c) ``ImageStitcher()`` on two 480x640 views 280 px apart: ms,
+   the homography within 1 px of the true shift, the left view kept, the
+   right view's columns within 1% of the source. It prints one JSON line of
+   its own.
 
-Each of steps 2, 4, 5, 6, 8, 9 and 10 (its paths (a) and (b)) resets the
-launch counters just before it drives its path and reads them just after;
-every kernel must have launched on its path. Every failure exits non-zero.
+Each of steps 2, 4, 5, 6, 8, 9, 10 (its paths (a) and (b)) and 11 (each of
+its paths) resets the launch counters just before it drives its path and
+reads them just after; every kernel must have launched on its path. Every failure exits non-zero.
 The last lines are one JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 before printing any result.
@@ -117,6 +138,9 @@ import torch
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
 H100_TF32_FLOPS = 495e12
+# more than the H100's 50 MB L2: written before each timed call, so that
+# the call reads its inputs from HBM, as the byte bounds assume
+L2_FLUSH_BYTES = 256 * 2**20
 
 BLUR_ATOL = 1e-5   # [0, 1] images; f32 sums in another order and with FMA
 PATCH_ATOL = 1e-5  # four-tap bilinear; FMA contraction only
@@ -176,9 +200,23 @@ ROUTES = {
     ("fused_separable_blur2d", 240, 320): "tiled",
     ("fused_separable_blur2d", 120, 160): "tiled",
     ("fused_separable_blur2d", 60, 80): "tiled",
-    # SIFTFeatureScaleSpace's doubled first octave
+    # SIFTFeatureScaleSpace's doubled first octave, and its structure
+    # tensor's and first level's blurs (step 10)
     ("multi_level_blur", 960, 1280): "tiled",
+    ("fused_separable_blur2d", 960, 1280): "tiled",
 }
+# step 11, the fused blur (k = 5 reflect pyrdowns; k = 9 reflect box blurs):
+# every pyrdown source of the Key.Net detector at 480x640 (its pyramid by
+# sqrt 2, the 678x905 upscaled level, Key.Net's own pyramid by 1.2 inside
+# each level) and of the 32² patch atlas; the stitcher's atlases down to
+# 30x40; the stereo box blur (64 cost maps in one launch) at 480x640. Large
+# tiles where the grid makes two blocks per SM, small ones below: tiled at
+# every shape.
+for _hw in [(678, 905), (565, 754), (480, 640), (400, 533), (339, 452),
+            (282, 376), (240, 320), (239, 319), (199, 265), (168, 225),
+            (140, 187), (120, 160), (118, 159), (98, 132), (60, 80),
+            (30, 40)]:
+    ROUTES[("fused_separable_blur2d", *_hw)] = "tiled"
 
 
 def expected_route(name: str, h: int, w: int) -> str:
@@ -222,33 +260,64 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_flush = {}
+# the profiler's name of the flush's kernel (a fill of int16, which no timed
+# call does), left out of the timed call's sum
+FLUSH_KERNEL = "FillFunctor<short>"
+
+
+def l2_flush() -> None:
+    """Overwrite a buffer larger than the card's L2 with int16 ones. The
+    buffer stays until device_ms drops it, so that it counts in no memory
+    reading."""
+    if "buf" not in _flush:
+        _flush["buf"] = torch.empty(L2_FLUSH_BYTES // 2, dtype=torch.int16,
+                                    device="cuda")
+    _flush["buf"].fill_(1)
+
+
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of one call: the kernels' own time summed by
-    torch.profiler over `reps` calls (host overhead excluded). The
-    profiler now and then records no device event for a window; such a
-    window is taken again, and after three empty windows the call is timed
-    with CUDA events around the `reps` calls (launch gaps included), which
-    is said on a line of its own."""
+    """Device time of one call from a cold L2: the kernels' own time summed
+    by torch.profiler over `reps` calls (host overhead excluded), each call
+    after an l2_flush, whose kernel (FLUSH_KERNEL) is left out of the sum.
+    The profiler now and then records no device event, or fewer kernels
+    than the calls launched, for a window; such a window is taken again,
+    and after three such windows each call is timed with CUDA events around
+    it (launch gaps included), which is said on a line of its own."""
+    try:
+        return _device_ms(fn, reps, warmup)
+    finally:
+        _flush.pop("buf", None)
+
+
+def _device_ms(fn, reps: int, warmup: int) -> float:
     for _ in range(warmup):
         fn()
+    l2_flush()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
+                l2_flush()
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and FLUSH_KERNEL not in e.key]
+        us = sum(e.self_device_time_total for e in kern)
+        if us > 0 and sum(e.count for e in kern) >= reps:
             return us / reps / 1e3
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
+    events = []
     for _ in range(reps):
+        l2_flush()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
         fn()
-    end.record()
+        end.record()
+        events.append((start, end))
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
+    ms = sum(a.elapsed_time(b) for a, b in events) / reps
     print(f"torch.profiler recorded no device time three times: CUDA "
           f"events give {ms:.4f} ms a call")
     if not ms > 0:
@@ -2460,6 +2529,9 @@ def vo_phase(K, filters, dev) -> dict:
 LEARNED_XCHECK_RTOL = 1e-4  # card vs CPU port: LAFs, of their largest entry
 LEARNED_DESC_ATOL = 1e-4    # ... descriptors of the same LAFs (unit rows)
 LEARNED_AGREE = 0.99        # ... share of equal matches (near ties may swap)
+# Key.Net's LAFs end to end (AffNet's f32 rounding moves OriNet's angle):
+# 1.38e-4 of the largest entry on the H100 at 256x256/512f, PERF.md §6
+KEYNET_E2E_LAF_RTOL = 1e-3
 LEARNED_INLIER_RTOL = 0.02  # ... inlier counts within 2% of each other
 LOFTR_RTOL = 1e-4           # LoFTR card vs CPU: maps, tokens, confidences
 LOFTR_FINE_PX = 1e-3        # ... fine keypoints, teacher-forced
@@ -2482,15 +2554,16 @@ def config2_feature(dev, nf: int = NF):
                         LAFOrienter(19))
 
 
-def capture_launches(K, fn) -> dict:
-    """Run fn once with a spy on each front-end kernel wrapper: the cloned
-    arguments of every call, by wrapper name."""
+def capture_launches(K, fn, names=tuple(PAIR_KERNELS)) -> dict:
+    """Run fn once with a spy on each front-end kernel wrapper in `names`:
+    the cloned arguments of every call, by wrapper name."""
     from kornia_tpu_torch.feature import laf as laf_mod
     from kornia_tpu_torch.ops import pyramid as pyr_mod
-    calls = {name: [] for name in PAIR_KERNELS}
+    calls = {name: [] for name in names}
     sites = [(K, "fused_separable_blur2d"), (pyr_mod, "multi_level_blur"),
              (laf_mod, "patch_sample")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in sites
+             if name in names]
 
     def spy(name, real):
         def call(*args, **kwargs):
@@ -2512,7 +2585,8 @@ def capture_launches(K, fn) -> dict:
 def check_captured(K, calls: dict, what: str) -> dict:
     """Each captured call again through its kernel and its plain version:
     the largest difference per wrapper (fails beyond CAPTURE_TOL) and the
-    routes the blurs took."""
+    routes the blurs took; every blur's shape must be in ROUTES and take
+    the route listed there."""
     out = {}
     for name, cs in calls.items():
         if not cs:
@@ -2525,6 +2599,11 @@ def check_captured(K, calls: dict, what: str) -> dict:
             else:
                 route, got = route_of(K, name, lambda: kern(*args, **kwargs))
                 routes[route] = routes.get(route, 0) + 1
+                hw = tuple(args[0].shape[-2:])
+                if ROUTES.get((name, *hw)) != route:
+                    fail(f"{what}: {name} at {hw[0]}x{hw[1]} took the "
+                         f"{route} route, ROUTES lists "
+                         f"{ROUTES.get((name, *hw))}")
             err = max(err, (got - plain(*args, **kwargs)).abs().max().item())
         if not err <= CAPTURE_TOL[name]:
             fail(f"{what}: {name} disagrees with its plain version on the "
@@ -2537,16 +2616,16 @@ def check_captured(K, calls: dict, what: str) -> dict:
     return out
 
 
-def counted_run(K, fn, what: str) -> dict:
+def counted_run(K, fn, what: str, names=tuple(PAIR_KERNELS)) -> dict:
     """Launch counters set to 0 just before fn, read just after; every
-    front-end kernel must have launched."""
+    kernel in `names` must have launched."""
     torch.cuda.synchronize()
     K.reset_launches()
     fn()
     torch.cuda.synchronize()
     launches = dict(K.launches)
     print(f"{what} launches: {launches}")
-    for name in PAIR_KERNELS:
+    for name in names:
         if launches.get(name, 0) <= 0:
             fail(f"{what} never launched kernel {name}")
     return launches
@@ -2912,6 +2991,573 @@ def learned_phase(K, filters, dev) -> dict:
     print(json.dumps({"learned": out}))
     return dict(kernels=results, counts=counts, **out)
 
+# --- step 11: the KeyNet presets, stereo depth and the stitcher ------------
+
+KEYNET_NF = 2048
+KEYNET_KERNELS = ("fused_separable_blur2d", "patch_sample")
+STEREO_KERNELS = ("fused_separable_blur2d",)
+STEREO_D, STEREO_WIN = 64, 9
+STEREO_BASELINE = 0.12  # metres along the left camera's x axis
+STEREO_MEDIAN_PX = 2.0  # median |disparity - f b / z| over LR-valid pixels
+#                         (a sanity limit: parity is held on the CPU), of
+#                         the winner (soft=False) on the same cost volumes
+# the defaults' soft-argmin at temperature 50 is biased on the rendered room
+# (3.127 px median, LR-valid share 0.1463 on the H100, PERF.md §6): bounds
+# set from those readings, so that a change in it still fails the step
+STEREO_SOFT_MEDIAN_PX = 4.0
+STEREO_SOFT_VALID_MIN = 0.10
+STEREO_XH, STEREO_XW, STEREO_XD = 120, 160, 16  # card vs CPU
+STEREO_X_PX = 1e-4      # ... disparities, px
+STEREO_X_RTOL = 1e-4    # ... depth, normals, warp: of the largest entry
+ROUND_TRIP_PX = 1e-3    # distort / undistort round trips on the pixel grid
+UNDISTORT_ATOL = 1e-4   # undistort_image, card vs CPU ([0, 1] images)
+# a wide-angle lens (Brown-Conrady k1, k2, p1, p2, k3: 18 px at the corners
+# of 480x640 at f = 0.8 W) and a fisheye (Kannala-Brandt k1..k4)
+BROWN_CONRADY = (-0.1, 0.02, 1e-3, -5e-4, -0.005)
+KANNALA_BRANDT = (0.05, -0.02, 0.006, -0.001)
+STITCH_FULL_W, STITCH_SHIFT = 920, 280  # right view = columns 280-919
+STITCH_CORNER_PX = 1.0  # estimated H vs the true +280 px shift, corners
+STITCH_MAD = 0.01       # columns 648-911: mean |out - source| / range
+
+
+def launch_bound(name: str, args) -> float:
+    """The bound (ms) of one captured launch, at its own shapes."""
+    x = args[0]
+    if name == "patch_sample":
+        return patch_bound(x.numel(), args[1].numel())[0]
+    h, w = x.shape[-2:]
+    n = x.numel() // (h * w)
+    if name == "fused_separable_blur2d":
+        return blur_bound(h, w, n, args[1].numel() + args[2].numel())[0]
+    taps = sum(k.numel() for k in args[1]) + sum(k.numel() for k in args[2])
+    return ml_bound(h, w, n, len(args[1]), taps)[0]
+
+
+def path_kernel_times(kern, calls: dict, launches: dict, what: str) -> dict:
+    """Per ported kernel of one profiled run: its device time summed over
+    the run's CUDA kernels, its launches and the sum of each captured
+    launch's bound; fails where the captured calls and the counted launches
+    disagree."""
+    out = {}
+    for name, cs in calls.items():
+        if len(cs) != launches.get(name):
+            fail(f"{what}: {len(cs)} calls of {name} captured, "
+                 f"{launches.get(name)} launches counted")
+        ms = sum(e.self_device_time_total for e in kern
+                 if _kernel_name(e.key) in PAIR_KERNELS[name]) / 1e3
+        if not ms > 0:
+            fail(f"{what}: no device time of {name} in the profile")
+        b = sum(launch_bound(name, a) for a, _ in cs)
+        out[name] = dict(ms=ms, launches=len(cs), bound_ms=b)
+        print(f"{what} {name}: {ms:.4f} ms device in {len(cs)} launches, "
+              f"bound {b:.5f} ms")
+    return out
+
+
+def captured_entry(K, name: str, calls: list, checks: dict,
+                   replaces: str) -> dict:
+    """The kernels line's entry of a path's kernel: kernel, plain version
+    and (for patch_sample) F.grid_sample timed on the path's largest
+    captured call, its bound at that call's shapes."""
+    args, kwargs = max(calls, key=lambda c: c[0][0].numel() * (
+        c[0][1].numel() if name == "patch_sample" else 1))
+    src = {"patch_sample": "kornia_tpu_torch/csrc/patch_sample.cu"}.get(
+        name, "kornia_tpu_torch/csrc/banded_blur.cu")
+    if name == "patch_sample":
+        mode = args[3] if len(args) > 3 else kwargs.get("mode", "split")
+        d = path_patch_times(K, [args[:3]], mode)[0]
+        atlas, px, py = d.pop("inputs")
+        return dict(source=src, replaces=replaces,
+                    max_abs_err=max(checks["max_abs_err"], d["max_abs_err"]),
+                    ms=statistics.mean(d["kernel_ms"]),
+                    plain_ms=device_ms(lambda: K.patch_sample_plain(
+                        atlas, px, py, mode)),
+                    bound_ms=d["bound_ms"], bound_by=d["bound_by"],
+                    library_ms=statistics.mean(d["library_ms"]),
+                    tol=PATCH_ATOL, shape=[list(atlas.shape),
+                                           list(px.shape)])
+    kern, plain = getattr(K, name), getattr(K, name + "_plain")
+    x = args[0]
+    h, w = x.shape[-2:]
+    n = x.numel() // (h * w)
+    if name == "fused_separable_blur2d":
+        b_ms, b_by = blur_bound(h, w, n, args[1].numel() + args[2].numel())
+    else:
+        b_ms, b_by = ml_bound(h, w, n, len(args[1]),
+                              sum(k.numel() for k in args[1])
+                              + sum(k.numel() for k in args[2]))
+    return dict(source=src, replaces=replaces,
+                max_abs_err=checks["max_abs_err"],
+                ms=device_ms(lambda: kern(*args, **kwargs)),
+                plain_ms=device_ms(lambda: plain(*args, **kwargs)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL,
+                shape=list(x.shape))
+
+
+REPLACES = {"fused_separable_blur2d": "kornia_tpu/ops/pallas_kernels.py:239",
+            "multi_level_blur": "kornia_tpu/ops/pallas_kernels.py:378",
+            "patch_sample": "kornia_tpu/ops/pallas_kernels.py:539"}
+
+
+def keynet_pair(K, dev) -> dict:
+    """(a) KeyNetAffNetHardNet(2048) through two_view_pose at 480x640,
+    RANSAC 256 x 32: ms per pair, stages, device busy share, kernels a
+    pair, each kernel's device time, launches and bound a pair; every
+    kernel call of the pair captured and held against its plain version
+    on its listed route."""
+    from kornia_tpu_torch.feature.integrated import KeyNetAffNetHardNet
+    from kornia_tpu_torch.feature.matching import DescriptorMatcher
+    from kornia_tpu_torch.geometry.conversions import \
+        normalize_points_with_intrinsics
+    from kornia_tpu_torch.geometry.ransac import ransac
+    from kornia_tpu_torch.slam.twoview import two_view_pose
+    img0, img1, Kc = bench_input(H, W, dev)
+    feat = KeyNetAffNetHardNet(num_features=KEYNET_NF, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pair = lambda: two_view_pose(img0, img1, Kc, generator=gen,  # noqa: E731
+                                 num_features=KEYNET_NF, feature=feat,
+                                 device=dev)
+    launches = counted_run(K, pair, "keynet (a) KeyNetAffNetHardNet pair",
+                           KEYNET_KERNELS)
+    res = pair()
+    rot = math.degrees(angle_of_rotation(res.R))
+    print(f"keynet (a) pose (for information: untrained weights): rotation "
+          f"{rot:.4f} deg, t {res.t.reshape(-1).tolist()}, inliers "
+          f"{int(res.num_inliers)} of {int(res.inliers.numel())}")
+    pair_ms, runs = median_ms(pair)
+    print(f"keynet (a) two_view_pose 480x640/{KEYNET_NF}f: median "
+          f"{pair_ms:.2f} ms/pair, runs {[round(v, 2) for v in runs]}")
+    matcher = DescriptorMatcher("smnn", 0.95)
+    stages = {k: [] for k in ("features x2", "match", "ransac")}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l0, _, d0, v0 = feat(img0)
+        l1, _, d1, v1 = feat(img1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, idx, valid = matcher(d0[0], d1[0], v0[0], v1[0])
+        kp1 = l1[0, :, :, 2][idx[:, 1]]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        x0 = normalize_points_with_intrinsics(l0[0, :, :, 2], Kc)
+        x1 = normalize_points_with_intrinsics(kp1, Kc)
+        ransac(x0, x1, model_type="essential", inl_th=1.5 / (0.8 * W),
+               batch_size=256, max_iterations=32, mask=valid, generator=gen)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[k].append(v * 1e3)
+    stage_ms = {k: statistics.median(v) for k, v in stages.items()}
+    print(f"keynet (a) stages (median ms, host clock, synchronised): "
+          f"{ {k: round(v, 3) for k, v in stage_ms.items()} }")
+    pair()
+    busy, n_k, kern = device_profile(pair)
+    print(f"keynet (a) device busy {busy:.3f} ms of a {pair_ms:.2f} ms pair "
+          f"(idle share {1.0 - busy / pair_ms:.4f}), {n_k} kernels")
+    calls = capture_launches(K, pair, KEYNET_KERNELS)
+    per_pair = path_kernel_times(kern, calls, launches, "keynet (a) per pair")
+    checks = check_captured(K, calls, "keynet (a)")
+    return dict(launches=launches, pair_ms=pair_ms, runs_ms=runs,
+                stage_ms=stage_ms, busy_ms=busy,
+                idle_share=1.0 - busy / pair_ms, kernels_per_pair=n_k,
+                per_pair=per_pair, checks=checks, rotation_deg=rot,
+                inliers=int(res.num_inliers), calls=calls)
+
+
+def keynet_match(K, dev) -> dict:
+    """(a) KeyNetHardNet(2048) through match_pair at 480x640 with autograd
+    on: ms per pair (median of 3), busy share, kernels, launches; every
+    kernel call of the pair held against its plain version."""
+    from kornia_tpu_torch.feature.integrated import KeyNetHardNet
+    from kornia_tpu_torch.slam.twoview import match_pair
+    if not torch.is_grad_enabled():
+        fail("keynet (a) match_pair must run with autograd on")
+    img0, img1, _ = bench_input(H, W, dev)
+    feat = KeyNetHardNet(num_features=KEYNET_NF, device=dev)
+    run = lambda: match_pair(img0, img1, KEYNET_NF,  # noqa: E731
+                             feature=feat, device=dev)
+    launches = counted_run(K, run, "keynet (a) KeyNetHardNet match_pair",
+                           KEYNET_KERNELS)
+    m = run()
+    ms, runs = median_ms(run, 3)
+    busy, n_k, kern = device_profile(run)
+    n_valid = int(m["valid"].sum())
+    print(f"keynet (a) KeyNetHardNet match_pair 480x640/{KEYNET_NF}f: median "
+          f"{ms:.2f} ms/pair, runs {[round(v, 2) for v in runs]}, {n_valid} "
+          f"matches, device busy {busy:.3f} ms (idle share "
+          f"{1.0 - busy / ms:.4f}), {n_k} kernels")
+    calls = capture_launches(K, run, KEYNET_KERNELS)
+    per_pair = path_kernel_times(kern, calls, launches,
+                                 "keynet (a) match_pair")
+    return dict(launches=launches, pair_ms=ms, runs_ms=runs, busy_ms=busy,
+                idle_share=1.0 - busy / ms, kernels_per_pair=n_k,
+                matches=n_valid, per_pair=per_pair,
+                checks=check_captured(K, calls, "keynet (a) KeyNetHardNet"))
+
+
+def _by_position(lafs: torch.Tensor, valid: torch.Tensor):
+    """The valid LAFs of one image on the CPU, ordered by centre and scale:
+    near-tied scores may come out of the top-k in another order on the card
+    and on the CPU, so keypoints are compared as a set."""
+    l_ = lafs.cpu()[valid.cpu()]
+    key = torch.stack([l_[:, 0, 2], l_[:, 1, 2], l_[:, 0, 0].abs()], -1)
+    order = sorted(range(len(key)), key=lambda i: tuple(key[i].tolist()))
+    return l_[order]
+
+
+def _match_pairs(m: dict) -> set:
+    """The valid matches of image 0 as (centre in image 0, centre in image
+    1) pairs, independent of the keypoints' order."""
+    v = m["valid"][0].cpu()
+    k0, k1 = m["keypoints0"][0].cpu()[v], m["keypoints1"][0].cpu()[v]
+    return {(tuple(a.tolist()), tuple(b.tolist())) for a, b in zip(k0, k1)}
+
+
+def keynet_xcheck(dev) -> dict:
+    """KeyNetAffNetHardNet at 256x256/512f on the card and on the CPU port
+    (the same seeded weights): Key.Net's response map within 1e-4 of its
+    largest entry, the same keypoints (centres and scales, as a set), the
+    LAFs of each later stage (AffNet's shape, OriNet's orientation) within
+    1e-4 of their largest entry with the card's stage fed the CPU's input to
+    it, descriptors of the same LAFs (the CPU's) within 1e-4, 99% of the
+    CPU's matches (as centre pairs) also made on the card. End to end, an
+    f32 difference in AffNet's shape moves OriNet's angle, so the two
+    chains' LAFs are held at KEYNET_E2E_LAF_RTOL."""
+    from kornia_tpu_torch.feature.integrated import KeyNetAffNetHardNet
+    from kornia_tpu_torch.slam.twoview import match_pair
+    img0, img1, _ = bench_input(XH, XW, dev)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        feat = KeyNetAffNetHardNet(XNF, device=d)
+        a, b = img0.to(d), img1.to(d)
+        res.append(dict(feat=feat, resp=feat.detector.model(a),
+                        det=feat.detector.detect(a), full=feat(a),
+                        match=match_pair(a, b, XNF, feature=feat, device=d)))
+    g, c = res
+    resp_rel = _rel(g["resp"], c["resp"])
+    (_, gdl, gdv), (_, cdl, cdv) = g["det"], c["det"]
+    if int(gdv.sum()) != int(cdv.sum()):
+        fail("keynet xcheck: card and CPU keep other numbers of keypoints")
+    same_kp = torch.equal(_by_position(gdl[0], gdv[0]),
+                          _by_position(cdl[0], cdv[0]))
+    # the later stages, each on the card fed the CPU's input to it
+    det_g, det_c = g["feat"].detector, c["feat"].detector
+    aff_c = det_c.aff(cdl, img0.cpu())
+    ori_c = det_c.ori(aff_c, img0.cpu())
+    v = cdv[0]
+    stage_rel = {
+        "affnet": _rel(det_g.aff(cdl.to(dev), img0)[0][v], aff_c[0][v]),
+        "orinet": _rel(det_g.ori(aff_c.to(dev), img0)[0][v], ori_c[0][v])}
+    (gl, _, _, gv), (cl, _, cd, cv) = g["full"], c["full"]
+    e2e_rel = _rel(_by_position(gl[0], gv[0]), _by_position(cl[0], cv[0]))
+    forced = g["feat"].descriptor(img0, cl.to(dev))
+    forced_err = float((forced.cpu() - cd)[0][cv[0]].abs().max())
+    pg, pc = _match_pairs(g["match"]), _match_pairs(c["match"])
+    agree = len(pg & pc) / max(len(pc), 1)
+    print(f"keynet xcheck KeyNetAffNetHardNet {XH}x{XW}/{XNF}f card vs CPU: "
+          f"response {resp_rel:.2e} of the largest, {int(v.sum())} "
+          f"keypoints (the same set: {same_kp}), LAFs stage by stage "
+          f"{ {k: f'{x:.2e}' for k, x in stage_rel.items()} } of the largest "
+          f"(end to end {e2e_rel:.2e}), descriptors on the CPU's LAFs "
+          f"{forced_err:.2e}, {len(pc)} CPU matches of which {agree:.4f} also "
+          f"on the card")
+    if not resp_rel <= LEARNED_XCHECK_RTOL:
+        fail(f"keynet xcheck: responses {resp_rel} apart")
+    if not same_kp:
+        fail("keynet xcheck: card and CPU detect other keypoints")
+    if not max(stage_rel.values()) <= LEARNED_XCHECK_RTOL:
+        fail(f"keynet xcheck: LAFs {stage_rel} apart")
+    if not e2e_rel <= KEYNET_E2E_LAF_RTOL:
+        fail(f"keynet xcheck: LAFs end to end {e2e_rel} apart")
+    if not forced_err <= LEARNED_DESC_ATOL:
+        fail(f"keynet xcheck: descriptors of the same LAFs {forced_err} "
+             f"apart")
+    if not agree >= LEARNED_AGREE:
+        fail(f"keynet xcheck: matches agree {agree}")
+    return dict(resp_rel=resp_rel, keypoints=int(v.sum()),
+                stage_laf_rel=stage_rel, e2e_laf_rel=e2e_rel,
+                forced_desc_err=forced_err, matches=len(pc),
+                match_agree=agree)
+
+
+def stereo_scene(dev, h: int, w: int):
+    """The room (tex_size 512, seeded as step 9's) seen from the first pose
+    of the walk by a rectified pair STEREO_BASELINE apart along the
+    camera's x axis, f = 0.8 W: (left, right, z-depth of the left view, K,
+    the right camera's pose in the left's frame (4, 4), StereoCamera)."""
+    from kornia_tpu_torch.geometry.camera import StereoCamera
+    from kornia_tpu_torch.utils.render import (make_room_scene,
+                                               render_scene, walk_trajectory)
+    f = 0.8 * w
+    Kc = torch.tensor([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]],
+                      device=dev)
+    scene = make_room_scene(torch.Generator(dev).manual_seed(SEED + 7),
+                            tex_size=512, device=dev)
+    T_left = torch.from_numpy(walk_trajectory(100)[0]).to(dev)
+    r_from_l = torch.eye(4, device=dev)
+    r_from_l[0, 3] = -STEREO_BASELINE
+    left, z = render_scene(scene, Kc, T_left, h, w)
+    right, _ = render_scene(scene, Kc, r_from_l @ T_left, h, w)
+    P_left = torch.cat([Kc, torch.zeros(3, 1, device=dev)], 1)[None]
+    P_right = P_left.clone()
+    P_right[0, 0, 3] = -f * STEREO_BASELINE
+    return left, right, z, Kc, r_from_l, StereoCamera(P_left, P_right)
+
+
+def stereo_stages(left, right, Kc, r_from_l, cam, D: int) -> dict:
+    """The stereo path, stage by stage: disparity and LR mask, depth and the
+    Q-matrix points, camera points and normals, the right view warped into
+    the left one."""
+    from kornia_tpu_torch.contrib.stereo import (disparity_to_depth,
+                                                 stereo_matching)
+    from kornia_tpu_torch.geometry.depth import (depth_to_3d,
+                                                 depth_to_normals,
+                                                 warp_frame_depth)
+    f = float(Kc[0, 0])
+    out = {}
+    out["disparity"], out["valid"] = stereo_matching(left, right, D,
+                                                     STEREO_WIN)
+    out["depth"] = disparity_to_depth(out["disparity"], f, STEREO_BASELINE)
+    out["points_q"] = cam.reproject_disparity_to_3D(out["disparity"])
+    out["points"] = depth_to_3d(out["depth"], Kc[None])
+    out["normals"] = depth_to_normals(out["depth"], Kc[None])
+    out["warped"] = warp_frame_depth(right, out["depth"], r_from_l[None],
+                                     Kc[None])
+    return out
+
+
+def stereo_path(K, dev) -> dict:
+    """(b) Stereo depth at 480x640, D = 64, window 9, on a rendered
+    rectified pair: undistort_image alone (timed, card vs CPU), the round
+    trips of both distortion models on the pixel grid, then the stereo
+    stages (ms each and whole, peak memory, the LR-valid share, the
+    disparity error against the renderer's f b / z), the box blur's calls
+    against their plain version on their listed route."""
+    from kornia_tpu_torch.contrib.stereo import stereo_matching
+    from kornia_tpu_torch.geometry.calibration import (distort_points,
+                                                       undistort_image,
+                                                       undistort_points)
+    from kornia_tpu_torch.geometry.camera import (
+        distort_points_kannala_brandt, undistort_points_kannala_brandt)
+    left, right, z, Kc, r_from_l, cam = stereo_scene(dev, H, W)
+    f = float(Kc[0, 0])
+    # undistort_image on the left view, alone
+    dist = torch.tensor([BROWN_CONRADY], device=dev)
+    und = lambda: undistort_image(left, Kc[None], dist)  # noqa: E731
+    und_ms, _ = median_ms(und)
+    und_err = float((und().cpu() - undistort_image(
+        left.cpu(), Kc[None].cpu(), dist.cpu())).abs().max())
+    # the round trips on the 480x640 pixel grid
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(1, -1, 2)
+    bc_px = float((undistort_points(distort_points(grid, Kc[None], dist),
+                                    Kc[None], dist) - grid).abs().max())
+    kb = torch.tensor([[f, f, W / 2, H / 2, *KANNALA_BRANDT]], device=dev)
+    kb_px = float((distort_points_kannala_brandt(
+        undistort_points_kannala_brandt(grid, kb), kb) - grid).abs().max())
+    print(f"stereo undistort_image 480x640: median {und_ms:.3f} ms, card vs "
+          f"CPU {und_err:.2e}; round trips on the pixel grid: Brown-Conrady "
+          f"{bc_px:.2e} px, Kannala-Brandt {kb_px:.2e} px")
+    if not und_err <= UNDISTORT_ATOL:
+        fail(f"stereo: undistort_image card vs CPU {und_err}")
+    if not max(bc_px, kb_px) <= ROUND_TRIP_PX:
+        fail(f"stereo: round trips {bc_px}, {kb_px} px")
+
+    run = lambda: stereo_stages(left, right, Kc, r_from_l, cam,  # noqa: E731
+                                STEREO_D)
+    launches = counted_run(K, run, "stereo (b)", STEREO_KERNELS)
+    out = run()
+    # the disparity against the renderer's z-depth, over LR-valid pixels
+    gt = f * STEREO_BASELINE / z
+    valid = out["valid"][0, 0] & torch.isfinite(z)
+    share = float(out["valid"].float().mean())
+    soft_px = float((out["disparity"][0, 0] - gt).abs()[valid].median())
+    wta, wta_valid = stereo_matching(left, right, STEREO_D, STEREO_WIN,
+                                     soft=False)
+    wv = wta_valid[0, 0] & torch.isfinite(z)
+    wta_px = float((wta[0, 0] - gt).abs()[wv].median())
+    wta_share = float(wta_valid.float().mean())
+    for k, v in out.items():
+        if v.dtype != torch.bool and not torch.isfinite(v).all():
+            fail(f"stereo: non-finite {k}")
+    # ms per stage and whole (median of 5)
+    from kornia_tpu_torch.contrib.stereo import disparity_to_depth
+    from kornia_tpu_torch.geometry.depth import (depth_to_3d,
+                                                 depth_to_normals,
+                                                 warp_frame_depth)
+    d, dep = out["disparity"], out["depth"]
+    stage_fns = {
+        "stereo_matching": lambda: stereo_matching(left, right, STEREO_D,
+                                                   STEREO_WIN),
+        "depth + Q points": lambda: (disparity_to_depth(
+            d, f, STEREO_BASELINE), cam.reproject_disparity_to_3D(d)),
+        "points + normals": lambda: (depth_to_3d(dep, Kc[None]),
+                                     depth_to_normals(dep, Kc[None])),
+        "warp": lambda: warp_frame_depth(right, dep, r_from_l[None],
+                                         Kc[None]),
+    }
+    stage_ms = {k: median_ms(fn)[0] for k, fn in stage_fns.items()}
+    whole_ms, runs = median_ms(run)
+    peak = peak_bytes(run)
+    busy, n_k, kern = device_profile(run)
+    calls = capture_launches(K, run, STEREO_KERNELS)
+    per_run = path_kernel_times(kern, calls, launches, "stereo (b)")
+    checks = check_captured(K, calls, "stereo (b)")
+    print(f"stereo (b) 480x640 D={STEREO_D} window {STEREO_WIN}: median "
+          f"{whole_ms:.2f} ms, runs {[round(v, 2) for v in runs]}, stages "
+          f"{ {k: round(v, 3) for k, v in stage_ms.items()} }, peak "
+          f"{peak / 2**20:.1f} MiB, device busy {busy:.3f} ms, {n_k} "
+          f"kernels; soft-argmin (the defaults): LR-valid share {share:.4f}, "
+          f"median |d - f b / z| {soft_px:.3f} px; winner: LR-valid share "
+          f"{wta_share:.4f}, median {wta_px:.3f} px")
+    if not wta_px <= STEREO_MEDIAN_PX:
+        fail(f"stereo: the winner's median disparity error {wta_px} px")
+    if not soft_px <= STEREO_SOFT_MEDIAN_PX:
+        fail(f"stereo: the soft-argmin's median disparity error {soft_px} px")
+    if not share >= STEREO_SOFT_VALID_MIN:
+        fail(f"stereo: the soft-argmin's LR-valid share {share}")
+    return dict(launches=launches, undistort_ms=und_ms,
+                undistort_err=und_err, round_trip_px=dict(
+                    brown_conrady=bc_px, kannala_brandt=kb_px),
+                whole_ms=whole_ms, runs_ms=runs, stage_ms=stage_ms,
+                peak_bytes=peak, busy_ms=busy, kernels=n_k,
+                lr_valid_share=share, median_err_px=soft_px,
+                wta_lr_valid_share=wta_share, wta_median_err_px=wta_px,
+                per_run=per_run, checks=checks, calls=calls)
+
+
+def stereo_xcheck(dev) -> dict:
+    """The stereo path at 120x160, D = 16, on the card and on the CPU port
+    (the same rendered pair): disparities within 1e-4 px and the same
+    LR-valid mask; depth, points, normals and the warp within 1e-4 of
+    their largest entry, each stage on the card fed the CPU's disparity or
+    depth (a soft-argmin difference of 1e-5 px moves depth by f b / d²)."""
+    from kornia_tpu_torch.contrib.stereo import disparity_to_depth
+    from kornia_tpu_torch.geometry.depth import (depth_to_3d,
+                                                 depth_to_normals,
+                                                 warp_frame_depth)
+    left, right, _, Kc, r_from_l, cam = stereo_scene(dev, STEREO_XH,
+                                                     STEREO_XW)
+    g = stereo_stages(left, right, Kc, r_from_l, cam, STEREO_XD)
+    cpu = torch.device("cpu")
+    cam_c = type(cam)(cam.rectified_left_camera.cpu(),
+                      cam.rectified_right_camera.cpu())
+    c = stereo_stages(left.cpu(), right.cpu(), Kc.cpu(), r_from_l.cpu(),
+                      cam_c, STEREO_XD)
+    disp_px = float((g["disparity"].cpu() - c["disparity"]).abs().max())
+    same_valid = torch.equal(g["valid"].cpu(), c["valid"])
+    f = float(Kc[0, 0])
+    dc, depc = c["disparity"].to(dev), c["depth"].to(dev)
+    forced = dict(
+        depth=disparity_to_depth(dc, f, STEREO_BASELINE),
+        points_q=cam.reproject_disparity_to_3D(dc),
+        points=depth_to_3d(depc, Kc[None]),
+        normals=depth_to_normals(depc, Kc[None]),
+        warped=warp_frame_depth(right, depc, r_from_l[None], Kc[None]))
+    rel = {k: _rel(v, c[k]) for k, v in forced.items()}
+    print(f"stereo xcheck {STEREO_XH}x{STEREO_XW} D={STEREO_XD} card vs CPU: "
+          f"disparity {disp_px:.2e} px, LR masks equal {same_valid} "
+          f"(valid share {float(c['valid'].float().mean()):.4f}), stages on "
+          f"the CPU's input { {k: f'{x:.2e}' for k, x in rel.items()} } of "
+          f"the largest")
+    if not disp_px <= STEREO_X_PX:
+        fail(f"stereo xcheck: disparities {disp_px} px apart")
+    if not same_valid:
+        fail("stereo xcheck: other LR-valid masks")
+    if not max(rel.values()) <= STEREO_X_RTOL:
+        fail(f"stereo xcheck: stages apart by {rel}")
+    return dict(disparity_px=disp_px, rel=rel)
+
+
+def stitch_path(K, dev) -> dict:
+    """(c) ImageStitcher() on two 480x640 views cut from one 480x920 image
+    (bench.py's blurred random texture) 280 px apart: ms (median of 5),
+    launches, the estimated homography against the true shift at the
+    corners, the left view kept exactly, the right view's columns against
+    the source; every kernel call held against its plain version."""
+    from kornia_tpu_torch.contrib.image_stitching import ImageStitcher
+    from kornia_tpu_torch.ops.filters import gaussian_blur2d
+    from kornia_tpu_torch.ops.warp import transform_points
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    full = gaussian_blur2d(torch.rand((1, 1, H, STITCH_FULL_W), device=dev,
+                                      generator=gen), 3, 1.0)
+    left = full[..., :W].contiguous()
+    right = full[..., STITCH_SHIFT:STITCH_SHIFT + W].contiguous()
+    st = ImageStitcher()
+    run = lambda: st(left, right)  # noqa: E731
+    launches = counted_run(K, run, "stitch (c)")
+    Hm = st.estimate_homography(left, right)
+    corners = torch.tensor([[[0.0, 0.0], [W - 1.0, 0.0], [0.0, H - 1.0],
+                             [W - 1.0, H - 1.0]]], device=dev)
+    corner_px = float((transform_points(Hm, corners) - corners
+                       - torch.tensor([STITCH_SHIFT, 0.0], device=dev))
+                      .abs().max())
+    out = run()
+    left_kept = torch.equal(out[..., :W], left)
+    lo, hi = W + 8, STITCH_SHIFT + W - 8
+    mad = float((out[..., lo:hi] - full[..., lo:hi]).abs().mean()
+                / (full.max() - full.min()))
+    ms, runs = median_ms(run)
+    busy, n_k, kern = device_profile(run)
+    calls = capture_launches(K, run)
+    per_run = path_kernel_times(kern, calls, launches, "stitch (c)")
+    checks = check_captured(K, calls, "stitch (c)")
+    print(f"stitch (c) ImageStitcher 2 x 480x640 -> 480x1280: median "
+          f"{ms:.2f} ms, runs {[round(v, 2) for v in runs]}, device busy "
+          f"{busy:.3f} ms (idle share {1.0 - busy / ms:.4f}), {n_k} kernels; "
+          f"H at the corners {corner_px:.4f} px from the true shift, left "
+          f"view kept {left_kept}, columns {lo}-{hi - 1} mean |diff| "
+          f"{mad:.2e} of the range")
+    if not corner_px <= STITCH_CORNER_PX:
+        fail(f"stitch: H {corner_px} px from the true shift")
+    if not left_kept:
+        fail("stitch: the left view was not kept exactly")
+    if not mad <= STITCH_MAD:
+        fail(f"stitch: the right view's columns differ by {mad}")
+    return dict(launches=launches, ms=ms, runs_ms=runs, busy_ms=busy,
+                idle_share=1.0 - busy / ms, kernels=n_k,
+                corner_px=corner_px, mad_share=mad, per_run=per_run,
+                checks=checks, calls=calls)
+
+
+def keynet_stereo_phase(K, dev) -> dict:
+    """Step 11: the KeyNet presets, stereo depth and the stitcher (see the
+    module's docstring)."""
+    t_phase = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        r = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return r
+
+    a = part("keynet_pair", keynet_pair, K, dev)
+    a2 = part("keynet_match", keynet_match, K, dev)
+    ax = part("keynet_xcheck", keynet_xcheck, dev)
+    b = part("stereo", stereo_path, K, dev)
+    bx = part("stereo_xcheck", stereo_xcheck, dev)
+    c = part("stitch", stitch_path, K, dev)
+    results, counts = {}, {}
+    for path, r in (("keynet", a), ("stereo", b), ("stitch", c)):
+        for name, cs in r.pop("calls").items():
+            key = f"{name}@{path}"
+            results[key] = captured_entry(K, name, cs, r["checks"][name],
+                                          REPLACES[name])
+            counts[key] = r["launches"].get(name, 0)
+    report(results)
+    out = dict(keynet_pair=a, keynet_match=a2, keynet_xcheck=ax, stereo=b,
+               stereo_xcheck=bx, stitch=c, part_s=part_s,
+               seconds=time.perf_counter() - t_phase)
+    print(f"keynet_stereo phase: {out['seconds']:.1f} s, parts "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} }")
+    print(json.dumps({"keynet_stereo": out}))
+    return dict(kernels=results, counts=counts, **out)
+
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2952,6 +3598,8 @@ def main() -> int:
     vo = vo_phase(K, filters, dev)
     with f32_precision():
         learned = learned_phase(K, filters, dev)
+    with f32_precision():
+        keynet_stereo = keynet_stereo_phase(K, dev)
     for ph in phases.values():
         entries += [(name, r, ph["launches"]) for name, r in
                     ph["kernels"].items()]
@@ -2961,6 +3609,8 @@ def main() -> int:
                 vo["kernels"].items()]
     entries += [(name, r, learned["counts"]) for name, r in
                 learned["kernels"].items()]
+    entries += [(name, r, keynet_stereo["counts"]) for name, r in
+                keynet_stereo["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on its path")
@@ -3005,7 +3655,14 @@ def main() -> int:
                       "loftr_pair_ms": learned["loftr"]["pair_ms"],
                       "loftr_peak_bytes": learned["loftr"]["peak_bytes"],
                       "loftr_valid_matches":
-                          learned["loftr"]["valid_matches"]}))
+                          learned["loftr"]["valid_matches"],
+                      "keynet_pair_ms": keynet_stereo["keynet_pair"]["pair_ms"],
+                      "keynet_match_pair_ms":
+                          keynet_stereo["keynet_match"]["pair_ms"],
+                      "stereo_ms": keynet_stereo["stereo"]["whole_ms"],
+                      "stereo_peak_bytes":
+                          keynet_stereo["stereo"]["peak_bytes"],
+                      "stitch_ms": keynet_stereo["stitch"]["ms"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

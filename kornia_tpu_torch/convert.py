@@ -12,8 +12,8 @@ become int64. A rendered scene crosses as its four arrays
 (``plane_scene_from_numpy``), so that both packages render the same room.
 
 The learned nets cross as their parameter dicts (``*_from_numpy``): HardNet,
-OriNet and AffNet store OIHW conv weights, as torch does; LoFTR stores its
-convs HWIO, which become OIHW.
+OriNet, AffNet and KeyNet store OIHW conv weights, as torch does; LoFTR
+stores its convs HWIO, which become OIHW.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .feature.affnet import AffNet, OriNet
+from .feature.descriptors import KeyNet
 from .feature.hardnet import HardNet
 from .feature.loftr import LoFTR, LoFTRConfig
 from .geometry.liegroup import Quaternion, Se3, So3
@@ -34,7 +35,8 @@ from .utils.render import PlaneScene
 __all__ = ["state_from_numpy", "se3_from_numpy", "ba_state_from_numpy",
            "ba_problem_from_numpy", "pose_graph_from_numpy",
            "plane_scene_from_numpy", "hardnet_from_numpy",
-           "orinet_from_numpy", "affnet_from_numpy", "loftr_from_numpy"]
+           "orinet_from_numpy", "affnet_from_numpy", "keynet_from_numpy",
+           "loftr_from_numpy"]
 
 Device = Union[str, torch.device]
 
@@ -118,6 +120,15 @@ def affnet_from_numpy(params: Mapping[str, Any],
                       device: Device = "cuda") -> AffNet:
     """The JAX AffNet's param dict → AffNet."""
     return AffNet(params, device)
+
+
+def keynet_from_numpy(params: Mapping[str, Any], num_filters: int = 8,
+                      num_levels: int = 3, kernel_size: int = 5,
+                      device: Device = "cuda") -> KeyNet:
+    """The JAX KeyNet's param dict (checkpoint names, OIHW) → KeyNet."""
+    return KeyNet({k: np.asarray(v) for k, v in params.items()},
+                  num_filters=num_filters, num_levels=num_levels,
+                  kernel_size=kernel_size, device=device)
 
 
 def loftr_from_numpy(params: Mapping[str, Any],

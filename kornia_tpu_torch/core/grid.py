@@ -1,4 +1,5 @@
-"""Coordinate grids (counterpart of ``kornia_tpu/core/grid.py``)."""
+"""Coordinate grids and the pixel ↔ [-1, 1] normalisers (counterpart of
+``kornia_tpu/core/grid.py``)."""
 
 from __future__ import annotations
 
@@ -6,7 +7,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["create_meshgrid"]
+__all__ = ["create_meshgrid", "normalize_pixel_coordinates",
+           "denormalize_pixel_coordinates"]
 
 
 def create_meshgrid(height: int, width: int,
@@ -23,3 +25,23 @@ def create_meshgrid(height: int, width: int,
         ys = torch.arange(height, dtype=dtype, device=device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([gx, gy], dim=-1)[None]
+
+
+def _extent(pixel: torch.Tensor, height: int, width: int,
+            eps: float) -> torch.Tensor:
+    """(W - 1, H - 1), each at least eps."""
+    return torch.tensor([width - 1, height - 1], dtype=pixel.dtype,
+                        device=pixel.device).clamp_min(eps)
+
+
+def normalize_pixel_coordinates(pixel: torch.Tensor, height: int, width: int,
+                                eps: float = 1e-8) -> torch.Tensor:
+    """(..., 2) pixels in [0, W-1] x [0, H-1] → [-1, 1]²."""
+    return 2.0 * pixel / _extent(pixel, height, width, eps) - 1.0
+
+
+def denormalize_pixel_coordinates(coord: torch.Tensor, height: int,
+                                  width: int,
+                                  eps: float = 1e-8) -> torch.Tensor:
+    return (coord + 1.0) * _extent(coord, height, width, eps) / 2.0
+

@@ -64,6 +64,21 @@ def _frozen(value, device: Device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _register_tree(module: nn.Module, params: Mapping, device: Device
+                   ) -> None:
+    """Register each entry of a flat dict with dotted checkpoint names
+    (``a.b.0.weight``) as a frozen parameter of a submodule tree under
+    `module`, so that ``named_parameters()`` gives the names back."""
+    for name, v in params.items():
+        *path, leaf = name.split(".")
+        m = module
+        for part in path:
+            if part not in m._modules:
+                m.add_module(part, nn.Module())
+            m = m._modules[part]
+        m.register_parameter(leaf, _frozen(v, device))
+
+
 def _numpy(v) -> np.ndarray:
     """A checkpoint entry (tensor or array) as a numpy array."""
     return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)

@@ -2,7 +2,8 @@
 ``kornia_tpu/feature/integrated.py``): detector → affine shape →
 orientation → patch extraction → descriptor on padded fixed-K sets, the
 SIFT, GFTT and AffNet + HardNet presets, and the two-image matcher front
-end."""
+end; and the KeyNet presets, whose multi-resolution detector refines its
+LAFs with AffNet and OriNet before HardNet describes them."""
 
 from __future__ import annotations
 
@@ -13,18 +14,20 @@ import torch
 from ..core.dtype import as_float
 from ..ops.color import rgb_to_grayscale
 from ..ops.pyramid import ScalePyramid
-from .affnet import LAFAffNetShapeEstimator
+from .affnet import LAFAffNetShapeEstimator, OriNet
 from .detector import ScaleSpaceDetector
 from .hardnet import HardNet
 from .laf import extract_patches_from_pyramid, get_laf_center, scale_laf
 from .matching import DescriptorMatcher
+from .multires_detector import KeyNetDetector
 from .orientation import LAFOrienter
 from .responses import gftt_response, hessian_response
 from .siftdesc import SIFTDescriptor
 
 __all__ = ["LAFDescriptor", "LocalFeature", "SIFTFeature",
            "GFTTSIFTFeature", "SIFTFeatureScaleSpace", "GFTTAffNetHardNet",
-           "HesAffNetHardNet", "LocalFeatureMatcher"]
+           "HesAffNetHardNet", "KeyNetHardNet", "KeyNetAffNetHardNet",
+           "LocalFeatureMatcher"]
 
 Device = Union[str, torch.device]
 
@@ -170,6 +173,53 @@ def _affnet_hardnet(resp, num_features, upright, params, affnet_params,
             LAFAffNetShapeEstimator(affnet_params,
                                     preserve_orientation=False,
                                     device=device))
+
+
+class KeyNetHardNet(LocalFeature):
+    """The Key.Net multi-resolution detector, OriNet orientation (unless
+    `upright`) and HardNet descriptors of 32² patches. Each net takes the
+    reference's dict, or without it its seeded default."""
+
+    def __init__(self, num_features: int = 2048, upright: bool = False,
+                 scale_laf_coef: float = 1.0,
+                 keynet_params: Optional[Mapping] = None,
+                 orinet_params: Optional[Mapping] = None,
+                 hardnet_params: Optional[Mapping] = None,
+                 device: Device = "cuda"):
+        detector = KeyNetDetector(
+            keynet_params, num_features,
+            ori_module=_orinet_orienter(upright, orinet_params, device),
+            device=device)
+        super().__init__(detector,
+                         LAFDescriptor(HardNet(hardnet_params, device), 32),
+                         scale_laf_coef=scale_laf_coef)
+
+
+class KeyNetAffNetHardNet(LocalFeature):
+    """KeyNetHardNet with AffNet's affine shapes before the orientation."""
+
+    def __init__(self, num_features: int = 2048, upright: bool = False,
+                 scale_laf_coef: float = 1.0,
+                 keynet_params: Optional[Mapping] = None,
+                 orinet_params: Optional[Mapping] = None,
+                 affnet_params: Optional[Mapping] = None,
+                 hardnet_params: Optional[Mapping] = None,
+                 device: Device = "cuda"):
+        detector = KeyNetDetector(
+            keynet_params, num_features,
+            ori_module=_orinet_orienter(upright, orinet_params, device),
+            aff_module=LAFAffNetShapeEstimator(affnet_params,
+                                               preserve_orientation=False,
+                                               device=device),
+            device=device)
+        super().__init__(detector,
+                         LAFDescriptor(HardNet(hardnet_params, device), 32),
+                         scale_laf_coef=scale_laf_coef)
+
+
+def _orinet_orienter(upright, orinet_params, device):
+    return None if upright else LAFOrienter(
+        angle_detector=OriNet(orinet_params, device=device))
 
 
 class LocalFeatureMatcher:

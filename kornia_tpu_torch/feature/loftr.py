@@ -25,7 +25,7 @@ from torch import nn
 from ..core.dtype import as_float
 from ..core.linalg import f32_matmul_precision
 from ..ops.warp import resize
-from .hardnet import _frozen, _numpy, _running_bn
+from .hardnet import _numpy, _register_tree, _running_bn
 
 __all__ = ["LoFTR", "LoFTRConfig", "loftr_init_params", "load_torch_weights",
            "loftr_backbone", "position_encoding"]
@@ -391,14 +391,7 @@ class LoFTR(nn.Module):
         if missing:
             raise ValueError(
                 f"LoFTR parameters missing: {sorted(missing)[:4]}")
-        for name, v in params.items():
-            *path, leaf = name.split(".")
-            m = self
-            for part in path:
-                if part not in m._modules:
-                    m.add_module(part, nn.Module())
-                m = m._modules[part]
-            m.register_parameter(leaf, _frozen(v, device))
+        _register_tree(self, params, device)
 
     @classmethod
     def from_torch(cls, state_dict, cfg: Optional[LoFTRConfig] = None,

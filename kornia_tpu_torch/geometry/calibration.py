@@ -1,6 +1,9 @@
-"""Perspective-n-point (counterpart of the PnP part of
-``kornia_tpu/geometry/calibration.py``): the DLT, a batched RANSAC around
-it with a pose-only Gauss-Newton polish, and a Huber-IRLS pose refinement.
+"""Calibration (counterpart of ``kornia_tpu/geometry/calibration.py``):
+perspective-n-point (the DLT, a batched RANSAC around it with a pose-only
+Gauss-Newton polish, and a Huber-IRLS pose refinement), Brown-Conrady lens
+distortion of pixels in OpenCV's 14-coefficient order, its fixed-trip
+iterative inverse, image undistortion by an inverse map, and the
+Scheimpflug tilt projection.
 
 Randomness: ``pnp_ransac`` draws its minimal samples by Gumbel top-6 over
 the valid points. The noise comes from a ``torch.Generator`` or is
@@ -11,7 +14,7 @@ injected as an (S, N) tensor, so that tests can replay the reference's
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch.func import jacfwd
@@ -21,11 +24,13 @@ from ..core.dtype import as_float
 from ..core.linalg import f32_matmul_precision, lstsq_nullspace
 from ..core.sort import top_k
 from ..losses.robust import huber_weight
+from ..ops.warp import remap
 from .conversions import (normalize_points_with_intrinsics,
                           vector_to_skew_symmetric_matrix)
 from .ransac import _gumbel
 
-__all__ = ["pnp_ransac", "solve_pnp_dlt", "refine_pose_gn"]
+__all__ = ["pnp_ransac", "solve_pnp_dlt", "refine_pose_gn", "distort_points",
+           "undistort_points", "undistort_image", "tilt_projection"]
 
 
 def solve_pnp_dlt(world_points: torch.Tensor, img_points: torch.Tensor,
@@ -198,3 +203,129 @@ def refine_pose_gn(world_points: torch.Tensor, img_points: torch.Tensor,
         t = torch.where(better, tn, t)
         c = torch.where(better, cn, c)
     return R, t
+
+
+# -----------------------------------------------------------------------------
+# Brown-Conrady distortion
+# -----------------------------------------------------------------------------
+
+def _coefficients(dist: torch.Tensor, dtype) -> torch.Tensor:
+    """(..., ≤ 14) coefficients → (..., 14), the missing ones zero: k1, k2,
+    p1, p2, k3, k4, k5, k6, s1, s2, s3, s4, τx, τy."""
+    d = torch.zeros((*dist.shape[:-1], 14), dtype=dtype, device=dist.device)
+    d[..., : dist.shape[-1]] = dist.to(dtype)
+    return d
+
+
+def _intrinsics(K: torch.Tensor):
+    """(fx, fy, cx, cy) of (..., 3, 3) K, each (..., 1)."""
+    return (K[..., 0, 0][..., None], K[..., 1, 1][..., None],
+            K[..., 0, 2][..., None], K[..., 1, 2][..., None])
+
+
+def distort_points(points: torch.Tensor, K: torch.Tensor, dist: torch.Tensor,
+                   new_K: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Distort (B, N, 2) pixels: normalised by `new_K` (default K), through
+    the radial, tangential and thin-prism terms of `dist` (B, ≤ 14), back
+    to pixels by K."""
+    points = as_float(points)
+    d = _coefficients(dist, points.dtype)
+    fx, fy, cx, cy = _intrinsics(K if new_K is None else new_K)
+    x = (points[..., 0] - cx) / fx
+    y = (points[..., 1] - cy) / fy
+    k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4 = (
+        d[..., i:i + 1] for i in range(12))
+    r2 = x * x + y * y
+    rad = (1.0 + k1 * r2 + k2 * r2 ** 2 + k3 * r2 ** 3) / (
+        1.0 + k4 * r2 + k5 * r2 ** 2 + k6 * r2 ** 3)
+    xd = x * rad + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x) \
+        + s1 * r2 + s2 * r2 ** 2
+    yd = y * rad + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y \
+        + s3 * r2 + s4 * r2 ** 2
+    fxo, fyo, cxo, cyo = _intrinsics(K)
+    return torch.stack([xd * fxo + cxo, yd * fyo + cyo], dim=-1)
+
+
+def undistort_points(points: torch.Tensor, K: torch.Tensor,
+                     dist: torch.Tensor,
+                     new_K: Optional[torch.Tensor] = None,
+                     num_iters: int = 5) -> torch.Tensor:
+    """The inverse of `distort_points` by OpenCV's fixed-point iteration,
+    `num_iters` steps, back to pixels by `new_K` (default K)."""
+    points = as_float(points)
+    d = _coefficients(dist, points.dtype)
+    fx, fy, cx, cy = _intrinsics(K)
+    x0 = (points[..., 0] - cx) / fx
+    y0 = (points[..., 1] - cy) / fy
+    k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4 = (
+        d[..., i:i + 1] for i in range(12))
+    x, y = x0, y0
+    for _ in range(num_iters):
+        r2 = x * x + y * y
+        inv_rad = (1.0 + k4 * r2 + k5 * r2 ** 2 + k6 * r2 ** 3) / (
+            1.0 + k1 * r2 + k2 * r2 ** 2 + k3 * r2 ** 3)
+        dx = (2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x) + s1 * r2
+              + s2 * r2 ** 2)
+        dy = (p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y + s3 * r2
+              + s4 * r2 ** 2)
+        x, y = (x0 - dx) * inv_rad, (y0 - dy) * inv_rad
+    fxn, fyn, cxn, cyn = _intrinsics(K if new_K is None else new_K)
+    return torch.stack([x * fxn + cxn, y * fyn + cyn], dim=-1)
+
+
+def undistort_image(image: torch.Tensor, K: torch.Tensor,
+                    dist: torch.Tensor) -> torch.Tensor:
+    """Undistort (B, C, H, W) by the inverse map: each output pixel samples
+    the input where `distort_points` sends it (bilinear, zeros outside)."""
+    image = as_float(image)
+    B, _, H, W = image.shape
+    dt, dev = image.dtype, image.device
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=dt, device=dev),
+                            torch.arange(W, dtype=dt, device=dev),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], dim=-1).reshape(1, -1, 2).expand(
+        B, H * W, 2)
+    src = distort_points(grid, K, dist)
+    return remap(image, src[..., 0].reshape(B, H, W),
+                 src[..., 1].reshape(B, H, W), align_corners=True)
+
+
+def tilt_projection(taux: torch.Tensor, tauy: torch.Tensor,
+                    return_inverse: bool = False,
+                    device: Union[str, torch.device] = "cuda"):
+    """The (..., 3, 3) Scheimpflug tilt projection of sensor tilts τx, τy
+    (radians), and with `return_inverse` its inverse too; on the tilts'
+    device, or on `device` when both are numbers."""
+    given = [t for t in (taux, tauy) if isinstance(t, torch.Tensor)]
+    if given:
+        device = given[0].device
+    dtype = given[0].dtype if given else torch.float32
+    taux = torch.as_tensor(taux, dtype=dtype, device=device)
+    tauy = torch.as_tensor(tauy, dtype=dtype, device=device)
+    cx, sx = torch.cos(taux), torch.sin(taux)
+    cy, sy = torch.cos(tauy), torch.sin(tauy)
+    one, zero = torch.ones_like(cx), torch.zeros_like(cx)
+    Rx = torch.stack([torch.stack([one, zero, zero], -1),
+                      torch.stack([zero, cx, sx], -1),
+                      torch.stack([zero, -sx, cx], -1)], -2)
+    Ry = torch.stack([torch.stack([cy, zero, -sy], -1),
+                      torch.stack([zero, one, zero], -1),
+                      torch.stack([sy, zero, cy], -1)], -2)
+    R = Ry @ Rx
+    pz = R[..., 2, 2]
+    P = torch.zeros_like(R)
+    P[..., 0, 0] = pz
+    P[..., 1, 1] = pz
+    P[..., 0, 2] = -R[..., 0, 2]
+    P[..., 1, 2] = -R[..., 1, 2]
+    P[..., 2, 2] = 1.0
+    tilt = P @ R.transpose(-1, -2)
+    if not return_inverse:
+        return tilt
+    inv_P = torch.zeros_like(P)
+    inv_P[..., 0, 0] = 1.0 / pz
+    inv_P[..., 1, 1] = 1.0 / pz
+    inv_P[..., 0, 2] = R[..., 0, 2] / pz
+    inv_P[..., 1, 2] = R[..., 1, 2] / pz
+    inv_P[..., 2, 2] = 1.0
+    return tilt, R @ inv_P

@@ -20,6 +20,8 @@ from . import kernels
 
 __all__ = [
     "normalize_kernel2d",
+    "get_box_kernel1d",
+    "get_box_kernel2d",
     "get_gaussian_kernel1d",
     "get_gaussian_discrete_kernel1d",
     "get_gaussian_kernel2d",
@@ -27,6 +29,7 @@ __all__ = [
     "get_diff_kernel2d",
     "filter2d",
     "filter2d_separable",
+    "box_blur",
     "gaussian_blur2d",
     "spatial_gradient",
     "get_motion_kernel2d",
@@ -57,6 +60,21 @@ def _pad2d(x: torch.Tensor, pad: Tuple[int, int, int, int],
 
 def normalize_kernel2d(kernel: torch.Tensor) -> torch.Tensor:
     return kernel / kernel.abs().sum(dim=(-2, -1), keepdim=True)
+
+
+def get_box_kernel1d(kernel_size: int, dtype: torch.dtype = torch.float32,
+                     device: Device = None) -> torch.Tensor:
+    """(1, K) box kernel, every tap 1/K."""
+    return torch.full((1, kernel_size), 1.0 / kernel_size, dtype=dtype,
+                      device=device)
+
+
+def get_box_kernel2d(kernel_size, dtype: torch.dtype = torch.float32,
+                     device: Device = None) -> torch.Tensor:
+    """(1, Ky, Kx) box kernel, every tap 1/(Ky·Kx)."""
+    ky, kx = _pair(kernel_size)
+    return torch.full((1, ky, kx), 1.0 / (ky * kx), dtype=dtype,
+                      device=device)
 
 
 def get_gaussian_kernel1d(kernel_size: int, sigma, force_even: bool = False,
@@ -198,6 +216,19 @@ def filter2d_separable(x: torch.Tensor, kernel_x: torch.Tensor,
         return kernels.fused_separable_blur2d(x, kyf, kxf, border_type)
     out = filter2d(x, kernel_y[..., :, None], border_type, normalized)
     return filter2d(out, kernel_x[..., None, :], border_type, normalized)
+
+
+def box_blur(x: torch.Tensor, kernel_size, border_type: str = "reflect",
+             separable: bool = True) -> torch.Tensor:
+    """Mean over a (Ky, Kx) window. Separable: one banded blur launch on
+    the card for every image and channel of (B, C, H, W)."""
+    ky, kx = _pair(kernel_size)
+    if separable:
+        return filter2d_separable(x, get_box_kernel1d(kx, device=x.device),
+                                  get_box_kernel1d(ky, device=x.device),
+                                  border_type)
+    return filter2d(x, get_box_kernel2d((ky, kx), device=x.device),
+                    border_type)
 
 
 def gaussian_blur2d(x: torch.Tensor, kernel_size, sigma,

@@ -1,5 +1,5 @@
 """Dense warping (counterpart of ``kornia_tpu/ops/warp.py``, the part the
-two-view path reaches): ``grid_sample``, bilinear ``resize`` and
+ported paths reach): ``grid_sample``, ``remap``, bilinear ``resize`` and
 ``warp_perspective``.
 
 ``grid_sample`` follows ``torch.nn.functional.grid_sample``'s semantics but
@@ -22,6 +22,7 @@ from ..core.linalg import inverse_3x3
 
 __all__ = [
     "grid_sample",
+    "remap",
     "normal_transform_pixel",
     "normalize_homography",
     "transform_points",
@@ -84,6 +85,25 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor,
     top = v00 * (1 - wx) + v01 * wx
     bot = v10 * (1 - wx) + v11 * wx
     return top * (1 - wy) + bot * wy
+
+
+def remap(image: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor,
+          mode: str = "bilinear", padding_mode: str = "zeros",
+          align_corners: bool = True,
+          normalized_coordinates: bool = False) -> torch.Tensor:
+    """Sample (B, C, H, W) at per-pixel maps of x and y ((h, w) or
+    (B|1, h, w)), in pixels unless `normalized_coordinates`."""
+    image = as_float(image)
+    if map_x.ndim == 2:
+        map_x, map_y = map_x[None], map_y[None]
+    H, W = image.shape[-2:]
+    if not normalized_coordinates:
+        map_x = 2.0 * map_x / max(W - 1, 1) - 1.0
+        map_y = 2.0 * map_y / max(H - 1, 1) - 1.0
+    grid = torch.stack([map_x, map_y], dim=-1)
+    if grid.shape[0] != image.shape[0]:
+        grid = grid.expand(image.shape[0], *grid.shape[1:])
+    return grid_sample(image, grid, mode, padding_mode, align_corners)
 
 
 def normal_transform_pixel(height: int, width: int,

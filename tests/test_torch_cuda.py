@@ -929,3 +929,81 @@ def test_cuda_loftr_matches_cpu(cuda_device):
     assert pairs(i_g, j_g, v_g) == pairs(i, j, v) and int(v.sum()) > 0
     out = card({"image0": a.to(cuda_device), "image1": b.to(cuda_device)})
     assert int(out["valid"].sum()) == int(v.sum())
+
+
+# --- the KeyNet presets, stereo depth and the stitcher (step 11's shapes) ------
+
+@pytest.mark.parametrize("factor", [1.2, float(np.sqrt(2.0))])
+def test_cuda_keynet_pyrdown_matches_plain(cuda_device, factor, monkeypatch):
+    """pyrdown by Key.Net's 1.2 and the detector's sqrt 2 at the 678x905
+    upscaled level: one blur launch, the result within 1e-5 of the same
+    pyrdown through the plain blur."""
+    x = _smooth((1, 1, 678, 905), 12, cuda_device)
+    before = K.launches["fused_separable_blur2d"]
+    out = t_pyr.pyrdown(x, factor=factor)
+    assert K.launches["fused_separable_blur2d"] == before + 1
+    assert out.shape[-2:] == (int(678 / factor), int(905 / factor))
+    monkeypatch.setattr(K, "fused_separable_blur2d",
+                        K.fused_separable_blur2d_plain)
+    ref = t_pyr.pyrdown(x, factor=factor)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_stereo_box_blur_matches_plain(cuda_device):
+    """The stereo cost aggregation: a k = 9 reflect box blur of 64 cost maps
+    at 480x640 in one launch, within 1e-5 of the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.rand((1, 64, 480, 640), device=cuda_device, generator=gen)
+    before = K.launches["fused_separable_blur2d"]
+    out = t_filters.box_blur(x, 9)
+    assert K.launches["fused_separable_blur2d"] == before + 1
+    k = t_filters.get_box_kernel1d(9, device=cuda_device)
+    ref = K.fused_separable_blur2d_plain(x, k, k, "reflect")
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+
+
+def test_cuda_keynet_matches_cpu(cuda_device):
+    """Key.Net's response on the card within 1e-4 of the CPU's largest
+    entry, and the detector's keypoints equal at 96x128."""
+    from kornia_tpu_torch.feature.multires_detector import KeyNetDetector
+    cpu = KeyNetDetector(num_features=64, device="cpu")
+    card = KeyNetDetector(num_features=64, device=cuda_device)
+    x = _smooth((1, 1, 96, 128), 14, "cpu")
+    ref = cpu.model(x)
+    torch.testing.assert_close(card.model(x.to(cuda_device)).cpu(), ref,
+                               rtol=0, atol=1e-4 * float(ref.abs().max()))
+    (sc, lc, vc), (sg, lg, vg) = cpu.detect(x), card.detect(
+        x.to(cuda_device))
+    assert torch.equal(vg.cpu(), vc) and int(vc.sum()) > 32
+    assert torch.equal(lg.cpu()[vc][..., 2], lc[vc][..., 2])
+
+
+def test_cuda_stereo_matching_matches_cpu(cuda_device):
+    """stereo_matching (soft, LR check) at 48x64, D = 16: disparities within
+    1e-4 px and the same LR-valid mask on the card and on the CPU."""
+    from kornia_tpu_torch.contrib.stereo import stereo_matching
+    x = _smooth((1, 1, 48, 80), 15, "cpu")
+    left, right = x[..., 8:72].contiguous(), x[..., 5:69].contiguous()
+    dc, vc = stereo_matching(left, right, 16)
+    dg, vg = stereo_matching(left.to(cuda_device), right.to(cuda_device), 16)
+    torch.testing.assert_close(dg.cpu(), dc, atol=1e-4, rtol=0)
+    assert torch.equal(vg.cpu(), vc)
+
+
+def test_cuda_camera_from_numbers_defaults_to_the_card(cuda_device):
+    """A PinholeCamera and a tilt projection built from plain numbers lie on
+    the card by default, and agree with the CPU's."""
+    from kornia_tpu_torch.geometry.calibration import tilt_projection
+    from kornia_tpu_torch.geometry.camera import PinholeCamera
+    args = (500.0, 510.0, 320.0, 240.0, 480, 640, 0.1, None, 0.5)
+    card = PinholeCamera.from_parameters(*args)
+    cpu = PinholeCamera.from_parameters(*args, device="cpu")
+    for f in ("intrinsics", "extrinsics", "height", "width"):
+        assert getattr(card, f).device.type == "cuda"
+        torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f),
+                                   atol=0, rtol=0)
+    tilt = tilt_projection(0.04, -0.02)
+    assert tilt.device.type == "cuda"
+    torch.testing.assert_close(tilt.cpu(),
+                               tilt_projection(0.04, -0.02, device="cpu"),
+                               atol=1e-6, rtol=0)

@@ -75,7 +75,7 @@ def test_the_twins_are_found():
     """The walk reaches every ported module with a twin, this slice's
     included."""
     ids = {p.id for p in _twins()}
-    assert len(ids) >= 160
+    assert len(ids) >= 260
     for name in ("ops.warp.resize", "ops.filters.spatial_gradient",
                  "feature.detector.ScaleSpaceDetector",
                  "geometry.ransac.ransac", "geometry.ransac.RANSAC",
@@ -88,5 +88,20 @@ def test_the_twins_are_found():
                  "feature.integrated.HesAffNetHardNet",
                  "feature.loftr.LoFTR", "feature.loftr.LoFTRConfig",
                  "feature.loftr.loftr_backbone",
-                 "ops.color.rgb_to_grayscale"):
+                 "ops.color.rgb_to_grayscale",
+                 "feature.descriptors.KeyNet",
+                 "feature.multires_detector.MultiResolutionDetector",
+                 "feature.multires_detector.KeyNetDetector",
+                 "feature.integrated.KeyNetHardNet",
+                 "feature.integrated.KeyNetAffNetHardNet",
+                 "geometry.camera.PinholeCamera",
+                 "geometry.camera.StereoCamera",
+                 "geometry.camera.undistort_points_kannala_brandt",
+                 "geometry.calibration.undistort_image",
+                 "geometry.depth.warp_frame_depth",
+                 "geometry.depth.DepthWarper", "ops.warp.remap",
+                 "ops.filters.box_blur",
+                 "core.grid.normalize_pixel_coordinates",
+                 "contrib.stereo.stereo_matching",
+                 "contrib.image_stitching.ImageStitcher"):
         assert name in ids
