@@ -107,7 +107,29 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    D = 16. (c) ``ImageStitcher()`` on two 480x640 views 280 px apart: ms,
    the homography within 1 px of the true shift, the left view kept, the
    right view's columns within 1% of the source. It prints one JSON line of
-   its own.
+   its own;
+12. distributed: the communication runtime (``kornia_tpu_torch.parallel``,
+   BASELINE config 5) over SPMD ranks: one NCCL rank in this process, and
+   2 and 4 gloo ranks sharing the card (``spmd.spawn``; NCCL refuses two
+   ranks on one card, so one card shows equivalence, not scaling). Each row
+   reports the backend, the world size, ms per LM iteration (per forward for
+   LoFTR) and iterations/s, the bytes all-reduced per iteration, the share
+   of a call spent inside collectives, and every rank's peak memory: (a)
+   dense distributed BA at benchmarks/scaling_bench.py:39-80's protocol (C
+   = 8, 64 points a rank, 6 iterations) at D = 1, 2, 4, its costs falling,
+   D = 4's RMS within 0.05 px of the single-device call's, every rank's
+   state bitwise rank 0's; (b) sparse distributed BA at 100 / 20,000 /
+   120,000 (point_chunk 512, λ 0.1, 3 iterations) at D = 1 and 4, costs
+   falling, the first reduced camera systems within 1e-4 of the largest
+   entry; (c) at D = 4 the dense and streaming pose graphs on a 256-pose
+   circuit (agreeing with each other and with ``optimize_pose_graph``:
+   translations 1e-3, |q·q'| 1e-5 of 1) and the streaming one on a
+   2,048-pose circuit, which the dense path must refuse; (d) LoFTR's
+   context-parallel coarse stage at 4,800 tokens (``LoFTRConfig()``) at D =
+   1 and 4 within 1e-4 of ``_transformer``; (e) ``run_restartable`` over 6
+   dense-BA LM steps stopped at step 5 and resumed from ``step_4``, within
+   1e-5 of an uninterrupted run, and a bitwise checkpoint round trip. It
+   prints one JSON line of its own.
 
 Each of steps 2, 4, 5, 6, 8, 9, 10 (its paths (a) and (b)) and 11 (each of
 its paths) resets the launch counters just before it drives its path and
@@ -1302,11 +1324,13 @@ def bench_ba_arrays():
                       uv=uv.astype(np.float32), valid=np.ones(O, bool), K=K)
 
 
-def sfm_scale_arrays():
+def sfm_scale_arrays(min_depth: float = 0.0):
     """__graft_entry__.py:119-146's SfM-scale problem with numpy draws in
     place of jax.random: 100 cameras on a 0.6 rad arc, 20,000 points, each
     seen by T = 6 consecutive cameras (120,000 observations), 0.2 px noise,
-    poses perturbed by 0.02 rad / 0.05 and points by 0.1."""
+    poses perturbed by 0.02 rad / 0.05 and points by 0.1. With `min_depth`
+    a point that lies closer than that in front of a camera observing it
+    (or behind it) is drawn again from the same distribution."""
     from kornia_tpu_torch.geometry.liegroup import Se3
     from kornia_tpu_torch.slam.ba import _project
     C, P, T = 100, 20000, 6
@@ -1322,6 +1346,15 @@ def sfm_scale_arrays():
     start = rng.integers(0, C - T, P)
     cam_idx = (start[:, None] + np.arange(T)[None]).reshape(-1)
     pt_idx = np.repeat(np.arange(P), T)
+    R, t = poses.r.matrix().numpy(), poses.t.numpy()
+    while min_depth:
+        depth = (np.einsum("oj,oj->o", R[cam_idx][:, 2], X[pt_idx])
+                 + t[cam_idx, 2])
+        bad = np.unique(pt_idx[depth < min_depth])
+        if not bad.size:
+            break
+        X[bad] = (rng.standard_normal((bad.size, 3)) * 1.5
+                  + np.array([0.0, 0, 6.0])).astype(np.float32)
     ci, pi = torch.from_numpy(cam_idx), torch.from_numpy(pt_idx)
     uv = _project(poses.r.q.data[ci], poses.t[ci], torch.from_numpy(X)[pi],
                   torch.from_numpy(K)).numpy()
@@ -1519,11 +1552,13 @@ def backend_sparse_ba(dev, dense: dict) -> dict:
     return out
 
 
-def ring_arrays(N: int):
-    """__graft_entry__.py:166-185's pose graph with numpy draws in place of
-    jax.random: N poses on a circle of radius 8, the odometry chain and
-    the loop edges among 400 random pairs more than N/8 apart, measured
-    exactly; initial poses perturbed by exp(0.03 · normal) (pose 0 kept)."""
+def ring_arrays(N: int, n_extra: int = 400):
+    """__graft_entry__.py:166-185's pose graph (and
+    benchmarks/scaling_bench.py::_make_circuit_graph's) with numpy draws in
+    place of jax.random: N poses on a circle of radius 8, the odometry chain
+    and the loop edges among `n_extra` random pairs more than N/8 apart,
+    measured exactly; initial poses perturbed by exp(0.03 · normal) (pose 0
+    kept)."""
     from kornia_tpu_torch.geometry.liegroup import Se3, So3, _matvec
     ang = np.linspace(0, 2 * np.pi, N, endpoint=False)
     t_gt = np.stack([np.cos(ang) * 8, np.sin(ang) * 8, np.zeros(N)], -1)
@@ -1531,7 +1566,7 @@ def ring_arrays(N: int):
                      np.zeros(N), np.sin((ang + np.pi / 2) / 2)], -1)
     gt = Se3(So3.from_wxyz(torch.from_numpy(q_gt).float()),
              torch.from_numpy(t_gt).float())
-    extra = np.random.default_rng(0).integers(0, N, size=(400, 2))
+    extra = np.random.default_rng(0).integers(0, N, size=(n_extra, 2))
     extra = extra[np.abs(extra[:, 0] - extra[:, 1]) > N // 8]
     src = np.concatenate([np.arange(N - 1), extra[:, 0]])
     dst = np.concatenate([np.arange(1, N), extra[:, 1]])
@@ -3559,6 +3594,492 @@ def keynet_stereo_phase(K, dev) -> dict:
 
 
 
+# --- step 12: the communication runtime ------------------------------------------
+
+DIST_BA_C, DIST_BA_PTS, DIST_BA_ITERS = 8, 64, 6  # scaling_bench.py:39-80
+DIST_SPARSE_ITERS, DIST_SPARSE_CHUNK = 3, 512    # scaling_bench.py:82-132
+DIST_PG_SMALL, DIST_PG_LARGE = (256, 64), (2048, 400)  # scaling_bench.py:208
+# the JAX package's own dense and streaming paths end 1.50e-3 apart (in
+# translation) on the small circuit after 12 iterations, 1.55e-4 after 20
+DIST_PG_ITERS, DIST_PG_LARGE_ITERS = 20, 4
+DIST_SHARE_ITERS = 4      # iterations of the call timed collective by one
+DIST_RMS_ATOL = 0.05      # D = 4 vs single-device BA, tests/test_slam.py:110
+DIST_SYSTEM_RTOL = 1e-4   # reduced camera systems D = 4 vs D = 1, of the
+#                           largest entry
+DIST_PG_T_ATOL = 1e-3     # pose graphs: translations, tests/test_dist_
+DIST_PG_DOT_ATOL = 1e-5   # posegraph.py:82-98; |q·q'| within this of 1
+DIST_LOFTR_RTOL = 1e-4    # coarse tokens vs _transformer, of the largest
+DIST_RESTART_ATOL = 1e-5  # resumed vs uninterrupted run
+DIST_RESTART_STEPS, DIST_RESTART_STOP = 6, 5
+# a cost falls when its last value lies this far below the first (relative):
+# far above the rounding of the sums, so that a run whose every step is
+# rejected does not pass
+DIST_FALL_RTOL = 1e-3
+# (b)'s points lie at least this deep in front of every camera that sees
+# them: sfm_scale_arrays' plain draws put 19 observations closer than 0.5
+# (one point behind its camera, 1.1e6 px residuals, 5.6e6 of the 9.4e6
+# initial cost), where LM rejects every step on one device and on four
+DIST_MIN_DEPTH = 1.0
+
+
+class RestartStop(Exception):
+    """Raised by step 12's restart check to stop a run at a chosen step."""
+
+
+def dist_ba_arrays(D: int) -> dict:
+    """scaling_bench.py:39-80's problem for D ranks with numpy draws: C = 8
+    cameras on a 0.6 rad arc, 64 points a rank, every camera sees every
+    point, 0.3 px noise; poses perturbed by 0.02 rad / 0.05, points by 0.1.
+    Point ids are local to each rank's block (``pt_idx``) and global
+    (``pt_global``)."""
+    from kornia_tpu_torch.geometry.liegroup import Se3
+    from kornia_tpu_torch.slam.ba import _project
+    C, Pl = DIST_BA_C, DIST_BA_PTS
+    P = D * Pl
+    rng = np.random.default_rng(0)
+    z = torch.zeros(C)
+    poses = Se3.exp(torch.stack([z, z, z, z, torch.linspace(-0.3, 0.3, C),
+                                 z], -1))
+    poses = Se3(poses.r, poses.t + torch.stack(
+        [torch.linspace(-1, 1, C), z, z], -1))
+    X = (rng.standard_normal((P, 3)) * 1.5 + [0.0, 0, 6.0]).astype(
+        np.float32)
+    K = np.array([[200.0, 0, 128], [0, 200, 96], [0, 0, 1]], np.float32)
+    cam_idx = np.concatenate([np.repeat(np.arange(C), Pl)] * D)
+    pt_local = np.concatenate([np.tile(np.arange(Pl), C)] * D)
+    pt_global = np.concatenate([np.tile(np.arange(Pl), C) + s * Pl
+                                for s in range(D)])
+    ci, pi = torch.from_numpy(cam_idx), torch.from_numpy(pt_global)
+    uv = _project(poses.r.q.data[ci], poses.t[ci], torch.from_numpy(X)[pi],
+                  torch.from_numpy(K)).numpy()
+    uv = (uv + 0.3 * rng.standard_normal(uv.shape)).astype(np.float32)
+    r0 = Se3.exp(torch.from_numpy(
+        0.02 * rng.standard_normal((C, 6))).float()).r * poses.r
+    t0 = poses.t.numpy() + 0.05 * rng.standard_normal((C, 3))
+    X0 = X + 0.1 * rng.standard_normal((P, 3))
+    return dict(wxyz=r0.q.data.numpy(), t=t0.astype(np.float32),
+                points=X0.astype(np.float32), cam_idx=cam_idx,
+                pt_idx=pt_local, pt_global=pt_global, uv=uv,
+                valid=np.ones(cam_idx.shape[0], bool), K=K, C=C)
+
+
+def _dist_args(a: dict, dev, keys=("cam_idx", "pt_idx", "uv", "valid", "K")):
+    return [torch.from_numpy(np.ascontiguousarray(a[k])).to(dev)
+            for k in keys]
+
+
+def _ranks_agree(mesh, *tensors) -> bool:
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])[None]
+    every = mesh.all_gather(flat)
+    return bool((every == every[:1]).all())
+
+
+def dist_row(mesh, what: str, run, iters: int) -> dict:
+    """One row of step 12: `run(n)` (an entry point's whole call of n LM
+    iterations or forwards) warmed with n = 1, then timed with n = `iters`
+    on the host clock between synchronised barriers; the bytes all-reduced
+    per iteration; the share of a second call (n = DIST_SHARE_ITERS at
+    most) spent inside collectives, each one timed between
+    synchronisations; every rank's peak memory in that call."""
+    import torch.distributed as dist
+    run(1)
+    mesh.reset_counts()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(mesh.counts)
+    mesh.reset_counts()
+    mesh.timed = True
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    share_iters = min(iters, DIST_SHARE_ITERS)
+    t0 = time.perf_counter()
+    run(share_iters)
+    torch.cuda.synchronize()
+    timed_wall = time.perf_counter() - t0
+    mesh.timed = False
+    peaks = mesh.all_gather(torch.tensor(
+        [float(torch.cuda.max_memory_allocated())], device=mesh.device))
+    row = dict(what=what, backend=dist.get_backend(),
+               world=mesh.shape["data"], iters=iters,
+               ms_per_iter=wall * 1e3 / iters, iters_per_s=iters / wall,
+               all_reduces_per_iter=counts["all_reduce"] / iters,
+               all_reduce_bytes_per_iter=counts["all_reduce_bytes"] / iters,
+               all_gathers=counts["all_gather"],
+               collective_share=mesh.counts["seconds"] / timed_wall,
+               timed_ms_per_iter=timed_wall * 1e3 / share_iters,
+               peak_bytes_per_rank=[int(v) for v in peaks.tolist()])
+    return row, out
+
+
+def dist_restart(mesh, a: dict) -> dict:
+    """(e): run_restartable over dense distributed BA LM steps (state and λ
+    checkpointed every 2): an uninterrupted run, a run stopped by
+    RestartStop at step 5 and resumed from step_4; a checkpoint's round
+    trip."""
+    import tempfile
+
+    from kornia_tpu_torch import convert
+    from kornia_tpu_torch.losses.robust import huber_weight
+    from kornia_tpu_torch.parallel import dist_ba
+    from kornia_tpu_torch.utils.checkpoint import load_checkpoint
+    from kornia_tpu_torch.utils.elastic import (latest_checkpoint,
+                                                run_restartable)
+    dev = mesh.device
+    args = _dist_args(a, dev)
+    P_local = a["points"].shape[0] // mesh.shape["data"]
+
+    def step(s):
+        st_l, prob_l = dist_ba._dense_blocks(mesh, s["state"], *args)
+        system, cost_of = dist_ba._dense_step_fns(
+            mesh, prob_l, a["C"], P_local, lambda r2: huber_weight(r2, 3.0),
+            True)
+        st_l, lam, cost = dist_ba._lm_iteration(mesh, st_l, s["lam"], system,
+                                                cost_of, True)
+        return {"state": dist_ba._gather_state(mesh, st_l), "lam": lam,
+                "cost": cost}
+
+    init = {"state": convert.ba_state_from_numpy(a["wxyz"], a["t"],
+                                                 a["points"], dev),
+            "lam": torch.tensor(1e-3, device=dev),
+            "cost": torch.tensor(0.0, device=dev)}
+    calls = []
+
+    def stopping(s):
+        calls.append(1)
+        if len(calls) == DIST_RESTART_STOP:
+            raise RestartStop(DIST_RESTART_STOP)
+        return step(s)
+
+    # index_add_'s atomics sum in another order in each run, and the free
+    # scale gauge amplifies that to 5e-2 in translation after 6 steps (on
+    # an H100): two runs are compared under PyTorch's deterministic
+    # algorithms
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with tempfile.TemporaryDirectory(prefix="restart-") as root:
+        whole = run_restartable(step, init, DIST_RESTART_STEPS,
+                                os.path.join(root, "a"), checkpoint_every=2)
+        stopped = None
+        try:
+            run_restartable(stopping, init, DIST_RESTART_STEPS,
+                            os.path.join(root, "b"), checkpoint_every=2)
+        except RestartStop as e:
+            stopped = e.args[0]
+        newest = latest_checkpoint(os.path.join(root, "b"))[0]
+        calls.clear()
+        resumed = run_restartable(stopping, init, DIST_RESTART_STEPS,
+                                  os.path.join(root, "b"),
+                                  checkpoint_every=2)
+        last = os.path.join(root, "a", f"step_{DIST_RESTART_STEPS}")
+        back = load_checkpoint(last, device=dev)
+        typed = load_checkpoint(last, init)
+    torch.use_deterministic_algorithms(deterministic)
+
+    def leaves(s):
+        st = s["state"]
+        return [st.poses.r.q.data, st.poses.t, st.points, s["lam"], s["cost"]]
+
+    diff = max(float((x - y).abs().max())
+               for x, y in zip(leaves(resumed), leaves(whole)))
+    bitwise = all(torch.equal(x, y) and x.device == y.device
+                  for b in (back, typed)
+                  for x, y in zip(leaves(b), leaves(whole)))
+    return dict(stopped_at=stopped, resumed_from=newest,
+                resumed_steps=len(calls), max_abs_diff=diff,
+                round_trip_bitwise=bitwise)
+
+
+def dist_world(mesh, plan: dict) -> dict:
+    """The rows of step 12 that this world runs; rank 0's results."""
+    from kornia_tpu_torch import convert
+    from kornia_tpu_torch.core.linalg import f32_precision
+    from kornia_tpu_torch.feature import loftr as t_loftr
+    from kornia_tpu_torch.losses.robust import huber_weight
+    from kornia_tpu_torch.parallel import dist_ba, dist_posegraph as dpg
+    dev = mesh.device
+    out = {"rows": [], "jax_imported": "jax" in sys.modules}
+    if "ba" in plan:
+        a = plan["ba"]
+        s0 = convert.ba_state_from_numpy(a["wxyz"], a["t"], a["points"], dev)
+        args = _dist_args(a, dev)
+        row, (st, costs) = dist_row(
+            mesh, "dense_ba", lambda n: dist_ba.distributed_bundle_adjust(
+                mesh, s0, *args, a["C"], num_iters=n), DIST_BA_ITERS)
+        row.update(costs=costs.tolist(), ranks_agree=_ranks_agree(
+            mesh, st.poses.r.q.data, st.poses.t, st.points, costs))
+        out["rows"].append(row)
+        out["ba_state"] = dict(wxyz=st.poses.r.q.data.cpu().numpy(),
+                               t=st.poses.t.cpu().numpy(),
+                               points=st.points.cpu().numpy())
+    if "sparse" in plan:
+        a, tables = plan["sparse"]
+        s0 = convert.ba_state_from_numpy(a["wxyz"], a["t"], a["points"], dev)
+        cams, uv_t, mask = (torch.from_numpy(x).to(dev) for x in tables)
+        K = torch.from_numpy(a["K"]).to(dev)
+        row, (st, costs) = dist_row(
+            mesh, "sparse_ba",
+            lambda n: dist_ba.distributed_bundle_adjust_sparse(
+                mesh, s0, cams, uv_t, mask, K, a["C"], num_iters=n,
+                init_lambda=0.1, point_chunk=DIST_SPARSE_CHUNK),
+            DIST_SPARSE_ITERS)
+        row.update(costs=costs.tolist(), ranks_agree=_ranks_agree(
+            mesh, st.poses.r.q.data, st.poses.t, st.points, costs))
+        out["rows"].append(row)
+        # the first iteration's summed reduced camera system
+        with f32_precision():
+            st_l, prob_l = dist_ba._sparse_blocks(mesh, s0, cams, uv_t, mask,
+                                                  K)
+            S, rhs, _, _ = dist_ba._sparse_system(
+                mesh, st_l, prob_l, torch.full((), 0.1, device=dev), a["C"],
+                lambda r2: huber_weight(r2, 3.0),
+                min(DIST_SPARSE_CHUNK, st_l.points.shape[0]), True)
+        out["sparse_system"] = S.cpu().numpy()
+    if "pg" in plan:
+        for name, (g, part) in plan["pg"].items():
+            poses, graph = pose_graph_on(g, dev)
+            paths = (("streaming",) if name == "large"
+                     else ("dense", "streaming"))
+            if name == "large":
+                try:
+                    dpg.distributed_pose_graph(mesh, poses, graph, part,
+                                               num_iters=1)
+                    out["large_dense_refused"] = None
+                except ValueError as e:
+                    if "max_separators" not in str(e):
+                        raise
+                    out["large_dense_refused"] = str(e).split(";")[0]
+            iters = DIST_PG_LARGE_ITERS if name == "large" else DIST_PG_ITERS
+            for path in paths:
+                fn = (dpg.distributed_pose_graph if path == "dense"
+                      else dpg.distributed_pose_graph_streaming)
+                row, (p, costs) = dist_row(
+                    mesh, f"pose_graph_{name}_{path}",
+                    lambda n: fn(mesh, poses, graph, part, num_iters=n),
+                    iters)
+                row.update(costs=costs.tolist(),
+                           separators=int(part.num_separators),
+                           ranks_agree=_ranks_agree(mesh, p.r.q.data, p.t,
+                                                    costs))
+                out["rows"].append(row)
+                out[f"pg_{name}_{path}"] = dict(wxyz=p.r.q.data.cpu().numpy(),
+                                                t=p.t.cpu().numpy())
+    if "loftr" in plan:
+        params, f0, f1 = plan["loftr"]
+        p = {k: v.to(dev) for k, v in params.items()}
+        t0, t1 = f0.to(dev), f1.to(dev)
+        cfg = t_loftr.LoFTRConfig()
+        with torch.no_grad():
+            row, (o0, o1) = dist_row(
+                mesh, "loftr_coarse_cp",
+                lambda n: t_loftr.loftr_coarse_context_parallel(
+                    p, cfg, t0, t1, mesh), 1)
+        row.update(tokens=int(f0.shape[1]),
+                   ranks_agree=_ranks_agree(mesh, o0, o1))
+        out["rows"].append(row)
+        out["loftr"] = (o0.cpu(), o1.cpu())
+    if "restart" in plan:
+        out["restart"] = dist_restart(mesh, plan["restart"])
+    return out
+
+
+def _falling_costs(costs, cost0: float) -> bool:
+    """Finite, never rising by more than PG_COST_ATOL of the first (the
+    rounding floor of a converged pose graph), and ending DIST_FALL_RTOL
+    below `cost0`."""
+    c = np.asarray(costs)
+    return bool(np.isfinite(c).all()
+                and np.all(np.diff(c) <= PG_COST_ATOL * c[0])
+                and c[-1] < (1.0 - DIST_FALL_RTOL) * cost0)
+
+
+def distributed_phase(dev, card: str) -> dict:
+    """Step 12: the communication runtime (BASELINE config 5's distributed
+    BA and pose graphs, LoFTR's context-parallel coarse stage, restarts)
+    over one NCCL rank in this process and 2 and 4 gloo ranks sharing the
+    card; every result against its single-device call. One JSON line."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from kornia_tpu_torch.feature import loftr as t_loftr
+    from kornia_tpu_torch.parallel import spmd
+    from kornia_tpu_torch.parallel.dist_ba import build_sharded_point_tables
+    from kornia_tpu_torch.parallel.dist_posegraph import partition_pose_graph
+    from kornia_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from kornia_tpu_torch.slam.ba import _cost, _robust_kernels, bundle_adjust
+    from kornia_tpu_torch.slam.posegraph import optimize_pose_graph
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # (b) SfM scale, (c) the circuits, (d) 480x640 / 8 = 60 x 80 tokens
+    C, P, T, sparse = sfm_scale_arrays(DIST_MIN_DEPTH)
+    tables = build_sharded_point_tables(sparse["cam_idx"], sparse["pt_idx"],
+                                        sparse["uv"], sparse["valid"], P, T)
+    sparse["C"] = C
+    graphs = {"small": ring_arrays(*DIST_PG_SMALL),
+              "large": ring_arrays(*DIST_PG_LARGE)}
+    parts = {k: partition_pose_graph(g["src"], g["dst"], g["valid"],
+                                     g["t"].shape[0], 4)
+             for k, g in graphs.items()}
+    cfg = t_loftr.LoFTRConfig()
+    params = {k: v for k, v in t_loftr.loftr_init_params(
+        torch.Generator().manual_seed(SEED), cfg).items()
+        if k.startswith("loftr_coarse.")}
+    gen = torch.Generator().manual_seed(SEED)
+    f0, f1 = (0.5 * torch.randn((2, 1, 60 * 80, cfg.coarse_dim),
+                                generator=gen))
+    ba = {D: dist_ba_arrays(D) for D in (1, 2, 4)}
+    plans = {
+        ("nccl", 1): dict(ba=ba[1], sparse=(sparse, tables),
+                          loftr=(params, f0, f1), restart=ba[1]),
+        ("gloo", 2): dict(ba=ba[2]),
+        ("gloo", 4): dict(ba=ba[4], sparse=(sparse, tables),
+                          pg={k: (graphs[k], parts[k]) for k in graphs},
+                          loftr=(params, f0, f1)),
+    }
+    worlds, world_s = {}, {}
+    for (backend, D), plan in plans.items():
+        t0 = time.perf_counter()
+        if D == 1:
+            # one NCCL rank in this process: NCCL's collectives run
+            with tempfile.TemporaryDirectory(prefix="nccl1-") as d:
+                dist.init_process_group(
+                    "nccl", init_method="file://" + os.path.join(d, "store"),
+                    world_size=1, rank=0, device_id=dev)
+                try:
+                    mesh = make_mesh(devices=[dev])
+                    with use_mesh(mesh):
+                        worlds[(backend, D)] = dist_world(mesh, plan)
+                finally:
+                    dist.destroy_process_group()
+        else:
+            worlds[(backend, D)] = spmd.spawn(dist_world, D, backend, "cuda",
+                                              plan)
+        world_s[f"{backend}{D}"] = time.perf_counter() - t0
+    rows = [r for w in worlds.values() for r in w["rows"]]
+    for r in rows:
+        print(f"distributed {r['what']} {r['backend']} D={r['world']}: "
+              f"{r['ms_per_iter']:.3f} ms/iteration "
+              f"({r['iters_per_s']:.2f}/s), {r['all_reduces_per_iter']:.1f} "
+              f"all_reduces, {r['all_reduce_bytes_per_iter']:.0f} B an "
+              f"iteration, {100 * r['collective_share']:.1f}% in collectives "
+              f"(timed call {r['timed_ms_per_iter']:.3f} ms/iteration), peak "
+              f"{[round(b / 2**20, 1) for b in r['peak_bytes_per_rank']]} MiB"
+              f", ranks agree {r['ranks_agree']}")
+    checks = {}
+    failures = [f"{r['what']} {r['backend']} D={r['world']}: ranks differ"
+                for r in rows if not r["ranks_agree"]]
+    failures += [f"{k}: a rank imported JAX" for k, w in worlds.items()
+                 if w["jax_imported"]]
+    # (a) the costs fall; D = 4 against single-device BA
+    huber = _robust_kernels(3.0)["huber"]
+    for D in (1, 2, 4):
+        a = ba[D]
+        s0, prob = ba_on(dict(a, pt_idx=a["pt_global"]), dev)
+        cost0 = float(_cost(s0, prob, huber))
+        row = next(r for r in rows if r["what"] == "dense_ba"
+                   and r["world"] == D)
+        row["cost_initial"] = cost0
+        if not _falling_costs(row["costs"], cost0):
+            failures.append(f"dense BA D={D}: costs do not fall from "
+                            f"{cost0}: {row['costs']}")
+    a = ba[4]
+    s0, prob = ba_on(dict(a, pt_idx=a["pt_global"]), dev)
+    single, _ = bundle_adjust(s0, prob, a["C"], a["points"].shape[0],
+                              num_iters=DIST_BA_ITERS)
+    w4 = worlds[("gloo", 4)]["ba_state"]
+    sd, _ = ba_on(dict(a, pt_idx=a["pt_global"], wxyz=w4["wxyz"], t=w4["t"],
+                       points=w4["points"]), dev)
+    checks["dense_ba_rms_px"] = dict(D4=_rms(sd, prob),
+                                     single=_rms(single, prob))
+    if not abs(_rms(sd, prob) - _rms(single, prob)) <= DIST_RMS_ATOL:
+        failures.append(f"dense BA D=4 vs single device: RMS "
+                        f"{checks['dense_ba_rms_px']}")
+    # (b) the costs fall; the first reduced systems D = 4 vs D = 1
+    s0, prob = ba_on(sparse, dev)
+    cost0 = float(_cost(s0, prob, huber))
+    for D in (1, 4):
+        row = next(r for r in rows if r["what"] == "sparse_ba"
+                   and r["world"] == D)
+        row["cost_initial"] = cost0
+        if not _falling_costs(row["costs"], cost0):
+            failures.append(f"sparse BA D={D}: costs do not fall from "
+                            f"{cost0}: {row['costs']}")
+    S1 = worlds[("nccl", 1)]["sparse_system"]
+    S4 = worlds[("gloo", 4)]["sparse_system"]
+    checks["sparse_system_rel"] = float(np.abs(S4 - S1).max()
+                                        / np.abs(S1).max())
+    if not checks["sparse_system_rel"] <= DIST_SYSTEM_RTOL:
+        failures.append(f"sparse BA: reduced systems D=4 vs D=1 differ by "
+                        f"{checks['sparse_system_rel']:.3e}")
+    # (c) dense and streaming agree with each other and with one device
+    w = worlds[("gloo", 4)]
+    poses, graph = pose_graph_on(graphs["small"], dev)
+    ps, _ = optimize_pose_graph(poses, graph, num_iters=DIST_PG_ITERS)
+    one = dict(wxyz=ps.r.q.data.cpu().numpy(), t=ps.t.cpu().numpy())
+    for x, y, what in ((w["pg_small_dense"], w["pg_small_streaming"],
+                        "dense vs streaming"),
+                       (w["pg_small_dense"], one, "dense vs one device"),
+                       (w["pg_small_streaming"], one,
+                        "streaming vs one device")):
+        dt = float(np.abs(x["t"] - y["t"]).max())
+        dq = float(np.abs(np.abs((x["wxyz"] * y["wxyz"]).sum(-1)) - 1).max())
+        checks[f"pose_graph_small {what}"] = dict(t=dt, dot=dq)
+        if not (dt <= DIST_PG_T_ATOL and dq <= DIST_PG_DOT_ATOL):
+            failures.append(f"pose graph small, {what}: t {dt:.3e}, "
+                            f"dots {dq:.3e}")
+    checks["pose_graph_large_dense_refused"] = w["large_dense_refused"]
+    if w["large_dense_refused"] is None:
+        failures.append("pose graph large: the dense path did not refuse")
+    for r in rows:
+        if r["what"].startswith("pose_graph") and not _falling_costs(
+                r["costs"], r["costs"][0]):
+            failures.append(f"{r['what']}: costs do not fall: {r['costs']}")
+    # (d) LoFTR's coarse stage against the single-device transformer
+    p = {k: v.to(dev) for k, v in params.items()}
+    with torch.no_grad():
+        ref = t_loftr._transformer(p, "loftr_coarse", cfg.num_coarse_layers,
+                                   cfg.num_heads, f0.to(dev), f1.to(dev))
+        single_ms, _ = median_ms(lambda: t_loftr._transformer(
+            p, "loftr_coarse", cfg.num_coarse_layers, cfg.num_heads,
+            f0.to(dev), f1.to(dev)))
+    checks["loftr_single_ms"] = single_ms
+    for k in (("nccl", 1), ("gloo", 4)):
+        o0, o1 = worlds[k]["loftr"]
+        rel = max(float((o.to(dev) - r).abs().max() / r.abs().max())
+                  for o, r in zip((o0, o1), ref))
+        checks[f"loftr_rel_{k[0]}{k[1]}"] = rel
+        if not rel <= DIST_LOFTR_RTOL:
+            failures.append(f"LoFTR CP {k}: {rel:.3e} from _transformer")
+    # (e) the restart
+    rs = worlds[("nccl", 1)]["restart"]
+    checks["restart"] = rs
+    if not (rs["stopped_at"] == DIST_RESTART_STOP
+            and rs["resumed_from"] == DIST_RESTART_STOP - 1
+            and rs["resumed_steps"] == DIST_RESTART_STEPS
+            - DIST_RESTART_STOP + 1
+            and rs["max_abs_diff"] <= DIST_RESTART_ATOL
+            and rs["round_trip_bitwise"]):
+        failures.append(f"restart: {rs}")
+    out = dict(card=card, rows=rows, checks=checks, world_s=world_s,
+               separators={k: int(v.num_separators) for k, v in parts.items()},
+               note="gloo ranks share one card and stage each CUDA "
+                    "collective through the host (a synchronisation per "
+                    "call); NCCL runs one rank: equivalence, not scaling",
+               seconds=time.perf_counter() - t_phase)
+    print(f"distributed checks: {checks}")
+    print(f"distributed phase: {out['seconds']:.1f} s, worlds "
+          f"{ {k: round(v, 1) for k, v in world_s.items()} }")
+    print(json.dumps({"distributed": out}))
+    if failures:
+        fail("distributed: " + "; ".join(failures))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -3600,6 +4121,8 @@ def main() -> int:
         learned = learned_phase(K, filters, dev)
     with f32_precision():
         keynet_stereo = keynet_stereo_phase(K, dev)
+    with f32_precision():
+        distributed = distributed_phase(dev, card)
     for ph in phases.values():
         entries += [(name, r, ph["launches"]) for name, r in
                     ph["kernels"].items()]
@@ -3662,7 +4185,8 @@ def main() -> int:
                       "stereo_ms": keynet_stereo["stereo"]["whole_ms"],
                       "stereo_peak_bytes":
                           keynet_stereo["stereo"]["peak_bytes"],
-                      "stitch_ms": keynet_stereo["stitch"]["ms"]}))
+                      "stitch_ms": keynet_stereo["stitch"]["ms"],
+                      "distributed_seconds": distributed["seconds"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """LoFTR, the detector-free dense matcher (counterpart of
-``kornia_tpu/feature/loftr.py``, without its context-parallel coarse stage).
+``kornia_tpu/feature/loftr.py``).
 
 ResNet-FPN backbone (1/8 coarse and 1/2 fine maps), sine position encoding,
 alternating self/cross linear-attention layers over the coarse tokens, a
@@ -9,7 +9,9 @@ mutual maximum, top-K with a validity mask), and the fine refinement over
 weights; the coarse tokens are flattened row-major, as the reference's
 NHWC reshape does. Parameters carry the published checkpoints' names
 (``backbone.layer1.0.conv1.weight``, ...) as a module tree, and do not
-require grad (see ``hardnet.py``).
+require grad (see ``hardnet.py``). ``loftr_coarse_context_parallel`` runs
+the coarse transformer with its tokens sharded over the ranks of a mesh
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ from torch import nn
 from ..core.dtype import as_float
 from ..core.linalg import f32_matmul_precision
 from ..ops.warp import resize
+from ..parallel.mesh import Mesh, NamedSharding, P
 from .hardnet import _numpy, _register_tree, _running_bn
 
 __all__ = ["LoFTR", "LoFTRConfig", "loftr_init_params", "load_torch_weights",
-           "loftr_backbone", "position_encoding"]
+           "loftr_backbone", "position_encoding",
+           "loftr_coarse_context_parallel"]
 
 Device = Union[str, torch.device]
 Params = Mapping[str, torch.Tensor]
@@ -274,7 +278,8 @@ def _layer_norm(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def _encoder_layer(p: Params, pre: str, x: torch.Tensor,
-                   source: torch.Tensor, nhead: int) -> torch.Tensor:
+                   source: torch.Tensor, nhead: int,
+                   attention=_linear_attention) -> torch.Tensor:
     """LoFTREncoderLayer: linear attention of x over source, merge, norm,
     then an MLP over [x, message], norm, residual."""
     B, L, C = x.shape
@@ -282,7 +287,7 @@ def _encoder_layer(p: Params, pre: str, x: torch.Tensor,
     q = F.linear(x, p[f"{pre}.q_proj.weight"]).reshape(B, L, nhead, d)
     k = F.linear(source, p[f"{pre}.k_proj.weight"]).reshape(B, -1, nhead, d)
     v = F.linear(source, p[f"{pre}.v_proj.weight"]).reshape(B, -1, nhead, d)
-    msg = _linear_attention(q, k, v).reshape(B, L, C)
+    msg = attention(q, k, v).reshape(B, L, C)
     msg = _layer_norm(p, f"{pre}.norm1",
                       F.linear(msg, p[f"{pre}.merge.weight"]))
     msg = F.relu(F.linear(torch.cat([x, msg], -1), p[f"{pre}.mlp.0.weight"]))
@@ -303,6 +308,68 @@ def _transformer(p: Params, prefix: str, n_layers: int, nhead: int,
         f0 = _encoder_layer(p, pre, f0, f1, nhead)
         f1 = _encoder_layer(p, pre, f1, f0, nhead)
     return f0, f1
+
+
+# -----------------------------------------------------------------------------
+# Coarse-attention context parallelism
+# -----------------------------------------------------------------------------
+
+def _linear_attention_dist(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mesh: Mesh, axis: str = "data",
+                           eps: float = 1e-6) -> torch.Tensor:
+    """Sequence-sharded elu+1 linear attention: queries, keys and values are
+    this rank's token block; the only traffic is one all_reduce of the
+    (B, H, D, D) KV moment packed with the (B, H, D) key sum, O(D²) bytes
+    a layer instead of softmax ring attention's O(L²). The output needs no
+    further collective."""
+    Q = F.elu(q) + 1.0
+    Kf = F.elu(k) + 1.0
+    v_length = v.shape[1] * mesh.shape[axis]  # the GLOBAL source length
+    v = v / v_length
+    KV = torch.einsum("nshd,nshv->nhdv", Kf, v)
+    Ksum = Kf.sum(dim=1)
+    buf = mesh.all_reduce(torch.cat([KV.reshape(-1), Ksum.reshape(-1)]),
+                          axis)
+    KV = buf[:KV.numel()].view(KV.shape)
+    Ksum = buf[KV.numel():].view(Ksum.shape)
+    Z = 1.0 / (torch.einsum("nlhd,nhd->nlh", Q, Ksum) + eps)
+    return torch.einsum("nlhd,nhdv,nlh->nlhv", Q, KV, Z) * v_length
+
+
+def _encoder_layer_dist(p: Params, pre: str, x: torch.Tensor,
+                        source: torch.Tensor, nhead: int, mesh: Mesh,
+                        axis: str = "data") -> torch.Tensor:
+    """``_encoder_layer`` on token blocks, its attention summed over
+    `axis`."""
+    return _encoder_layer(
+        p, pre, x, source, nhead,
+        lambda q, k, v: _linear_attention_dist(q, k, v, mesh, axis))
+
+
+@f32_matmul_precision
+def loftr_coarse_context_parallel(params: Params, cfg: LoFTRConfig,
+                                  feat0: torch.Tensor, feat1: torch.Tensor,
+                                  mesh: Mesh, axis: str = "data"
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The coarse LocalFeatureTransformer with BOTH token sequences sharded
+    over ``mesh[axis]`` (sequence / context parallelism).
+
+    feat0/feat1: global (B, L, C) coarse tokens (position encoding added),
+    L divisible by the axis size; each rank takes its token block and the
+    transformed (B, L, C) tokens come back on every rank, gathered once at
+    the end. Layer for layer the math of ``_transformer``, with one
+    all_reduce per attention."""
+    sh = NamedSharding(mesh, P(None, axis, None))
+    f0, f1 = sh.local(feat0), sh.local(feat1)
+    nhead = cfg.num_heads
+    for i in range(cfg.num_coarse_layers):
+        pre = f"loftr_coarse.layers.{2 * i}"
+        f0 = _encoder_layer_dist(params, pre, f0, f0, nhead, mesh, axis)
+        f1 = _encoder_layer_dist(params, pre, f1, f1, nhead, mesh, axis)
+        pre = f"loftr_coarse.layers.{2 * i + 1}"
+        f0 = _encoder_layer_dist(params, pre, f0, f1, nhead, mesh, axis)
+        f1 = _encoder_layer_dist(params, pre, f1, f0, nhead, mesh, axis)
+    return mesh.all_gather(f0, axis, 1), mesh.all_gather(f1, axis, 1)
 
 
 # -----------------------------------------------------------------------------

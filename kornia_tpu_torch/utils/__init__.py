@@ -1,1 +1,2 @@
-"""Utilities: the ray-traced scene renderer and camera trajectories."""
+"""Utilities: the ray-traced scene renderer and camera trajectories,
+checkpoints and restartable jobs."""

@@ -1007,3 +1007,73 @@ def test_cuda_camera_from_numbers_defaults_to_the_card(cuda_device):
     torch.testing.assert_close(tilt.cpu(),
                                tilt_projection(0.04, -0.02, device="cpu"),
                                atol=1e-6, rtol=0)
+
+
+# --- the communication runtime: SPMD ranks on the card ---------------------------
+# One NCCL rank, and two gloo ranks sharing cuda:0 (NCCL refuses two ranks on
+# one card), against the single-device calls on the card.
+
+CP_CFG = dict(num_coarse_layers=2)
+
+
+def _dist_inputs(world):
+    from tests import torch_dist_workers as W
+    return (W.dense_ba_arrays(world, 8, 4, seed=0),
+            *W.loftr_coarse_arrays(CP_CFG, 128))
+
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_cuda_spmd_world_matches_single_device(cuda_device, backend, world):
+    from kornia_tpu_torch.feature import loftr as t_loftr
+    from kornia_tpu_torch.parallel import spmd
+    from kornia_tpu_torch.parallel.mesh import make_mesh
+    from kornia_tpu_torch.slam import ba as t_ba
+    from tests import torch_dist_workers as W
+    dense, params, f0, f1 = _dist_inputs(world)
+    got = spmd.spawn(W.card_worker, world, backend, "cuda", dense, params,
+                     CP_CFG, f0, f1)
+    assert got["device"] == "cuda:0" and got["jax_imported"] is False
+    assert got["ranks_agree"] and got["ba_ranks_agree"]
+    assert got["all_reduces"] == 4 * CP_CFG["num_coarse_layers"]
+    # LoFTR's coarse stage: within 1e-4 of the largest entry
+    p = {k: torch.from_numpy(v).to(cuda_device) for k, v in params.items()}
+    with torch.no_grad():
+        ref = t_loftr.loftr_coarse_context_parallel(
+            p, t_loftr.LoFTRConfig(**CP_CFG),
+            torch.from_numpy(f0).to(cuda_device),
+            torch.from_numpy(f1).to(cuda_device),
+            make_mesh(devices=[cuda_device]))
+    single = t_loftr._transformer(
+        p, "loftr_coarse", CP_CFG["num_coarse_layers"], 8,
+        torch.from_numpy(f0).to(cuda_device),
+        torch.from_numpy(f1).to(cuda_device))
+    for v in (0, 1):
+        want = single[v].cpu().numpy()
+        np.testing.assert_allclose(got[f"out{v}"], want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+        np.testing.assert_allclose(ref[v].cpu().numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+    # dense BA: RMS within 0.05 px of the single-device run's
+    C, P = dense["C"], dense["points"].shape[0]
+    prob = convert.ba_problem_from_numpy(dense["cam_idx"], dense["pt_global"],
+                                         dense["uv"], dense["valid"],
+                                         dense["K"], cuda_device)
+    s0 = convert.ba_state_from_numpy(dense["wxyz"], dense["t"],
+                                     dense["points"], cuda_device)
+    ss, _ = t_ba.bundle_adjust(s0, prob, C, P, num_iters=8)
+    sd = convert.ba_state_from_numpy(got["ba"]["wxyz"], got["ba"]["t"],
+                                     got["ba"]["points"], cuda_device)
+
+    def rms(s):
+        r = t_ba.reprojection_residuals(s, prob)
+        return float(r.pow(2).sum(-1).mean().sqrt())
+
+    assert abs(rms(sd) - rms(ss)) < 0.05 and rms(sd) < 0.5
+
+
+def test_cuda_nccl_refuses_more_ranks_than_cards(cuda_device):
+    from kornia_tpu_torch.parallel import spmd
+    from tests import torch_dist_workers as W
+    with pytest.raises(RuntimeError, match="NCCL refuses two ranks"):
+        spmd.spawn(W.failing_worker, torch.cuda.device_count() + 1, "nccl",
+                   "cuda", 0)

@@ -13,6 +13,9 @@ differences are allowed:
   parameters;
 - ``use_pallas`` → ``streaming``, ``pallas_mode`` → ``patch_mode``;
 - a trailing ``device``.
+
+Names that the JAX module does not define itself, but re-exports from
+another library, have no twin.
 """
 
 import importlib
@@ -48,7 +51,11 @@ def _twins():
         except ModuleNotFoundError:
             continue  # a module of the port's own (kernels, convert, sort)
         for name, obj in _public(port):
-            if hasattr(ref, name):
+            twin = getattr(ref, name, None)
+            # a name the JAX module re-exports from elsewhere (jax.sharding's
+            # Mesh, NamedSharding, PartitionSpec) has no reference signature
+            if twin is not None and getattr(
+                    twin, "__module__", "").startswith("kornia_tpu"):
                 pairs.append(pytest.param(obj, getattr(ref, name),
                                           id=f"{info.name[17:]}.{name}"))
     return pairs
@@ -103,5 +110,17 @@ def test_the_twins_are_found():
                  "ops.filters.box_blur",
                  "core.grid.normalize_pixel_coordinates",
                  "contrib.stereo.stereo_matching",
-                 "contrib.image_stitching.ImageStitcher"):
+                 "contrib.image_stitching.ImageStitcher",
+                 "parallel.mesh.make_mesh", "parallel.mesh.shard_batch",
+                 "parallel.dist_ba.distributed_bundle_adjust",
+                 "parallel.dist_ba.distributed_bundle_adjust_sparse",
+                 "parallel.dist_ba.build_sharded_point_tables",
+                 "parallel.dist_posegraph.partition_pose_graph",
+                 "parallel.dist_posegraph.distributed_pose_graph",
+                 "parallel.dist_posegraph.distributed_pose_graph_streaming",
+                 "utils.elastic.run_restartable",
+                 "utils.elastic.latest_checkpoint",
+                 "utils.checkpoint.save_checkpoint",
+                 "utils.checkpoint.load_checkpoint",
+                 "feature.loftr.loftr_coarse_context_parallel"):
         assert name in ids
