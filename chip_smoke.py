@@ -38,8 +38,10 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    cameras, 2,000 points, 10,000 observations; iterations/s reckoned as
    bench.py does, peak memory, the device's idle share, no host sync
    inside the loop, the same call on the CPU), sparse-Schur BA on the same
-   problem and at SfM scale (100 / 20,000 / 120,000) against the dense
-   path, the Se3 and Sim3 pose graphs on a 2,048-pose ring (a 256-pose
+   problem and at SfM scale (100 / 20,000 / 120,000, every point at least
+   DIST_MIN_DEPTH in front of the cameras that see it) against the dense
+   path, each LM run's last cost at least DIST_FALL_RTOL below its first
+   step's, the Se3 and Sim3 pose graphs on a 2,048-pose ring (a 256-pose
    ring against the CPU), pnp_ransac on 2,000 points with 30% outliers,
    and incremental_sfm at 12 views x 2,000 points (against the CPU). It
    prints one JSON line of its own;
@@ -129,11 +131,29 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    1 and 4 within 1e-4 of ``_transformer``; (e) ``run_restartable`` over 6
    dense-BA LM steps stopped at step 5 and resumed from ``step_4``, within
    1e-5 of an uninterrupted run, and a bitwise checkpoint round trip. It
-   prints one JSON line of its own.
+   prints one JSON line of its own;
+13. tracking_io: (a) ``ByteTracker()`` at its defaults (capacity 128)
+   over a seeded synthetic stream with MOT17-02's geometry (1920x1080, 600
+   frames, about 60 pedestrians alive, 8 false positives a frame, rows
+   padded to 128): every update under ``no_host_sync``, ms a frame (median
+   and 90th percentile), frames/s, kernels a frame, the device's busy
+   share over 20 frames, peak memory; the first 150 frames against the
+   CPU port (the same ids and valid masks, boxes within 1e-3 of the largest
+   coordinate) and an identity check against the stream's ground truth.
+   (b) ``BoxTracker`` with a detector that returns (a)'s detections, with
+   and without ``visualize`` on a 1080x1920 frame for 60 frames, its draw
+   equal to the CPU port's. (c) A 30-frame TUM RGB-D sequence and a
+   10-frame KITTI odometry sequence rendered from step 9's room, written
+   to a temporary directory and read back through ``TUMSequence`` and
+   ``KittiOdometrySequence`` (decoded frames bit for bit, poses within
+   1e-6; the decoder used and ms a window), then ``two_view_pose`` on two
+   decoded frames, equal to the same call on the frames before they were
+   written, every kernel call captured and held against its plain version
+   on its ROUTES route. It prints one JSON line of its own.
 
-Each of steps 2, 4, 5, 6, 8, 9, 10 (its paths (a) and (b)) and 11 (each of
-its paths) resets the launch counters just before it drives its path and
-reads them just after; every kernel must have launched on its path. Every failure exits non-zero.
+Each of steps 2, 4, 5, 6, 8, 9, 10 (its paths (a) and (b)), 11 (each of
+its paths) and 13 (c) resets the launch counters just before it drives its
+path and reads them just after; every kernel must have launched on its path. Every failure exits non-zero.
 The last lines are one JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 before printing any result.
@@ -142,6 +162,7 @@ Without a CUDA device it exits 2 before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1291,11 +1312,35 @@ def _centres(poses) -> torch.Tensor:
     return -(R.transpose(-1, -2) @ t[..., None])[..., 0]
 
 
-def _falling(costs: np.ndarray, cost0: float, what: str) -> None:
-    if not (np.isfinite(costs).all() and np.all(np.diff(costs) <= 0)
-            and costs[-1] < cost0):
-        fail(f"{what}: costs are not finite and falling from {cost0}: "
-             f"{costs}")
+# a cost falls when its last value lies this far below the first (relative):
+# far above the rounding of the sums, so that a run whose every step is
+# rejected does not pass
+DIST_FALL_RTOL = 1e-3
+# step 7's and step 12's SfM-scale points lie at least this deep in front of
+# every camera that sees them: sfm_scale_arrays' plain draws put 19
+# observations closer than 0.5 (one point behind its camera, 1.1e6 px
+# residuals, 5.6e6 of the 9.4e6 initial cost), where LM rejects step after
+# step (step 7 read 7683070.0 -> 7683070.0 on an H100)
+DIST_MIN_DEPTH = 1.0
+
+
+def _falling_costs(costs, what: str, cost0=None, rise: float = 0.0,
+                   after_first: bool = False) -> bool:
+    """LM costs after each step (and `cost0`, before the first): finite,
+    never rising by more than `rise` of the first step's cost, and the last
+    at least DIST_FALL_RTOL below `cost0` (or below the first step's cost,
+    without `cost0` or with `after_first`, so that a run that rejects every
+    step after the first fails). Prints them."""
+    c = np.asarray(costs, dtype=np.float64)
+    seq = c if cost0 is None else np.concatenate([[cost0], c])
+    from_first = cost0 is None or after_first
+    fall = 1.0 - c[-1] / (c[0] if from_first else cost0)
+    ok = bool(np.isfinite(seq).all() and np.all(np.diff(seq) <= rise * c[0])
+              and fall >= DIST_FALL_RTOL)
+    print(f"{what}: costs {seq.tolist()}, fall {fall:.4e} from "
+          f"{'the first step' if from_first else 'the initial cost'} "
+          f"(limit {DIST_FALL_RTOL}){'' if ok else ': NOT FALLING'}")
+    return ok
 
 
 def bench_ba_arrays():
@@ -1399,7 +1444,8 @@ def backend_dense_ba(dev) -> dict:
     s, costs = no_host_sync(lambda: run(10))
     cost0 = float(_cost(state, prob, _robust_kernels(3.0)["huber"]))
     c = costs.cpu().numpy()
-    _falling(c, cost0, "dense BA")
+    if not _falling_costs(c, "dense BA", cost0, after_first=True):
+        fail("dense BA: the costs do not fall")
     # bench.py's reckoning: the best of a few synchronised calls of 4 and
     # of 24 iterations; 20 iterations over their difference
     t4 = min(synced_s(lambda: run(4)) for _ in range(5))
@@ -1479,7 +1525,7 @@ def backend_sparse_ba(dev, dense: dict) -> dict:
     if not bench_rel <= BA_COST_RTOL:
         fail("sparse and dense BA disagree at bench.py's configuration")
 
-    C, P, T, arrs = sfm_scale_arrays()
+    C, P, T, arrs = sfm_scale_arrays(DIST_MIN_DEPTH)
     state, prob = ba_on(arrs, dev)
     oi, om = tables(arrs, P, T)
 
@@ -1492,8 +1538,10 @@ def backend_sparse_ba(dev, dense: dict) -> dict:
     peak = peak_bytes(lambda: run(10))
     s, costs = run(10)
     c = costs.cpu().numpy()
-    _falling(c, float(_cost(state, prob, _robust_kernels(3.0)["huber"])),
-             "sparse BA at SfM scale")
+    cost0 = float(_cost(state, prob, _robust_kernels(3.0)["huber"]))
+    if not _falling_costs(c, "sparse BA at SfM scale", cost0,
+                          after_first=True):
+        fail("sparse BA at SfM scale: the costs do not fall")
     _, c_again = run(10)
     t_dense = synced_s(lambda: bundle_adjust(state, prob, C, P, num_iters=1,
                                              init_lambda=0.1))
@@ -1501,9 +1549,9 @@ def backend_sparse_ba(dev, dense: dict) -> dict:
                                                   num_iters=1,
                                                   init_lambda=0.1))
     _, cd = bundle_adjust(state, prob, C, P, num_iters=10, init_lambda=0.1)
-    _falling(cd.cpu().numpy(), float(_cost(state, prob,
-                                           _robust_kernels(3.0)["huber"])),
-             "dense BA at SfM scale")
+    if not _falling_costs(cd.cpu().numpy(), "dense BA at SfM scale", cost0,
+                          after_first=True):
+        fail("dense BA at SfM scale: the costs do not fall")
     # The cross-check at this scale is the reduced camera system of one
     # step, assembled by both paths from the same state: with camera 0
     # alone fixed the scale is a free gauge (S's smallest eigenvalue is the
@@ -3611,15 +3659,6 @@ DIST_PG_DOT_ATOL = 1e-5   # posegraph.py:82-98; |q·q'| within this of 1
 DIST_LOFTR_RTOL = 1e-4    # coarse tokens vs _transformer, of the largest
 DIST_RESTART_ATOL = 1e-5  # resumed vs uninterrupted run
 DIST_RESTART_STEPS, DIST_RESTART_STOP = 6, 5
-# a cost falls when its last value lies this far below the first (relative):
-# far above the rounding of the sums, so that a run whose every step is
-# rejected does not pass
-DIST_FALL_RTOL = 1e-3
-# (b)'s points lie at least this deep in front of every camera that sees
-# them: sfm_scale_arrays' plain draws put 19 observations closer than 0.5
-# (one point behind its camera, 1.1e6 px residuals, 5.6e6 of the 9.4e6
-# initial cost), where LM rejects every step on one device and on four
-DIST_MIN_DEPTH = 1.0
 
 
 class RestartStop(Exception):
@@ -3887,16 +3926,6 @@ def dist_world(mesh, plan: dict) -> dict:
     return out
 
 
-def _falling_costs(costs, cost0: float) -> bool:
-    """Finite, never rising by more than PG_COST_ATOL of the first (the
-    rounding floor of a converged pose graph), and ending DIST_FALL_RTOL
-    below `cost0`."""
-    c = np.asarray(costs)
-    return bool(np.isfinite(c).all()
-                and np.all(np.diff(c) <= PG_COST_ATOL * c[0])
-                and c[-1] < (1.0 - DIST_FALL_RTOL) * cost0)
-
-
 def distributed_phase(dev, card: str) -> dict:
     """Step 12: the communication runtime (BASELINE config 5's distributed
     BA and pose graphs, LoFTR's context-parallel coarse stage, restarts)
@@ -3984,7 +4013,10 @@ def distributed_phase(dev, card: str) -> dict:
         row = next(r for r in rows if r["what"] == "dense_ba"
                    and r["world"] == D)
         row["cost_initial"] = cost0
-        if not _falling_costs(row["costs"], cost0):
+        # PG_COST_ATOL of the first step's cost: the rounding floor of a
+        # converged pose graph
+        if not _falling_costs(row["costs"], f"dense BA D={D}", cost0,
+                              PG_COST_ATOL):
             failures.append(f"dense BA D={D}: costs do not fall from "
                             f"{cost0}: {row['costs']}")
     a = ba[4]
@@ -4006,7 +4038,8 @@ def distributed_phase(dev, card: str) -> dict:
         row = next(r for r in rows if r["what"] == "sparse_ba"
                    and r["world"] == D)
         row["cost_initial"] = cost0
-        if not _falling_costs(row["costs"], cost0):
+        if not _falling_costs(row["costs"], f"sparse BA D={D}", cost0,
+                              PG_COST_ATOL):
             failures.append(f"sparse BA D={D}: costs do not fall from "
                             f"{cost0}: {row['costs']}")
     S1 = worlds[("nccl", 1)]["sparse_system"]
@@ -4037,7 +4070,7 @@ def distributed_phase(dev, card: str) -> dict:
         failures.append("pose graph large: the dense path did not refuse")
     for r in rows:
         if r["what"].startswith("pose_graph") and not _falling_costs(
-                r["costs"], r["costs"][0]):
+                r["costs"], r["what"], rise=PG_COST_ATOL):
             failures.append(f"{r['what']}: costs do not fall: {r['costs']}")
     # (d) LoFTR's coarse stage against the single-device transformer
     p = {k: v.to(dev) for k, v in params.items()}
@@ -4078,6 +4111,507 @@ def distributed_phase(dev, card: str) -> dict:
     if failures:
         fail("distributed: " + "; ".join(failures))
     return out
+
+
+# --- step 13: multi-object tracking, image containers and file IO -----------
+
+# MOT17-02's geometry (1920x1080, 600 frames at 30 fps), a seeded synthetic
+# stream in place of its files: about 60 pedestrians alive at once (at most
+# 80), entering and leaving at the borders, h 60-400 px, w = 0.41 h
+MOT_W, MOT_H, MOT_FRAMES, MOT_FPS, MOT_N = 1920, 1080, 600, 30, 128
+MOT_ALIVE, MOT_MAX_ALIVE, MOT_FALSE_POS = 60, 80, 8
+MOT_XCHECK = 150       # frames also tracked by the CPU port
+MOT_BOX_RTOL = 1e-3    # card vs CPU boxes, of the largest coordinate
+MOT_ID_SHARE = 0.9     # matched ground truth carrying its majority id
+MOT_PROFILE = 20       # frames under torch.profiler
+BOX_VIS_FRAMES = 60    # (b)'s frames, with and without visualize
+TUM_FRAMES, KITTI_FRAMES, TUM_WINDOW = 30, 10, 5
+POSE_FILE_ATOL = 1e-6  # poses read back against those written
+
+
+def mot_stream(seed: int = SEED):
+    """(a)'s detections (frames, 128, 6) rows (class, score, x, y, w, h)
+    and the ground truth of each frame (target ids, xyxy boxes). Targets
+    move at constant velocity (0.5-3 px a frame); a target is missed with
+    probability 0.1 a frame, and 10% of them vanish for one run of 5-20
+    frames; a detection is scored U(0.6, 1), 15% of them U(0.15, 0.5) (the
+    second round's traffic); 8 false positives a frame scored U(0.1,
+    0.45); boxes jittered by 1 px, clipped to the frame and kept where at
+    least 30% of the box is inside; rows shuffled, padded with score 0."""
+    rng = np.random.default_rng(seed)
+    targets, next_id = [], 0
+
+    def spawn(frame, inside):
+        nonlocal next_id
+        bh = rng.uniform(60, 400)
+        bw = 0.41 * bh
+        speed, ang = rng.uniform(0.5, 3.0), rng.uniform(0, 2 * math.pi)
+        v = np.array([math.cos(ang), math.sin(ang)]) * speed
+        if inside:
+            p = rng.uniform([0, 0], [MOT_W - bw, MOT_H - bh])
+        else:  # on a border, half outside, moving in
+            side = rng.integers(4)
+            p = rng.uniform([0, 0], [MOT_W - bw, MOT_H - bh])
+            if side == 0:
+                p[0], v[0] = -bw / 2, abs(v[0])
+            elif side == 1:
+                p[0], v[0] = MOT_W - bw / 2, -abs(v[0])
+            elif side == 2:
+                p[1], v[1] = -bh / 2, abs(v[1])
+            else:
+                p[1], v[1] = MOT_H - bh / 2, -abs(v[1])
+        occ = None
+        if rng.random() < 0.1:
+            s0 = frame + int(rng.integers(0, MOT_FRAMES))
+            occ = (s0, s0 + int(rng.integers(5, 21)))
+        targets.append(dict(id=next_id, p=p, v=v, wh=np.array([bw, bh]),
+                            occ=occ))
+        next_id += 1
+
+    for _ in range(MOT_ALIVE):
+        spawn(0, True)
+    dets = np.zeros((MOT_FRAMES, MOT_N, 6), np.float32)
+    gt = []
+    lim = np.array([MOT_W, MOT_H], np.float64)
+    for f in range(MOT_FRAMES):
+        if len(targets) < MOT_MAX_ALIVE and (
+                rng.random() < (0.5 if len(targets) < MOT_ALIVE else 0.02)):
+            spawn(f, False)
+        rows, gids, gboxes, keep = [], [], [], []
+        for t in targets:
+            p = t["p"]
+            lo, hi = np.clip(p, 0, lim), np.clip(p + t["wh"], 0, lim)
+            vis = np.prod(hi - lo) / np.prod(t["wh"])
+            if (p + t["wh"] < 0).any() or (p > lim).any():
+                continue  # left the frame
+            keep.append(t)
+            if vis < 0.3:
+                continue
+            gids.append(t["id"])
+            gboxes.append([*lo, *hi])
+            if (t["occ"] and t["occ"][0] <= f < t["occ"][1]) or \
+                    rng.random() < 0.1:
+                continue
+            score = rng.uniform(0.15, 0.5) if rng.random() < 0.15 else \
+                rng.uniform(0.6, 1.0)
+            j_lo = lo + rng.normal(0, 1, 2)
+            rows.append((0.0, score, *j_lo, *(hi - lo)))
+        for t in keep:
+            t["p"] = t["p"] + t["v"]
+        targets = keep
+        for _ in range(MOT_FALSE_POS):
+            bh = rng.uniform(60, 400)
+            xy = rng.uniform([0, 0], [MOT_W - 0.41 * bh, MOT_H - bh])
+            rows.append((0.0, rng.uniform(0.1, 0.45), *xy, 0.41 * bh, bh))
+        rng.shuffle(rows)
+        dets[f, :len(rows)] = np.asarray(rows, np.float32)
+        gt.append((np.asarray(gids, np.int64),
+                   np.asarray(gboxes, np.float64).reshape(-1, 4)))
+    return dets, gt
+
+
+def identity_share(gt, ids: np.ndarray, boxes: np.ndarray,
+                   valid: np.ndarray):
+    """Of the ground-truth boxes matched at IoU > 0.5 by a valid track (the
+    best one), the share that carries its target's majority track id; and
+    the number of such matches."""
+    from kornia_tpu_torch.tracking.bytetrack import _iou_matrix
+    seen = {}
+    for f, (gids, gboxes) in enumerate(gt):
+        v = valid[f]
+        if not len(gids) or not v.any():
+            continue
+        iou = _iou_matrix(torch.from_numpy(gboxes),
+                          torch.from_numpy(boxes[f][v]).double()).numpy()
+        best = iou.argmax(1)
+        for g, k, ok in zip(gids, best, iou.max(1) > 0.5):
+            if ok:
+                seen.setdefault(int(g), []).append(int(ids[f][v][k]))
+    n = sum(len(v) for v in seen.values())
+    major = sum(max(np.bincount(v)) for v in seen.values())
+    return major / max(n, 1), n
+
+
+def _near_tie_margin(tracker, state, det) -> float:
+    """The smallest gap between two IoU entries above the first round's
+    threshold that round 1 sees at this frame (CPU state)."""
+    from kornia_tpu_torch.tracking import bytetrack as bt
+    mean, cov = bt._kf_predict(state.mean, state.cov)
+    boxes = torch.stack([det[:, 2], det[:, 3], det[:, 2] + det[:, 4],
+                         det[:, 3] + det[:, 5]], -1)
+    s = bt.TrackState(mean, cov, *[getattr(state, f) for f in (
+        "score", "cls", "track_id", "alive", "misses", "next_id")])
+    iou = bt._iou_matrix(s.boxes_xyxy(), boxes)
+    ok = state.alive[:, None] & (det[:, 1] > tracker.high)[None]
+    v = np.sort(iou[ok & (iou > tracker.match_thresh)].numpy())
+    return float(np.diff(v).min()) if v.size > 1 else float("inf")
+
+
+def bytetrack_stream(dev) -> dict:
+    """(a) ByteTracker() over the MOT17-scale stream."""
+    from kornia_tpu_torch.tracking.bytetrack import ByteTracker
+    dets, gt = mot_stream()
+    alive_gt = [len(g[0]) for g in gt]
+    n_det = (dets[:, :, 1] > 0).sum(1)
+    print(f"tracking_io (a) stream {MOT_W}x{MOT_H}, {MOT_FRAMES} frames at "
+          f"{MOT_FPS} fps: ground-truth boxes a frame {min(alive_gt)}-"
+          f"{max(alive_gt)} (mean {np.mean(alive_gt):.1f}), detection rows "
+          f"{n_det.min()}-{n_det.max()} of {MOT_N}")
+    d_dev = torch.from_numpy(dets).to(dev)
+    tr = ByteTracker()
+    if tr.device.type != "cuda" or tr.init_state().mean.device.type != "cuda":
+        fail("tracking_io (a): ByteTracker() is not on the card by default")
+    T = tr.capacity
+    out = dict(ids=torch.zeros((MOT_FRAMES, T), dtype=torch.int32,
+                               device=dev),
+               valid=torch.zeros((MOT_FRAMES, T), dtype=torch.bool,
+                                 device=dev),
+               boxes=torch.zeros((MOT_FRAMES, T, 4), device=dev))
+
+    def run(frames=range(MOT_FRAMES), record=True):
+        s = tr.init_state()
+        for f in frames:
+            s = tr.update(s, d_dev[f])
+            if record:
+                b, i, _, _, v = tr.current_tracks(s)
+                out["boxes"][f], out["ids"][f], out["valid"][f] = b, i, v
+        return s
+
+    run(range(10), record=False)  # warm-up: allocator, library handles
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    no_host_sync(run)  # raises on any synchronising call
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    fps = MOT_FRAMES / wall
+    # ms a frame: host clock around each synchronised update
+    s, per_frame = tr.init_state(), []
+    for f in range(MOT_FRAMES):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s = tr.update(s, d_dev[f])
+        torch.cuda.synchronize()
+        per_frame.append((time.perf_counter() - t1) * 1e3)
+    med, p90 = float(np.median(per_frame)), float(np.percentile(per_frame,
+                                                                90))
+    # the device over MOT_PROFILE frames from the middle of the stream
+    s_mid = run(range(300), record=False)
+    window = range(300, 300 + MOT_PROFILE)
+
+    def prof_run():
+        s = s_mid
+        for f in window:
+            s = tr.update(s, d_dev[f])
+
+    wall_win = synced_s(prof_run) * 1e3
+    busy, n_k, kern = device_profile(prof_run)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"tracking_io (a) ByteTracker(): {fps:.2f} frames/s "
+          f"({1e3 / fps:.3f} ms a frame pipelined, no host sync in "
+          f"{MOT_FRAMES} updates); synchronised frames median {med:.3f} ms, "
+          f"90th percentile {p90:.3f} ms; peak {peak / 2**20:.2f} MiB; "
+          f"{n_k / MOT_PROFILE:.0f} kernels a frame, device busy "
+          f"{busy:.3f} of {wall_win:.3f} ms over {MOT_PROFILE} frames (idle "
+          f"share {1.0 - busy / wall_win:.4f})")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+              f"{e.key[:90]}")
+    ids = out["ids"].cpu().numpy()
+    valid = out["valid"].cpu().numpy()
+    boxes = out["boxes"].cpu().numpy()
+    # the first MOT_XCHECK frames on the CPU port
+    tc = ByteTracker(device="cpu")
+    sc = tc.init_state()
+    t1 = time.perf_counter()
+    for f in range(MOT_XCHECK):
+        d = torch.from_numpy(dets[f])
+        prev = sc
+        sc = tc.update(sc, d)
+        b, i, _, _, v = tc.current_tracks(sc)
+        scale = float(b[sc.alive].abs().max()) if sc.alive.any() else 1.0
+        err = float((torch.from_numpy(boxes[f]) - b)[v].abs().max()) \
+            if v.any() else 0.0
+        if not (np.array_equal(i.numpy(), ids[f])
+                and np.array_equal(v.numpy(), valid[f])
+                and err <= MOT_BOX_RTOL * scale):
+            fail(f"tracking_io (a): card and CPU split at frame {f} (ids "
+                 f"equal {np.array_equal(i.numpy(), ids[f])}, valid equal "
+                 f"{np.array_equal(v.numpy(), valid[f])}, boxes {err:.3e} of "
+                 f"{scale:.1f}); the near-tie IoU margin of round 1 there: "
+                 f"{_near_tie_margin(tc, prev, d):.3e}")
+    cpu_s = time.perf_counter() - t1
+    share, n_match = identity_share(gt, ids, boxes, valid)
+    print(f"tracking_io (a) card vs CPU port over {MOT_XCHECK} frames: ids "
+          f"and valid masks equal, boxes within {MOT_BOX_RTOL} of the "
+          f"largest coordinate (CPU {cpu_s * 1e3 / MOT_XCHECK:.2f} ms a "
+          f"frame); identity: {n_match} ground-truth boxes matched at IoU > "
+          f"0.5, {share:.4f} carry their target's majority id (limit "
+          f"{MOT_ID_SHARE}); valid tracks a frame {valid.sum(1).mean():.1f}")
+    if not share >= MOT_ID_SHARE:
+        fail(f"tracking_io (a): identity share {share:.4f} < {MOT_ID_SHARE}")
+    return dict(frames_per_s=fps, ms_pipelined=1e3 / fps,
+                ms_median=med, ms_p90=p90, peak_bytes=peak,
+                kernels_per_frame=n_k / MOT_PROFILE, busy_ms=busy,
+                window_ms=wall_win, idle_share=1.0 - busy / wall_win,
+                cpu_ms_per_frame=cpu_s * 1e3 / MOT_XCHECK,
+                identity_share=share, identity_matches=n_match,
+                gt_boxes_per_frame=float(np.mean(alive_gt)),
+                valid_tracks_per_frame=float(valid.sum(1).mean()),
+                dets=d_dev)
+
+
+def boxtracker_visualize(dev, d_dev) -> dict:
+    """(b) BoxTracker with a caller's detector over (a)'s detections."""
+    from kornia_tpu_torch.tracking.bytetrack import (BoxTracker, ByteTracker,
+                                                     TrackState)
+    frame = torch.rand((1, 3, MOT_H, MOT_W), device=dev,
+                       generator=torch.Generator(dev).manual_seed(SEED))
+    count = [0]
+
+    def detector(image):
+        d = d_dev[count[0] % MOT_FRAMES][None]
+        count[0] += 1
+        return d
+
+    bt = BoxTracker(detector)
+    times = {False: [], True: []}
+    for vis in (False, True):
+        bt.reset()
+        count[0] = 0
+        for _ in range(BOX_VIS_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bt.update(frame)
+            if vis:
+                drawn = bt.visualize(frame)
+            torch.cuda.synchronize()
+            times[vis].append((time.perf_counter() - t0) * 1e3)
+    peak = peak_bytes(lambda: bt.visualize(frame))
+    n_valid = int(bt.tracker.current_tracks(bt.state)[4].sum())
+    cpu = BoxTracker(detector, ByteTracker(device="cpu"))
+    cpu.state = TrackState(*[getattr(bt.state, f.name).cpu()
+                             for f in dataclasses.fields(TrackState)])
+    same = torch.equal(drawn.cpu(), cpu.visualize(frame.cpu()))
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"tracking_io (b) BoxTracker on 1x3x{MOT_H}x{MOT_W}, "
+          f"{BOX_VIS_FRAMES} frames: {ms[False]:.3f} ms a frame without "
+          f"visualize, {ms[True]:.3f} with it ({n_valid} boxes drawn at the "
+          f"last frame); visualize's peak {peak / 2**20:.1f} MiB; the drawn "
+          f"frame equals the CPU port's: {same}")
+    if not same:
+        fail("tracking_io (b): visualize differs from the CPU port's")
+    return dict(ms_without_visualize=ms[False], ms_with_visualize=ms[True],
+                visualize_peak_bytes=peak, boxes_drawn=n_valid)
+
+
+def write_sequences(root: str, dev):
+    """TUM_FRAMES frames of step 9's room along the walk at 480x640, as a
+    TUM RGB-D sequence (rgb/, depth/ (16-bit, 5000 a metre), rgb.txt,
+    depth.txt, groundtruth.txt with the depth and pose timestamps 5 and 2
+    ms after the colour ones) under root/tum and the first KITTI_FRAMES as
+    a KITTI odometry sequence (image_2/, poses.txt) under root/kitti. The
+    frames (uint8, H x W), camera centres, (w, x, y, z) quaternions and
+    the KITTI frames' rotations, all camera to world."""
+    from kornia_tpu_torch.geometry.conversions import \
+        rotation_matrix_to_quaternion
+    from kornia_tpu_torch.io import write_image
+    from kornia_tpu_torch.utils.render import render_scene, walk_trajectory
+    Kt, scene = vo_setup(dev)
+    traj = walk_trajectory(TUM_FRAMES)
+    Rs = np.stack([T[:3, :3].astype(np.float64).T for T in traj])
+    quats = rotation_matrix_to_quaternion(torch.from_numpy(Rs)).numpy()
+    tum, kitti = os.path.join(root, "tum"), os.path.join(root, "kitti")
+    for d in ("rgb", "depth"):
+        os.makedirs(os.path.join(tum, d))
+    os.makedirs(os.path.join(kitti, "image_2"))
+    frames, centres = [], []
+    with open(os.path.join(tum, "rgb.txt"), "w") as fr, \
+            open(os.path.join(tum, "depth.txt"), "w") as fd, \
+            open(os.path.join(tum, "groundtruth.txt"), "w") as fg:
+        fr.write("# color images\n")
+        fd.write("# depth images\n")
+        fg.write("# ground truth trajectory\n")
+        for i, T in enumerate(traj):
+            img, z = render_scene(scene, Kt, torch.from_numpy(T).to(dev),
+                                  H, W)
+            u8 = (img[0] * 255.0).clamp(0, 255).to(torch.uint8).expand(
+                3, H, W)
+            depth = (z * 5000.0).clamp(0, 65535).to(torch.int32).cpu(
+                ).numpy().astype(np.uint16)[None]
+            c = -Rs[i] @ T[:3, 3].astype(np.float64)
+            t = 100.0 + i / 30.0
+            write_image(os.path.join(tum, "rgb", f"{i:04d}.png"), u8)
+            write_image(os.path.join(tum, "depth", f"{i:04d}.png"), depth)
+            fr.write(f"{t:.6f} rgb/{i:04d}.png\n")
+            fd.write(f"{t + 0.005:.6f} depth/{i:04d}.png\n")
+            fg.write(f"{t + 0.002:.6f} " + " ".join(  # qx qy qz qw
+                f"{v:.9f}" for v in (*c, *quats[i, 1:], quats[i, 0])) + "\n")
+            if i < KITTI_FRAMES:
+                write_image(os.path.join(kitti, "image_2", f"{i:06d}.png"),
+                            u8)
+            frames.append(u8[0].cpu().numpy())
+            centres.append(c)
+    Rt = np.concatenate([Rs, np.stack(centres)[:, :, None]], 2)
+    np.savetxt(os.path.join(kitti, "poses.txt"),
+               Rt[:KITTI_FRAMES].reshape(KITTI_FRAMES, 12), fmt="%.9e")
+    return (Kt, np.stack(frames), np.stack(centres), quats,
+            Rs[:KITTI_FRAMES])
+
+
+def files_to_path(K, dev) -> dict:
+    """(c) TUM and KITTI sequences written and read back, the native
+    decoder's throughput where it builds, and two_view_pose on two decoded
+    frames."""
+    import tempfile
+
+    from kornia_tpu_torch.io import (KittiOdometrySequence, TUMSequence,
+                                     native)
+    from kornia_tpu_torch.slam.twoview import two_view_pose
+    out = {}
+    has_native = native.native_available()
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = None
+    decoder = "native libjpeg/libpng" if has_native else pil
+    print(f"tracking_io (c) decoders: native_available() {has_native}, "
+          f"{pil or 'PIL absent'}; PNG frames decode through {decoder}")
+    if decoder is None:
+        fail("tracking_io (c): no image decoder on this machine (native "
+             "library not built and PIL absent)")
+    with tempfile.TemporaryDirectory(prefix="tracking-io-") as root:
+        t0 = time.perf_counter()
+        Kt, frames, centres, quats, Rs = write_sequences(root, dev)
+        out["write_s"] = time.perf_counter() - t0
+        seq = TUMSequence(os.path.join(root, "tum"), window=TUM_WINDOW,
+                          stride=TUM_WINDOW, grayscale=False)
+        want = (frames.astype(np.float32) / np.float32(255.0))
+        win_ms, img_eq, gt_err = [], True, 0.0
+        for w in range(len(seq)):
+            t1 = time.perf_counter()
+            item = seq[w]
+            win_ms.append((time.perf_counter() - t1) * 1e3)
+            sl = slice(w * TUM_WINDOW, (w + 1) * TUM_WINDOW)
+            img_eq &= bool(np.array_equal(item["images"][:, 0], want[sl])
+                           and np.array_equal(item["images"][:, 0],
+                                              item["images"][:, 2]))
+            q = item["quaternions_wxyz"]
+            gt_err = max(gt_err,
+                         float(np.abs(item["positions"] - centres[sl]).max()),
+                         float(np.abs(q - quats[sl]).max()))
+            if w == 0:
+                window0 = item
+        kseq = KittiOdometrySequence(os.path.join(root, "kitti", "image_2"),
+                                     os.path.join(root, "kitti",
+                                                  "poses.txt"),
+                                     window=TUM_WINDOW, stride=TUM_WINDOW)
+        k_eq, k_err = True, 0.0
+        for w in range(len(kseq)):
+            item = kseq[w]
+            sl = slice(w * TUM_WINDOW, (w + 1) * TUM_WINDOW)
+            k_eq &= bool(np.array_equal(item["images"][:, 0], want[sl]))
+            k_err = max(k_err, float(np.abs(item["R"] - Rs[sl]).max()),
+                        float(np.abs(item["t"] - centres[sl]).max()))
+        out.update(tum_windows=len(seq), kitti_windows=len(kseq),
+                   window_ms=float(np.median(win_ms)), window_runs_ms=win_ms,
+                   tum_images_equal=img_eq, tum_pose_err=gt_err,
+                   kitti_images_equal=k_eq, kitti_pose_err=k_err,
+                   native_available=has_native, decoder=decoder)
+        print(f"tracking_io (c) TUM {TUM_FRAMES} frames 480x640 through "
+              f"TUMSequence(window={TUM_WINDOW}, stride={TUM_WINDOW}): "
+              f"{len(seq)} windows, median {out['window_ms']:.2f} ms a "
+              f"window, frames bit for bit {img_eq}, ground truth within "
+              f"{gt_err:.2e}; KITTI {KITTI_FRAMES} frames: {len(kseq)} "
+              f"windows, frames {k_eq}, R and t within {k_err:.2e} (limit "
+              f"{POSE_FILE_ATOL}); written in {out['write_s']:.2f} s")
+        if not (img_eq and k_eq and gt_err <= POSE_FILE_ATOL
+                and k_err <= POSE_FILE_ATOL):
+            fail("tracking_io (c): the sequences read back differ from what "
+                 "was written")
+        if has_native:
+            paths = sorted(os.path.join(root, "tum", "rgb", f)
+                           for f in os.listdir(os.path.join(root, "tum",
+                                                            "rgb")))
+            s_batch = synced_s(lambda: native.read_batch_native(
+                paths, (240, 320)))
+            t1 = time.perf_counter()
+            n = sum(b.shape[0] for b in native.NativeBatchLoader(
+                [paths[i:i + TUM_WINDOW] for i in range(0, len(paths),
+                                                        TUM_WINDOW)],
+                (240, 320)))
+            s_loader = time.perf_counter() - t1
+            out.update(native_batch_images_per_s=len(paths) / s_batch,
+                       native_loader_images_per_s=n / s_loader)
+            print(f"tracking_io (c) native decode + resize to 240x320: "
+                  f"read_batch_native {len(paths) / s_batch:.1f} images/s, "
+                  f"NativeBatchLoader {n / s_loader:.1f} images/s")
+    # the main path on frames 0 and 4 of the first decoded window, and on
+    # the same frames before they were written
+    dec = [torch.from_numpy(window0["images"][i, :1][None]).to(dev)
+           for i in (0, 4)]
+    mem = [torch.from_numpy(want[i][None, None]).to(dev) for i in (0, 4)]
+    if not all(torch.equal(a, b) for a, b in zip(dec, mem)):
+        fail("tracking_io (c): decoded inputs differ from the written frames")
+
+    def pair(imgs):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        return lambda: two_view_pose(imgs[0], imgs[1], Kt, generator=gen,
+                                     num_features=NF, device=dev)
+
+    launches = counted_run(K, pair(dec), "tracking_io (c) two_view_pose "
+                                         "from disk")
+    res, ref = pair(dec)(), pair(mem)()
+    dR = float((res.R - ref.R).abs().max())
+    dt = float((res.t - ref.t).abs().max())
+    bitwise = torch.equal(res.R, ref.R) and torch.equal(res.t, ref.t)
+    rot = math.degrees(angle_of_rotation(res.R))
+    print(f"tracking_io (c) two_view_pose on decoded frames 0 and 4: "
+          f"rotation {rot:.4f} deg, t {res.t.reshape(-1).tolist()}, inliers "
+          f"{int(res.num_inliers)}; against the frames before writing: R "
+          f"{dR:.2e}, t {dt:.2e} (bitwise {bitwise}; limit "
+          f"{POSE_FILE_ATOL})")
+    if not (dR <= POSE_FILE_ATOL and dt <= POSE_FILE_ATOL):
+        fail("tracking_io (c): the pose from disk differs from the pose of "
+             "the frames before writing")
+    calls = capture_launches(K, pair(dec))
+    checks = check_captured(K, calls, "tracking_io (c)")
+    out.update(launches=launches, pose_rotation_deg=rot,
+               pose_diff_R=dR, pose_diff_t=dt, pose_bitwise=bitwise,
+               inliers=int(res.num_inliers), checks=checks, calls=calls)
+    return out
+
+
+def tracking_io_phase(K, dev) -> dict:
+    """Step 13: multi-object tracking, image containers and file IO (see
+    the module's docstring)."""
+    t_phase = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        r = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return r
+
+    a = part("bytetrack", bytetrack_stream, dev)
+    b = part("boxtracker", boxtracker_visualize, dev, a.pop("dets"))
+    c = part("files", files_to_path, K, dev)
+    results, counts = {}, {}
+    for name, cs in c.pop("calls").items():
+        key = f"{name}@tracking_io"
+        results[key] = captured_entry(K, name, cs, c["checks"][name],
+                                      REPLACES[name])
+        counts[key] = c["launches"].get(name, 0)
+    report(results)
+    out = dict(bytetrack=a, boxtracker=b, files=c, part_s=part_s,
+               seconds=time.perf_counter() - t_phase)
+    print(f"tracking_io phase: {out['seconds']:.1f} s, parts "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} }")
+    print(json.dumps({"tracking_io": out}))
+    return dict(kernels=results, counts=counts, **out)
 
 
 def main() -> int:
@@ -4123,6 +4657,8 @@ def main() -> int:
         keynet_stereo = keynet_stereo_phase(K, dev)
     with f32_precision():
         distributed = distributed_phase(dev, card)
+    with f32_precision():
+        tracking_io = tracking_io_phase(K, dev)
     for ph in phases.values():
         entries += [(name, r, ph["launches"]) for name, r in
                     ph["kernels"].items()]
@@ -4134,6 +4670,8 @@ def main() -> int:
                 learned["kernels"].items()]
     entries += [(name, r, keynet_stereo["counts"]) for name, r in
                 keynet_stereo["kernels"].items()]
+    entries += [(name, r, tracking_io["counts"]) for name, r in
+                tracking_io["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on its path")
@@ -4186,7 +4724,17 @@ def main() -> int:
                       "stereo_peak_bytes":
                           keynet_stereo["stereo"]["peak_bytes"],
                       "stitch_ms": keynet_stereo["stitch"]["ms"],
-                      "distributed_seconds": distributed["seconds"]}))
+                      "distributed_seconds": distributed["seconds"],
+                      "tracking_frames_per_s":
+                          tracking_io["bytetrack"]["frames_per_s"],
+                      "tracking_ms_median":
+                          tracking_io["bytetrack"]["ms_median"],
+                      "tracking_peak_bytes":
+                          tracking_io["bytetrack"]["peak_bytes"],
+                      "boxtracker_visualize_ms":
+                          tracking_io["boxtracker"]["ms_with_visualize"],
+                      "tum_window_ms": tracking_io["files"]["window_ms"],
+                      "tracking_io_seconds": tracking_io["seconds"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

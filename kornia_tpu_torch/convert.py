@@ -11,6 +11,9 @@ a ``BAState``, ``BAProblem`` or ``PoseGraph`` as its fields. Index arrays
 become int64. A rendered scene crosses as its four arrays
 (``plane_scene_from_numpy``), so that both packages render the same room.
 
+A ``TrackState`` crosses as its eight arrays
+(``track_state_from_numpy``), so that both trackers resume from one state.
+
 The learned nets cross as their parameter dicts (``*_from_numpy``): HardNet,
 OriNet, AffNet and KeyNet store OIHW conv weights, as torch does; LoFTR
 stores its convs HWIO, which become OIHW.
@@ -30,13 +33,14 @@ from .feature.loftr import LoFTR, LoFTRConfig
 from .geometry.liegroup import Quaternion, Se3, So3
 from .slam.ba import BAProblem, BAState
 from .slam.posegraph import PoseGraph
+from .tracking.bytetrack import TrackState
 from .utils.render import PlaneScene
 
 __all__ = ["state_from_numpy", "se3_from_numpy", "ba_state_from_numpy",
            "ba_problem_from_numpy", "pose_graph_from_numpy",
            "plane_scene_from_numpy", "hardnet_from_numpy",
            "orinet_from_numpy", "affnet_from_numpy", "keynet_from_numpy",
-           "loftr_from_numpy"]
+           "loftr_from_numpy", "track_state_from_numpy"]
 
 Device = Union[str, torch.device]
 
@@ -138,3 +142,16 @@ def loftr_from_numpy(params: Mapping[str, Any],
     out = {k: np.asarray(v) for k, v in params.items()}
     return LoFTR(cfg, {k: v.transpose(3, 2, 0, 1) if v.ndim == 4 else v
                        for k, v in out.items()}, device=device)
+
+
+def track_state_from_numpy(mean, cov, score, cls, track_id, alive, misses,
+                           next_id, device: Device = "cuda") -> TrackState:
+    """A track table's arrays (T, 8), (T, 8, 8), (T,) x 5 and () →
+    TrackState (float32, int32 ids, misses and next_id, bool alive)."""
+    f32, i32 = torch.float32, torch.int32
+    return TrackState(_tensor(mean, device, f32), _tensor(cov, device, f32),
+                      _tensor(score, device, f32), _tensor(cls, device, f32),
+                      _tensor(track_id, device, i32),
+                      _tensor(alive, device, torch.bool),
+                      _tensor(misses, device, i32),
+                      _tensor(next_id, device, i32))

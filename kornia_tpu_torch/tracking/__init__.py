@@ -1,1 +1,1 @@
-"""Tracking: the planar homography tracker."""
+"""Tracking: the planar homography tracker and ByteTrack."""

@@ -1077,3 +1077,101 @@ def test_cuda_nccl_refuses_more_ranks_than_cards(cuda_device):
     with pytest.raises(RuntimeError, match="NCCL refuses two ranks"):
         spmd.spawn(W.failing_worker, torch.cuda.device_count() + 1, "nccl",
                    "cuda", 0)
+
+
+# --- tracking, boxes, image containers and IO (no kernel of their own) ------
+
+def _track_stream(frames=12, n=24, targets=8):
+    """Seeded detections (frames, n, 6): targets at constant velocity with
+    1 px of jitter, some scored low, two false positives a frame."""
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(50, 400, (targets, 2))
+    vel = rng.uniform(-3, 3, (targets, 2))
+    hs = rng.uniform(40, 120, targets)
+    out = np.zeros((frames, n, 6), np.float32)
+    for f in range(frames):
+        rows = [(0, rng.uniform(0.15, 0.5) if rng.random() < 0.15
+                 else rng.uniform(0.6, 1.0), *(pos[k] + f * vel[k]
+                                              + rng.normal(0, 1, 2)),
+                 0.41 * hs[k], hs[k])
+                for k in range(targets) if rng.random() > 0.1]
+        rows += [(0, rng.uniform(0.1, 0.45), *rng.uniform(0, 480, 2),
+                  *rng.uniform(10, 60, 2)) for _ in range(2)]
+        rng.shuffle(rows)
+        out[f, :len(rows)] = np.asarray(rows, np.float32)
+    return out
+
+
+def test_cuda_bytetrack_defaults_to_the_card_and_matches_the_cpu(cuda_device):
+    """ByteTracker() and TrackState.empty() land on the card; a frame's
+    update makes no host sync; ids and validity equal the CPU port's,
+    boxes within 1e-3 of the largest coordinate."""
+    from kornia_tpu_torch.tracking.bytetrack import ByteTracker, TrackState
+    assert TrackState.empty(4).mean.device.type == "cuda"
+    tc, tp = ByteTracker(capacity=32), ByteTracker(capacity=32, device="cpu")
+    sc, sp = tc.init_state(), tp.init_state()
+    assert all(getattr(sc, f).is_cuda for f in ("mean", "track_id",
+                                                "next_id"))
+    dets = _track_stream()
+    sc = tc.update(sc, torch.from_numpy(dets[0]).to(cuda_device))
+    sp = tp.update(sp, torch.from_numpy(dets[0]))
+    for d in dets[1:]:
+        dc = torch.from_numpy(d).to(cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sc = tc.update(sc, dc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sp = tp.update(sp, torch.from_numpy(d))
+        for f in ("track_id", "alive", "misses", "next_id"):
+            assert torch.equal(getattr(sc, f).cpu(), getattr(sp, f)), f
+        bc, bp = tc.current_tracks(sc)[0].cpu(), tp.current_tracks(sp)[0]
+        v = sp.alive
+        assert (bc[v] - bp[v]).abs().max() <= 1e-3 * bp[v].abs().max()
+
+
+def test_cuda_load_image_and_containers_default_to_the_card(cuda_device,
+                                                            tmp_path):
+    from kornia_tpu_torch.image import Image
+    from kornia_tpu_torch.io import ImageLoadType, load_image, write_image
+    from kornia_tpu_torch.utils.misc import image_to_tensor
+    arr = (np.random.default_rng(1).random((12, 10, 3)) * 255).astype(
+        np.uint8)
+    p = str(tmp_path / "a.png")
+    write_image(p, torch.from_numpy(arr).permute(2, 0, 1).cuda())
+    for typ in ImageLoadType:
+        got = load_image(p, typ)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), load_image(p, typ, device="cpu"))
+    assert Image.from_numpy(arr).data.is_cuda
+    assert image_to_tensor(arr).is_cuda
+
+
+def test_cuda_draws_and_masks_equal_the_cpu(cuda_device):
+    from kornia_tpu_torch.geometry.bbox import nms
+    from kornia_tpu_torch.geometry.boxes import Boxes
+    from kornia_tpu_torch.image import draw
+    rng = np.random.default_rng(2)
+    img = torch.from_numpy(rng.random((2, 3, 40, 56)).astype(np.float32))
+    xy = rng.uniform(0, 40, (2, 5, 2))
+    rect = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(2, 20, (2, 5, 2))], -1).astype(np.float32))
+    col = torch.tensor([1.0, 0.5, 0.0])
+    poly = torch.tensor([[[4.0, 3.0], [25.0, 5.0], [20.0, 20.0],
+                          [6.0, 15.0]]] * 2)
+    pts = torch.from_numpy(rng.uniform(-3, 60, (9, 2)).astype(np.float32))
+    calls = [
+        lambda d: draw.draw_rectangle(img.to(d), rect.to(d), col.to(d)),
+        lambda d: draw.draw_rectangle(img.to(d), rect.to(d), col.to(d),
+                                      fill=True),
+        lambda d: draw.draw_point2d(img[0].to(d), pts.to(d), col.to(d)),
+        lambda d: draw.draw_line(img[1].to(d), torch.tensor([2.0, 3.0]),
+                                 torch.tensor([50.0, 31.5]), col.to(d)),
+        lambda d: draw.draw_convex_polygon(img.to(d), poly.to(d), col.to(d)),
+        lambda d: Boxes.from_tensor(rect.to(d)).to_mask(40, 56),
+        lambda d: nms(rect[0].to(d), torch.tensor(
+            [0.9, 0.5, 0.5, 0.7, 0.2]).to(d), 0.3)]
+    for fn in calls:
+        got = fn(cuda_device)
+        assert got.is_cuda and torch.equal(got.cpu(), fn("cpu"))

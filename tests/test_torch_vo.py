@@ -110,7 +110,8 @@ def seq():
     frames = [render(jnp.asarray(T)) for T in traj]
     gt = _centres(traj)
     length = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
-    return dict(traj=traj, frames=frames, gt=gt, length=length)
+    return dict(traj=traj, frames=frames, gt=gt, length=length,
+                render=render)
 
 
 def _reference(seq, draws):
@@ -493,3 +494,132 @@ def test_refined_run_matches_the_reference(seq, ref, port):
     for a, b in zip(fc_t, fc_j):
         np.testing.assert_allclose(a["kp"], b["kp"], atol=1e-2, rtol=0)
         np.testing.assert_array_equal(a["valid"], b["valid"])
+
+
+# --- a divergence kept: near-tied essential models on the loop -------------
+
+@pytest.mark.slow  # the JAX 5-point solver compiles for about 35 s
+def test_loop_step_essential_split_is_f32_rounding(seq, draws):
+    """The loop trajectory's 4th step (frames 3 -> 4 of
+    ``loop_trajectory(24)`` at 120x160), where the libraries' essential
+    RANSAC chose different models in a teacher-forced run. Its one round
+    (the confidence bound stops after 128 samples) on the same matches
+    and Gumbel noise: the same minimal samples, and the same MSAC score
+    for every candidate that both solvers return; the split is one
+    candidate of one sample, whose degree-10 polynomial's coefficients
+    differ by f32 rounding (below 1e-4 relative) and whose ill-conditioned
+    complex roots, which seed the Gauss-Newton polish, move by percents
+    with them. On the same coefficients both root finders agree. So the
+    split is rounding, not an ordering or scoring difference."""
+    from kornia_tpu.core.linalg import gauss_det as j_gauss_det
+    from kornia_tpu.core.linalg import nullspace_qr as j_nullspace_qr
+    from kornia_tpu.feature.matching import match_smnn
+    from kornia_tpu.geometry import epipolar as j_epi
+    from kornia_tpu.geometry import ransac as j_ran
+    from kornia_tpu.geometry import solvers as j_sol
+    from kornia_tpu.geometry.conversions import \
+        normalize_points_with_intrinsics
+    from kornia_tpu_torch.core.linalg import f32_precision
+    from kornia_tpu_torch.core.sort import top_k
+    from kornia_tpu_torch.geometry import epipolar as t_epi
+    from kornia_tpu_torch.geometry import ransac as t_ran
+    from kornia_tpu_torch.geometry import solvers as t_sol
+
+    step = 3
+    detect = jvo_mod.VisualOdometry(jnp.asarray(K), **VO_KW)._detect_fn()
+    (kp0, d0, v0), (kp1, d1, v1) = [
+        detect(seq["render"](jnp.asarray(T)))
+        for T in jr.loop_trajectory(24)[step:step + 2]]
+    _, idx, mvalid = match_smnn(d0, d1, 0.95, v0, v1)
+    x0 = normalize_points_with_intrinsics(kp0, jnp.asarray(K))
+    x1 = normalize_points_with_intrinsics(kp1[idx[:, 1]], jnp.asarray(K))
+    th2 = float(np.float32(1.5 / float(0.5 * (K[0, 0] + K[1, 1])))) ** 2
+    g = draws["draws"][step][0][0]  # round 0 of the essential noise
+    mask = torch.from_numpy(np.array(mvalid))
+    p1, p2 = _t(x0), _t(x1)
+    _, ix = top_k(g + torch.where(mask, 0.0, -float("inf"))[None], 5)
+    _, jix = jax.lax.top_k(jnp.asarray(g.numpy()) + jnp.where(
+        mvalid, 0.0, -jnp.inf)[None], 5)
+    np.testing.assert_array_equal(ix.numpy(), np.asarray(jix))
+    S = ix.shape[0]
+
+    @jax.jit
+    def j_models_scores(a, b):
+        models = j_epi.run_5point(a, b)
+        flat = models.reshape(-1, 3, 3)
+        msac, cnt = j_ran._msac_scores("essential", x0, x1, flat, mvalid,
+                                       th2)
+        ok = jnp.linalg.norm(flat.reshape(-1, 9), axis=-1) > 1e-6
+        return flat, jnp.where(ok, msac, jnp.inf), cnt
+
+    jm, js, jc = [np.asarray(a) for a in j_models_scores(x0[jix], x1[jix])]
+    with f32_precision():
+        tm = t_epi.run_5point(p1[ix], p2[ix]).reshape(-1, 3, 3)
+        ts, tc = t_ran._msac_scores("essential", p1, p2, tm, mask, th2)
+    ok = torch.linalg.vector_norm(tm.reshape(-1, 9), dim=-1) > 1e-6
+    ts = torch.where(ok, ts, float("inf")).numpy()
+    tm, tc = tm.numpy(), tc.numpy()
+    jb, tb = int(np.argmin(js)), int(np.argmin(ts))
+    print(f"round 0: JAX's best candidate {jb} (sample {jb // 20}) MSAC "
+          f"{js[jb]:.6e}, {int(jc[jb])} inliers; the port's {tb} (sample "
+          f"{tb // 20}) {ts[tb]:.6e}, {int(tc[tb])} inliers; the port's "
+          f"candidate {jb} {ts[jb]:.6e}")
+    # the port's scoring of JAX's candidates is JAX's, and most candidates
+    # of the two solvers agree
+    with f32_precision():
+        ts_of_j, _ = t_ran._msac_scores("essential", p1, p2,
+                                        torch.from_numpy(jm), mask, th2)
+    fin = np.isfinite(js)
+    np.testing.assert_allclose(ts_of_j.numpy()[fin], js[fin], rtol=1e-5)
+    nj = jm / np.maximum(np.linalg.norm(jm, axis=(1, 2)), 1e-30)[:, None, None]
+    nt = tm / np.maximum(np.linalg.norm(tm, axis=(1, 2)), 1e-30)[:, None, None]
+    same = np.minimum(np.abs(nj - nt).max((1, 2)),
+                      np.abs(nj + nt).max((1, 2))) < 1e-3
+    same &= fin & np.isfinite(ts)
+    assert same.sum() > 0.8 * fin.sum()
+    # the split: the port lacks JAX's best model, and scores worse
+    assert jb != tb and not same[jb] and ts[tb] > js[jb]
+
+    # the split sample's reversed polynomial in both libraries
+    smp = jb // 20
+
+    def j_coeffs(a, b):
+        x1_, y1_, x2_, y2_ = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+        A = jnp.stack([x2_ * x1_, x2_ * y1_, x2_, y2_ * x1_, y2_ * y1_, y2_,
+                       x1_, y1_, jnp.ones_like(x1_)], -1)
+        Eb = jnp.moveaxis(j_nullspace_qr(A), -1, 1).reshape(-1, 4, 3, 3)
+        c = j_epi._essential_constraints(Eb)
+        c = c / jnp.maximum(jnp.linalg.norm(c, axis=-1, keepdims=True),
+                            1e-12)
+        dets = [j_gauss_det(j_epi._c_matrix_at(
+            c, jnp.asarray(z, jnp.float32), True)) for z in j_epi._NODES]
+        return jnp.stack(dets, -1) @ jnp.asarray(j_epi._VAND_INV,
+                                                 jnp.float32).T
+
+    with f32_precision():
+        A = t_epi._design_matrix(p1[ix][smp:smp + 1], p2[ix][smp:smp + 1])
+        from kornia_tpu_torch.core.linalg import gauss_det, nullspace_qr
+        c = t_epi._essential_constraints(
+            nullspace_qr(A).movedim(-1, 1).reshape(1, 4, 3, 3))
+        c = c / torch.linalg.vector_norm(c, dim=-1,
+                                         keepdim=True).clamp_min(1e-12)
+        tco = torch.stack([gauss_det(t_epi._c_matrix_at(
+            c, torch.tensor(z, dtype=torch.float32), True))
+            for z in t_epi._NODES], -1) @ torch.as_tensor(
+            t_epi._VAND_INV, dtype=torch.float32).T
+    jco = np.asarray(jax.jit(j_coeffs)(x0[jix][smp:smp + 1],
+                                       x1[jix][smp:smp + 1]))
+    rel = np.abs(tco.numpy() - jco).max() / np.abs(jco).max()
+    j_roots = np.asarray(jax.jit(lambda c: j_sol.poly_roots(c, tol=1e-5))(
+        jnp.asarray(jco)))[0]
+    t_same = t_sol.poly_roots(torch.from_numpy(jco), tol=1e-5).numpy()[0]
+    t_own = t_sol.poly_roots(tco, tol=1e-5).numpy()[0]
+    move = max(np.abs(t_own - r).min() / abs(r) for r in j_roots)
+    print(f"sample {smp}: coefficients {rel:.2e} apart (relative); on the "
+          f"same coefficients the roots agree to "
+          f"{max(np.abs(t_same - r).min() for r in j_roots):.2e}; on its "
+          f"own the port's roots move by up to {move:.2%}")
+    assert rel < 1e-4
+    for r in j_roots:
+        assert np.abs(t_same - r).min() <= 1e-3 * max(1.0, abs(r))
+    assert move > 0.01
