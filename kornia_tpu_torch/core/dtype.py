@@ -8,7 +8,8 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["compute_dtype", "as_float", "float32_on"]
+__all__ = ["compute_dtype", "as_float", "float32_on", "solve_dtype",
+           "bf16_storage", "true_div"]
 
 #: dtype used for general image compute
 compute_dtype = torch.float32
@@ -28,3 +29,25 @@ def float32_on(x: Any, device: Union[str, torch.device]) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.array(x, np.float32))
     return x.to(device=device, dtype=torch.float32)
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded as a division on every device. PyTorch's CUDA division
+    by a Python number multiplies by its reciprocal, up to one ulp off the
+    quotient that the CPU and the JAX reference compute; where a floor, a
+    bin or a sampling coordinate follows, the port divides by a 0-dim
+    tensor (filled on the device, so no host copy) instead."""
+    x = as_float(x)
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def solve_dtype() -> torch.dtype:
+    """Dtype for linear solves: float32. The JAX package returns float64
+    when its x64 switch is on (its CPU tests); the port has no such switch
+    and conditions its float32 solves instead (core/linalg.py)."""
+    return torch.float32
+
+
+def bf16_storage(x: torch.Tensor) -> torch.Tensor:
+    """Cast to bfloat16 for storage in device memory."""
+    return x.to(torch.bfloat16)

@@ -7,8 +7,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["create_meshgrid", "normalize_pixel_coordinates",
-           "denormalize_pixel_coordinates"]
+__all__ = ["create_meshgrid", "create_meshgrid3d",
+           "normalize_pixel_coordinates", "denormalize_pixel_coordinates",
+           "normalize_pixel_coordinates3d", "denormalize_pixel_coordinates3d"]
 
 
 def create_meshgrid(height: int, width: int,
@@ -25,6 +26,22 @@ def create_meshgrid(height: int, width: int,
         ys = torch.arange(height, dtype=dtype, device=device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([gx, gy], dim=-1)[None]
+
+
+def create_meshgrid3d(depth: int, height: int, width: int,
+                      normalized_coordinates: bool = True,
+                      dtype: torch.dtype = torch.float32,
+                      device: Optional[torch.device] = "cuda") -> torch.Tensor:
+    """(1, D, H, W, 3) grid of (x, y, z) coordinates, normalized to [-1, 1]
+    or in pixels."""
+    def axis(n):
+        if normalized_coordinates:
+            return torch.linspace(-1.0, 1.0, n, dtype=dtype, device=device)
+        return torch.arange(n, dtype=dtype, device=device)
+
+    gz, gy, gx = torch.meshgrid(axis(depth), axis(height), axis(width),
+                                indexing="ij")
+    return torch.stack([gx, gy, gz], dim=-1)[None]
 
 
 def _extent(pixel: torch.Tensor, height: int, width: int,
@@ -45,3 +62,23 @@ def denormalize_pixel_coordinates(coord: torch.Tensor, height: int,
                                   eps: float = 1e-8) -> torch.Tensor:
     return (coord + 1.0) * _extent(coord, height, width, eps) / 2.0
 
+
+
+def _extent3d(pixel: torch.Tensor, depth: int, height: int, width: int,
+              eps: float) -> torch.Tensor:
+    """(W - 1, H - 1, D - 1), each at least eps."""
+    return torch.tensor([width - 1, height - 1, depth - 1], dtype=pixel.dtype,
+                        device=pixel.device).clamp_min(eps)
+
+
+def normalize_pixel_coordinates3d(pixel: torch.Tensor, depth: int,
+                                  height: int, width: int,
+                                  eps: float = 1e-8) -> torch.Tensor:
+    """(..., 3) voxel coordinates (x, y, z) → [-1, 1]³."""
+    return 2.0 * pixel / _extent3d(pixel, depth, height, width, eps) - 1.0
+
+
+def denormalize_pixel_coordinates3d(coord: torch.Tensor, depth: int,
+                                    height: int, width: int,
+                                    eps: float = 1e-8) -> torch.Tensor:
+    return (coord + 1.0) * _extent3d(coord, depth, height, width, eps) / 2.0

@@ -24,8 +24,12 @@ __all__ = [
     "det_3x3",
     "inverse_2x2",
     "inverse_3x3",
+    "safe_solve_with_mask",
+    "safe_inverse_with_mask",
     "solve_refined",
     "lstsq_nullspace",
+    "eigh_smallest",
+    "symeig_3x3",
     "gauss_det",
     "gauss_solve",
     "nullspace_qr",
@@ -84,17 +88,56 @@ def inverse_3x3(m: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
     return adj_t / (det + _signed_eps(det, eps))
 
 
+def _equilibrate(A: torch.Tensor, b: torch.Tensor):
+    """Rows of A (and b) scaled by their largest |entry|, so that the f32
+    LU is better conditioned."""
+    scale = A.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(scale > 0, scale, 1.0)
+    return A / scale, b / scale
+
+
 def solve_refined(A: torch.Tensor, b: torch.Tensor,
                   iters: int = 1) -> torch.Tensor:
     """f32 solve with row equilibration and `iters` steps of iterative
     refinement. b: (..., n, k)."""
-    scale = A.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(scale > 0, scale, 1.0)
-    As, bs = A / scale, b / scale
+    As, bs = _equilibrate(A, b)
     x = torch.linalg.solve(As, bs)
     for _ in range(iters):
         x = x + torch.linalg.solve(As, bs - As @ x)
     return x
+
+
+def safe_solve_with_mask(B: torch.Tensor, A: torch.Tensor):
+    """Solve A X = B without raising on a singular system: (X, the system
+    solved (equilibrated A, the identity where singular), valid mask). X is
+    zero where A is singular or the solve is not finite; one step of
+    iterative refinement."""
+    As, Bs = _equilibrate(A, B)
+    ok = torch.linalg.det(As).abs() > _EPS
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(
+        A.shape)
+    A_safe = torch.where(ok[..., None, None], As, eye)
+    X = torch.linalg.solve(A_safe, Bs)
+    X = X + torch.linalg.solve(A_safe, Bs - A_safe @ X)
+    X = torch.where(ok[..., None, None], X, 0.0)
+    ok = ok & torch.isfinite(X).all(dim=-1).all(dim=-1)
+    return X, A_safe, ok
+
+
+def safe_inverse_with_mask(A: torch.Tensor):
+    """Batched inverse and validity mask: the closed forms for 2x2 and 3x3,
+    else LU on the systems whose determinant is not ~0; zero where
+    singular."""
+    n = A.shape[-1]
+    if n == 2:
+        inv, ok = inverse_2x2(A), det_2x2(A).abs() > _EPS
+    elif n == 3:
+        inv, ok = inverse_3x3(A), det_3x3(A).abs() > _EPS
+    else:
+        ok = torch.linalg.det(A).abs() > _EPS
+        eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+        inv = torch.linalg.inv(torch.where(ok[..., None, None], A, eye))
+    return torch.where(ok[..., None, None], inv, 0.0), ok
 
 
 def lstsq_nullspace(A: torch.Tensor) -> torch.Tensor:
@@ -104,6 +147,19 @@ def lstsq_nullspace(A: torch.Tensor) -> torch.Tensor:
     AtA = torch.einsum("...mi,...mj->...ij", A, A)
     _, vecs = torch.linalg.eigh(AtA)
     return vecs[..., :, 0]
+
+
+def eigh_smallest(S: torch.Tensor):
+    """(eigenvalue, eigenvector) of the smallest eigenvalue of symmetric S;
+    the vector's sign is LAPACK's choice."""
+    vals, vecs = torch.linalg.eigh(S)
+    return vals[..., 0], vecs[..., :, 0]
+
+
+def symeig_3x3(S: torch.Tensor):
+    """Eigendecomposition of batched symmetric 3x3 (ascending values; each
+    vector's sign is LAPACK's choice)."""
+    return torch.linalg.eigh(S)
 
 
 def _pivot_rows(a: torch.Tensor, k: int, rows: torch.Tensor):

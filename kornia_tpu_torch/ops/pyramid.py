@@ -1,5 +1,5 @@
-"""Image pyramids (counterpart of ``kornia_tpu/ops/pyramid.py``, the part
-the front ends and training reach): ``pyrdown``, ``build_pyramid``,
+"""Image pyramids (counterpart of ``kornia_tpu/ops/pyramid.py``):
+``pyrdown``, ``pyrup``, the Gaussian and Laplacian pyramids,
 ``upscale_double`` and the SIFT ``ScalePyramid``.
 
 Every octave's levels come from one ``multi_level_blur`` call: the
@@ -22,7 +22,8 @@ from .filters import filter2d_separable, gaussian_blur2d, get_gaussian_kernel1d
 from .kernels import multi_level_blur
 from .warp import resize
 
-__all__ = ["pyrdown", "build_pyramid", "upscale_double", "ScalePyramid"]
+__all__ = ["pyrdown", "pyrup", "build_pyramid", "build_laplacian_pyramid",
+           "upscale_double", "ScalePyramid"]
 
 _PYR_TAPS = [1.0, 4.0, 6.0, 4.0, 1.0]
 
@@ -38,6 +39,17 @@ def pyrdown(input: torch.Tensor, border_type: str = "reflect",
                   interpolation="bilinear", align_corners=align_corners)
 
 
+def pyrup(input: torch.Tensor, border_type: str = "reflect",
+          align_corners: bool = False) -> torch.Tensor:
+    """Upsample by 2 (bilinear), then blur with the 5-tap binomial kernel."""
+    x = as_float(input)
+    H, W = x.shape[-2:]
+    up = resize(x, (2 * H, 2 * W), interpolation="bilinear",
+                align_corners=align_corners)
+    k = torch.tensor([_PYR_TAPS], dtype=x.dtype, device=x.device) / 16.0
+    return filter2d_separable(up, k, k, border_type)
+
+
 def build_pyramid(input: torch.Tensor, max_level: int,
                   border_type: str = "reflect",
                   align_corners: bool = False) -> List[torch.Tensor]:
@@ -47,6 +59,21 @@ def build_pyramid(input: torch.Tensor, max_level: int,
     for _ in range(max_level - 1):
         pyramid.append(pyrdown(pyramid[-1], border_type, align_corners))
     return pyramid
+
+
+def build_laplacian_pyramid(input: torch.Tensor, max_level: int,
+                            border_type: str = "reflect",
+                            align_corners: bool = False
+                            ) -> List[torch.Tensor]:
+    """Laplacian pyramid: each Gaussian level minus the ``pyrup`` of the
+    next (resized to it), the last level the Gaussian residual."""
+    gp = build_pyramid(input, max_level, border_type, align_corners)
+    lp = []
+    for i in range(max_level - 1):
+        up = pyrup(gp[i + 1], border_type, align_corners)
+        lp.append(gp[i] - resize(up, tuple(gp[i].shape[-2:]), "bilinear"))
+    lp.append(gp[-1])
+    return lp
 
 
 def upscale_double(x: torch.Tensor) -> torch.Tensor:

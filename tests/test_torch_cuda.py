@@ -1175,3 +1175,81 @@ def test_cuda_draws_and_masks_equal_the_cpu(cuda_device):
     for fn in calls:
         got = fn(cuda_device)
         assert got.is_cuda and torch.equal(got.cpu(), fn("cpu"))
+
+
+# --- the image-op layer -----------------------------------------------------------
+
+def _image_ops(device):
+    """A handful of the op layer's functions, each of one image batch."""
+    from kornia_tpu_torch.ops import color, enhance, morphology, warp
+    from kornia_tpu_torch.ops.deform_conv import deform_conv2d
+    from kornia_tpu_torch.ops.jpeg import jpeg_codec_differentiable
+    se = torch.linspace(0.0, 0.1, 9, device=device).reshape(3, 3)
+    off = torch.linspace(-2.0, 2.0, 18 * 24 * 32, device=device).reshape(
+        1, 18, 24, 32)
+    w = torch.linspace(-0.2, 0.2, 8 * 3 * 9, device=device).reshape(8, 3, 3, 3)
+    return {
+        "rgb_to_lab": (color.rgb_to_lab, 1e-4),
+        # the integer LUTs: bit for bit, as on the CPU
+        "equalize": (enhance.equalize, 0.0),
+        "equalize_clahe": (lambda x: enhance.equalize_clahe(x, 4.0, (4, 4)),
+                           0.0),
+        "posterize": (lambda x: enhance.posterize(x, 4), 0.0),
+        "median_blur": (lambda x: t_filters.median_blur(x, 3), 0.0),
+        "bilateral_blur": (lambda x: t_filters.bilateral_blur(
+            x, 5, 0.1, (1.5, 1.5)), ATOL),
+        "canny_edges": (lambda x: t_filters.canny(x)[1], 0.0),
+        "dilation_nonflat": (lambda x: morphology.dilation(
+            x, torch.ones_like(se), se), 0.0),
+        "resize_antialias": (lambda x: warp.resize(x, (13, 21),
+                                                   antialias=True), ATOL),
+        "resize_nearest": (lambda x: warp.resize(x, (37, 50), "nearest"),
+                           0.0),
+        "grid_sample_bicubic_reflection": (lambda x: warp.grid_sample(
+            x, torch.linspace(-1.2, 1.2, 24 * 32 * 2, device=x.device
+                              ).reshape(1, 24, 32, 2).expand(
+                x.shape[0], 24, 32, 2), "bicubic", "reflection"), ATOL),
+        "jpeg": (lambda x: jpeg_codec_differentiable(
+            x, torch.tensor(80.0, device=x.device)), 1e-4),
+        "deform_conv2d": (lambda x: deform_conv2d(
+            x[:1], off.to(x.device), w.to(x.device), padding=1), 1e-4),
+    }
+
+
+@pytest.mark.parametrize("name", list(_image_ops("cpu")))
+def test_cuda_image_ops_match_cpu(cuda_device, name):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((2, 3, 24, 32), generator=gen)
+    fn, tol = _image_ops(cuda_device)[name]
+    card = fn(x.to(cuda_device)).cpu()
+    fn_cpu, _ = _image_ops("cpu")[name]
+    torch.testing.assert_close(card, fn_cpu(x), atol=tol, rtol=0)
+
+
+def test_cuda_elastic_blur_is_the_tiled_fused_kernel(cuda_device):
+    """elastic_transform2d's 63-tap smoothing of (1, 2, 1080, 1920) noise is
+    one tiled launch of the fused blur and agrees with its plain version."""
+    from kornia_tpu_torch.ops import warp
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    noise = torch.rand((1, 2, 1080, 1920), device=cuda_device, generator=gen)
+    frame = torch.rand((1, 3, 1080, 1920), device=cuda_device, generator=gen)
+    calls = []
+    real = K.fused_separable_blur2d
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    K.fused_separable_blur2d = spy
+    before = K.launches["fused_separable_blur2d:tiled"]
+    try:
+        warp.elastic_transform2d(frame, noise)
+    finally:
+        K.fused_separable_blur2d = real
+    assert K.launches["fused_separable_blur2d:tiled"] == before + 1
+    (x, ky, kx, border), = calls
+    assert ky.numel() == kx.numel() == 63 and border == "constant"
+    torch.testing.assert_close(real(x, ky, kx, border),
+                               K.fused_separable_blur2d_plain(x, ky, kx,
+                                                              border),
+                               atol=ATOL, rtol=0)

@@ -164,10 +164,15 @@ def test_resize_keeps_the_positional_order():
     a = t_warp.resize(x, (10, 15), "bilinear", True)
     b = t_warp.resize(x, (10, 15), align_corners=True)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        t_warp.resize(x, (10, 15), "nearest")
-    with pytest.raises(NotImplementedError):
-        t_warp.resize(x, (10, 15), antialias=True)
+    # nearest and antialiased resizes (refused before the op layer was
+    # ported) keep the positional order too, and compute the reference's
+    xj = jnp.asarray(_image(6, 20, 30))
+    np.testing.assert_array_equal(
+        t_warp.resize(x, (10, 15), "nearest").numpy(),
+        np.asarray(j_warp.resize(xj, (10, 15), "nearest")))
+    np.testing.assert_allclose(
+        t_warp.resize(x, (10, 15), "bilinear", None, "short", True).numpy(),
+        np.asarray(j_warp.resize(xj, (10, 15), antialias=True)), atol=1e-5)
 
 
 def test_upscale_double_and_doubled_pyramid_match_reference():
