@@ -174,11 +174,35 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    deform_conv2d at 1e-4 of the largest. (d) every fused blur of (a) and
    (b), and every band adjoint of the JPEG codec's backward, captured and
    held against its plain version on its ROUTES route, their device time
-   and bound. It prints one JSON line of its own.
+   and bound. It prints one JSON line of its own;
+15. registration_eval: the rest of geometry, the losses, metrics and
+   contrib operators. (a) ``ImageRegistrator("homography", 300, 1e-2, 3)``
+   (tests/test_registration_vo.py:22-23) registers a 480x640 RGB frame of
+   step 9's room to the same frame warped by 5° about its centre and 2 px
+   (ibid. :16-20): the photometric error below 0.35 of the initial one
+   (ibid. :29), ms a registration, ms, kernels and busy share of an Adam
+   iteration at each level (a level replays one captured step as a CUDA
+   graph; a step makes no host read), the busy share of a registration,
+   peak memory, and the coarsest level's first 5 steps against the CPU
+   port (1e-4) with the mask pixels that differ. (b) five Adam steps on
+   ``ms_ssim_loss`` at (8, 3, 480, 640), the card's gradient against the
+   CPU's. (c) the confusion matrix and IoU with 19 classes on (4, 1024,
+   2048) labels (Cityscapes), ``aepe`` on (4, 2, 436, 1024) flows
+   (MPI-Sintel), the three disparity errors on (4, 375, 1242) (KITTI 2015)
+   and mAP of 100 boxes against 20 in 80 classes, card against the CPU
+   port (integer results bit for bit, 1e-5 relative elsewhere). (d) the
+   distance transform at 1080x1920 (1,920 steps, no host read; against
+   the CPU port at 270x480), connected components (100 steps), the
+   Hausdorff loss (4 classes, 256x256), ``KMeans(8)`` on the frame's
+   pixels from injected initial centres and the 3-D quadratic fit and NMS
+   of a (1, 1, 5, 480, 640) DoG stack, against the CPU port. Every fused
+   blur (the pyramid's, MS-SSIM's five scales) and band adjoint (MS-SSIM's
+   backward) of the path captured and held against its plain version on
+   its ROUTES route. It prints one JSON line of its own.
 
 Each of steps 2, 4, 5, 6, 8, 9, 10 (its paths (a) and (b)), 11 (each of
-its paths), 13 (c) and 14 resets the launch counters just before it drives its
-path and reads them just after; every kernel must have launched on its path. Every failure exits non-zero.
+its paths), 13 (c), 14 and 15 resets the launch counters just before it
+drives its path and reads them just after; every kernel must have launched on its path. Every failure exits non-zero.
 The last lines are one JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 before printing any result.
@@ -5163,6 +5187,421 @@ def image_ops_phase(K, dev) -> dict:
                         for k in results}, **out)
 
 
+REG_ITERS, REG_LR, REG_LEVELS = 300, 1e-2, 3  # tests/test_registration_vo.py:22-23
+REG_ERR_FRACTION = 0.35  # final photometric error / initial, ibid. :29
+REG_XCHECK_ITERS = 5     # coarsest-level Adam steps also run on the CPU port
+REG_PROFILE_ITERS = 10   # Adam steps a level in the profiled runs
+REG_PARAM_ATOL = 1e-4    # card vs CPU parameters (tests/test_torch_registration.py)
+MSSSIM_STEPS = 5
+METRIC_RTOL = 1e-5       # card vs CPU, non-integer metrics, of the largest
+KMEANS_ATOL = 1e-4       # k-means centres, card vs CPU (the CPU tests' limit)
+KMEANS_TIE_RTOL = 1e-5   # pixels whose two nearest centres lie this close
+DT_XCHECK_HW = (270, 480)  # the distance transform's card-vs-CPU frame
+# step 15's band adjoints: MS-SSIM's backward at its five scales, 24 planes
+# (8 x 3); a block per 32 x 64 tile fills the card (132 SMs) at least once
+# down to 120x160 (2.2 blocks per SM), not at 60x80 (0.7) and 30x40 (0.2)
+# (kornia_tpu_torch/ops/kernels.py::_ADJOINT_TILED_FILL)
+for _hw, _route in [((480, 640), "tiled"), ((240, 320), "tiled"),
+                    ((120, 160), "tiled"), ((60, 80), "passes"),
+                    ((30, 40), "passes")]:
+    ROUTES[("fused_separable_blur2d_adjoint", *_hw)] = _route
+
+
+def registration_inputs(dev):
+    """A 480x640 frame of step 9's room (grey, repeated into RGB) and the
+    same frame warped by a 5° rotation about its centre and a 2 px shift
+    (tests/test_registration_vo.py:16-20)."""
+    from kornia_tpu_torch.geometry.conversions import \
+        convert_affinematrix_to_homography
+    from kornia_tpu_torch.ops.color import grayscale_to_rgb
+    from kornia_tpu_torch.ops.warp import (get_rotation_matrix2d,
+                                           warp_perspective)
+    from kornia_tpu_torch.utils.render import render_scene, walk_trajectory
+    Kt, scene = vo_setup(dev)
+    T = walk_trajectory(2)[0]
+    src = grayscale_to_rgb(render_scene(scene, Kt, T, H, W)[0])
+    M = convert_affinematrix_to_homography(get_rotation_matrix2d(
+        torch.tensor([[(W - 1) / 2.0, (H - 1) / 2.0]], device=dev),
+        torch.tensor([5.0], device=dev), torch.ones((1, 2), device=dev)))
+    M[:, 0, 2] += 2.0
+    return src, warp_perspective(src, M, (H, W)), M
+
+
+def photometric_error(src, dst, M) -> float:
+    """The JAX test's criterion: mean |warp(src, M) - dst| over the pixels
+    the warp fills (tests/test_registration_vo.py:26-28)."""
+    from kornia_tpu_torch.ops.warp import warp_perspective
+    warped = warp_perspective(src, M, (H, W))
+    mask = warp_perspective(torch.ones_like(src), M, (H, W)) > 0.99
+    return float((warped - dst).abs().mul(mask).sum() / mask.sum())
+
+
+def registration_run(K, dev, src, dst) -> dict:
+    """(a): the registration, timed and profiled level by level, and the
+    coarsest level's first steps against the CPU port."""
+    from kornia_tpu_torch.geometry.registration import ImageRegistrator
+    from kornia_tpu_torch.ops.pyramid import build_pyramid
+    from kornia_tpu_torch.ops.warp import homography_warp
+    reg = ImageRegistrator("homography", REG_ITERS, REG_LR, REG_LEVELS)
+    M_est = reg.register(src, dst)  # warm-up
+    reg_ms, runs = median_ms(lambda: reg.register(src, dst), 3)
+    M_est = reg.register(src, dst)
+    err0 = float((src - dst).abs().mean())
+    err = photometric_error(src, dst, M_est)
+    print(f"registration_eval (a) photometric error {err:.5f} from "
+          f"{err0:.5f} ({err / err0:.4f} of it, limit {REG_ERR_FRACTION}); "
+          f"a registration {reg_ms:.2f} ms (synchronised, runs "
+          f"{[round(r, 2) for r in runs]})")
+    if not err < REG_ERR_FRACTION * err0:
+        fail(f"registration_eval (a): photometric error {err} not below "
+             f"{REG_ERR_FRACTION} x {err0}")
+    pyr_s = build_pyramid(src, REG_LEVELS)
+    pyr_d = build_pyramid(dst, REG_LEVELS)
+    levels = {}
+    p0 = reg.model.init_params(dev)
+    for lvl in range(REG_LEVELS - 1, -1, -1):
+        s, d = pyr_s[lvl], pyr_d[lvl]
+        # a step makes no host read (every synchronising call raises), so
+        # the level can replay it as one CUDA graph
+        no_host_sync(lambda: reg.run_level(p0, s, d, num_iterations=3,
+                                           cuda_graph=False))
+        eager = synced_s(lambda: reg.run_level(
+            p0, s, d, num_iterations=REG_PROFILE_ITERS,
+            cuda_graph=False)) * 1e3 / REG_PROFILE_ITERS
+        ms = median_ms(lambda: reg.run_level(p0, s, d), 3)[0] / REG_ITERS
+        busy, n_k, _ = device_profile(lambda: reg.run_level(
+            p0, s, d, num_iterations=REG_PROFILE_ITERS, cuda_graph=False))
+        busy, n_k = busy / REG_PROFILE_ITERS, n_k / REG_PROFILE_ITERS
+        hw = f"{s.shape[-2]}x{s.shape[-1]}"
+        levels[hw] = dict(ms_per_iteration=ms, eager_ms_per_iteration=eager,
+                          kernels_per_iteration=n_k,
+                          busy_ms_per_iteration=busy, busy_share=busy / ms)
+        print(f"registration_eval (a) level {lvl} ({hw}): {ms:.4f} ms an "
+              f"Adam iteration (CUDA graph, median of 3 synchronised "
+              f"levels of {REG_ITERS}; launched step by step {eager:.4f} "
+              f"ms), {n_k:.1f} kernels and {busy:.4f} ms busy a step (busy "
+              f"share {busy / ms:.4f} of the graph's iteration)")
+    # the device's share of a registration: its steps' busy time (each
+    # level's profiled step, REG_ITERS times) over the synchronised time
+    busy = sum(v["busy_ms_per_iteration"] for v in levels.values()) \
+        * REG_ITERS
+    peak = peak_bytes(lambda: reg.register(src, dst))
+    print(f"registration_eval (a) a registration: {busy:.2f} ms of its "
+          f"steps' device time in {reg_ms:.2f} ms (busy share "
+          f"{busy / reg_ms:.4f}), peak {peak / 2**20:.1f} MiB")
+    # the coarsest level's first steps on the card and on the CPU port
+    lvl = REG_LEVELS - 1
+    pc_s = build_pyramid(src.cpu(), REG_LEVELS)[lvl]
+    pc_d = build_pyramid(dst.cpu(), REG_LEVELS)[lvl]
+    card, _ = reg.run_level(p0, pyr_s[lvl], pyr_d[lvl],
+                            num_iterations=REG_XCHECK_ITERS)
+    cpu, _ = reg.run_level(p0.cpu(), pc_s, pc_d,
+                           num_iterations=REG_XCHECK_ITERS)
+    diff = float((card.cpu() - cpu).abs().max())
+    hw = tuple(pc_d.shape[-2:])
+    masks = [homography_warp(torch.ones_like(x), reg.model.matrix(p)[None],
+                             hw) > 0.999
+             for x, p in ((pyr_s[lvl], card), (pc_s, cpu))]
+    mask_diff = int((masks[0].cpu() != masks[1]).sum())
+    print(f"registration_eval (a) coarsest level, {REG_XCHECK_ITERS} Adam "
+          f"steps: card vs CPU parameters max abs diff {diff:.3e} (limit "
+          f"{REG_PARAM_ATOL}); {mask_diff} of {masks[1].numel()} mask "
+          f"pixels differ")
+    if not diff <= REG_PARAM_ATOL:
+        fail(f"registration_eval (a): card and CPU parameters differ by "
+             f"{diff}")
+    return dict(ms=reg_ms, runs_ms=runs, error=err, error0=err0,
+                levels=levels, busy_ms=busy, busy_share=busy / reg_ms,
+                peak_bytes=peak,
+                xcheck_param_diff=diff, xcheck_mask_pixels=mask_diff,
+                M=M_est.cpu().tolist())
+
+
+def msssim_train(dev) -> dict:
+    """(b): five Adam steps on ms_ssim_loss at (8, 3, 480, 640), and the
+    card's gradient against the CPU's."""
+    from kornia_tpu_torch.losses.losses import ms_ssim_loss
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    target = torch.rand(TRAIN_SHAPE, device=dev, generator=gen)
+    init = (target + 0.1 * torch.randn(TRAIN_SHAPE, device=dev,
+                                       generator=gen)).clamp(0, 1)
+    pred = init.clone().requires_grad_()
+    opt = torch.optim.Adam([pred], lr=1e-2)
+    losses, step_ms = [], []
+    for _ in range(MSSSIM_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = ms_ssim_loss(pred, target)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    print(f"registration_eval (b) MS-SSIM loss per step {losses}, ms per "
+          f"step (synchronised) {[round(v, 3) for v in step_ms]}")
+    if any(b > a for a, b in zip(losses, losses[1:])):
+        fail(f"registration_eval (b): MS-SSIM loss increased: {losses}")
+    # the card's gradient against the CPU's: the first two images
+    pc = init[:2].clone().requires_grad_()
+    g_card = torch.autograd.grad(ms_ssim_loss(pc, target[:2]), pc)[0]
+    pc = init[:2].cpu().requires_grad_()
+    g_cpu = torch.autograd.grad(ms_ssim_loss(pc, target[:2].cpu()), pc)[0]
+    diff = grad_diff(g_card, g_cpu, "registration_eval (b) MS-SSIM")
+    return dict(losses=losses, step_ms=statistics.median(step_ms),
+                step_ms_runs=step_ms, grad_diff=diff)
+
+
+def eval_metrics(dev) -> dict:
+    """(c): the metrics at dataset sizes, card against the CPU port."""
+    from kornia_tpu_torch.metrics import metrics as Mt
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    out = {}
+
+    def check(name, card_fn, cpu_fn, exact):
+        card = card_fn()
+        torch.cuda.synchronize()
+        ms, _ = median_ms(card_fn, 3)
+        cpu = cpu_fn()
+        outs = list(zip(_outputs(card), _outputs(cpu)))
+        if exact:
+            ok = all(torch.equal(a.cpu(), b) for a, b in outs)
+            d = max(float((a.cpu().double() - b.double()).abs().max())
+                    for a, b in outs)
+        else:
+            d = max(float((a.cpu().double() - b.double()).abs().max())
+                    / max(float(b.abs().max()), 1e-30) for a, b in outs)
+            ok = d <= METRIC_RTOL
+        out[name] = dict(ms=ms, diff=d, bitwise=exact, ok=ok)
+        print(f"registration_eval (c) {name}: {ms:.3f} ms, card vs CPU "
+              f"{'bit for bit' if exact else 'relative'} diff {d:.3e}"
+              f"{'' if ok else '  FAILS'}")
+
+    # Cityscapes: 19 classes on (4, 1024, 2048); a prediction agreeing with
+    # the truth on about 80% of the pixels
+    true = torch.randint(0, 19, (4, 1024, 2048), device=dev, generator=gen)
+    pred = torch.where(torch.rand(true.shape, device=dev, generator=gen)
+                       < 0.8, true, torch.randint(0, 19, true.shape,
+                                                  device=dev, generator=gen))
+    tc, pcpu = true.cpu(), pred.cpu()
+    check("confusion_matrix", lambda: Mt.confusion_matrix(pred, true, 19),
+          lambda: Mt.confusion_matrix(pcpu, tc, 19), True)
+    check("mean_iou", lambda: Mt.mean_iou(pred, true, 19),
+          lambda: Mt.mean_iou(pcpu, tc, 19), True)
+    # MPI-Sintel: (4, 2, 436, 1024) flows, the endpoint over the 2 channels
+    flow_gt = 5 * torch.randn((4, 2, 436, 1024), device=dev, generator=gen)
+    flow = flow_gt + torch.randn(flow_gt.shape, device=dev, generator=gen)
+    fa, fb = flow.movedim(1, -1), flow_gt.movedim(1, -1)
+    check("aepe", lambda: Mt.aepe(fa, fb),
+          lambda: Mt.aepe(fa.cpu(), fb.cpu()), False)
+    # KITTI 2015: (4, 375, 1242) disparities, about a third valid
+    d_gt = 100 * torch.rand((4, 375, 1242), device=dev, generator=gen)
+    d_est = d_gt + 4 * torch.randn(d_gt.shape, device=dev, generator=gen)
+    valid = (torch.rand(d_gt.shape, device=dev, generator=gen)
+             < 0.35).float()
+    for name in ("mean_absolute_disparity_error",
+                 "root_mean_squared_disparity_error",
+                 "mean_bad_pixel_error"):
+        fn = getattr(Mt, name)
+        check(name, lambda fn=fn: fn(d_est, d_gt, valid_mask=valid),
+              lambda fn=fn: fn(d_est.cpu(), d_gt.cpu(),
+                               valid_mask=valid.cpu()), False)
+    # detection: 100 predictions against 20 boxes in 80 classes
+    xy = 600 * torch.rand((20, 2), device=dev, generator=gen)
+    gt_boxes = torch.cat([xy, xy + 20 + 100 * torch.rand(
+        (20, 2), device=dev, generator=gen)], -1)
+    gt_labels = torch.randint(0, 80, (20,), device=dev, generator=gen)
+    pick = torch.randint(0, 20, (100,), device=dev, generator=gen)
+    boxes = gt_boxes[pick] + 8 * torch.randn((100, 4), device=dev,
+                                             generator=gen)
+    labels = torch.where(torch.rand(100, device=dev, generator=gen) < 0.8,
+                         gt_labels[pick], torch.randint(
+                             0, 80, (100,), device=dev, generator=gen))
+    scores = torch.rand(100, device=dev, generator=gen)
+    args = (boxes, labels, scores, gt_boxes, gt_labels, 80)
+    check("mean_average_precision",
+          lambda: Mt.mean_average_precision(*args)[0],
+          lambda: Mt.mean_average_precision(
+              *[a.cpu() if torch.is_tensor(a) else a for a in args])[0],
+          False)
+    bad = [n for n, r in out.items() if not r["ok"]]
+    if bad:
+        fail(f"registration_eval (c): card and CPU disagree on {bad}")
+    return out
+
+
+def contrib_ops(dev, frame) -> dict:
+    """(d): the contrib operators and the 3-D refinement at frame sizes,
+    card against the CPU port."""
+    from kornia_tpu_torch.contrib.ops import (KMeans, connected_components,
+                                              distance_transform)
+    from kornia_tpu_torch.geometry.subpix import (conv_quad_interp3d,
+                                                  nms3d_minmax)
+    from kornia_tpu_torch.losses.losses import hausdorff_distance_loss
+    from kornia_tpu_torch.ops.filters import gaussian_blur2d
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    out = {}
+
+    def record(name, card_fn, cpu_fn, tol, note="", rel=False):
+        """`tol` absolute, or with `rel` of the CPU result's largest
+        entry (the CPU tests' relative limits)."""
+        card = card_fn()
+        torch.cuda.synchronize()
+        ms = synced_s(card_fn) * 1e3
+        t0 = time.perf_counter()
+        cpu = cpu_fn()
+        cpu_s = time.perf_counter() - t0
+        if rel:
+            tol = tol * max(float(t.abs().max()) for t in _outputs(cpu))
+        r = card_vs_cpu(name, card, cpu, tol)
+        out[name] = dict(ms=ms, cpu_s=cpu_s, **r)
+        print(f"registration_eval (d) {name}: {ms:.2f} ms (synchronised; "
+              f"the CPU port {cpu_s:.2f} s), card vs CPU max diff "
+              f"{r['max_diff']:.3e} (limit "
+              f"{r['limit']}, bitwise {r['bitwise']}){note}"
+              f"{'' if r['ok'] else '  FAILS'}")
+
+    fh, fw = FRAME_HW
+    # seeds of the distance transform: 32 random pixels
+    seeds = torch.zeros((1, 1, fh, fw), device=dev)
+    idx = torch.randint(0, fh * fw, (32,), device=dev, generator=gen)
+    seeds.view(-1)[idx] = 1.0
+    # its 1,920 steps make no host read
+    dt = no_host_sync(lambda: distance_transform(seeds))
+    ms = synced_s(lambda: distance_transform(seeds)) * 1e3
+    _, n_k, _ = device_profile(lambda: distance_transform(seeds))
+    if not (bool(torch.isfinite(dt).all()) and float(dt.view(-1)[idx].abs()
+                                                      .max()) == 0.0):
+        fail(f"registration_eval (d): distance_transform at {fh}x{fw} is "
+             f"not finite, or not zero at its seeds")
+    print(f"registration_eval (d) distance_transform {fh}x{fw} "
+          f"({fw} steps): {ms:.2f} ms (synchronised), {n_k} kernels, max "
+          f"distance {float(dt.max()):.2f} px")
+    small = seeds[..., :DT_XCHECK_HW[0], :DT_XCHECK_HW[1]].clone()
+    sh, sw = DT_XCHECK_HW
+    small[..., sh // 8, sw // 16] = small[..., 3 * sh // 4, 5 * sw // 6] = 1.0
+    record("distance_transform", lambda: distance_transform(small),
+           lambda: distance_transform(small.cpu()), 1e-5,
+           f" (the CPU check at {DT_XCHECK_HW[0]}x{DT_XCHECK_HW[1]}, "
+           f"{DT_XCHECK_HW[1]} steps)", rel=True)
+    out["distance_transform_1080p"] = dict(ms=ms, kernels=n_k)
+    blobs = (gaussian_blur2d(torch.rand((1, 1, fh, fw), device=dev,
+                                        generator=gen), 9, 3.0) > 0.5
+             ).float()
+    record("connected_components",
+           lambda: connected_components(blobs, 100),
+           lambda: connected_components(blobs.cpu(), 100), 0.0)
+    logits = 3 * torch.randn((1, 4, 256, 256), device=dev, generator=gen)
+    labels = torch.randint(0, 4, (1, 1, 256, 256), device=dev,
+                           generator=gen).float()
+    labels = (gaussian_blur2d(labels, 15, 5.0)[:, 0] * 4 / 3).long().clamp(
+        0, 3)
+    record("hausdorff_distance_loss",
+           lambda: hausdorff_distance_loss(logits, labels),
+           lambda: hausdorff_distance_loss(logits.cpu(), labels.cpu()),
+           1e-5, rel=True)
+    px = frame[0].reshape(3, -1).T.contiguous()
+    px = px + 0.05 * torch.rand(px.shape, device=dev, generator=gen)
+    draw = torch.randperm(px.shape[0], device=dev, generator=gen)[:8]
+    km, kc = KMeans(8), KMeans(8)
+    record("KMeans(8)", lambda: km.fit(px, draws=draw) or km.cluster_centers,
+           lambda: kc.fit(px.cpu(), draws=draw.cpu()) or kc.cluster_centers,
+           KMEANS_ATOL)
+    # assignments: equal wherever the two nearest centres are not tied
+    d2 = ((px[:, None] - km.cluster_centers[None]) ** 2).sum(-1)
+    two = d2.topk(2, largest=False).values
+    clear = (two[:, 1] - two[:, 0] > KMEANS_TIE_RTOL * two[:, 1]).cpu()
+    a_card = km.predict(px).cpu()
+    a_cpu = kc.predict(px.cpu())
+    differ = int((a_card != a_cpu).sum())
+    differ_clear = int(((a_card != a_cpu) & clear).sum())
+    print(f"registration_eval (d) KMeans(8) on {px.shape[0]} pixels: "
+          f"{differ} assignments differ, {differ_clear} of them not near "
+          f"ties")
+    if differ_clear:
+        fail(f"registration_eval (d): {differ_clear} k-means assignments "
+             f"differ between card and CPU away from ties")
+    out["KMeans(8)"].update(assign_differ=differ, near_ties=int(
+        (~clear).sum()))
+    # a DoG stack of the frame: six Gaussians, five differences
+    grey = frame[:, :1]
+    g = [gaussian_blur2d(grey, 2 * math.ceil(3 * s) + 1, s)
+         for s in (1.6 * 2 ** (i / 3) for i in range(6))]
+    dog = torch.stack([b - a for a, b in zip(g, g[1:])], dim=2)
+    # coordinates up to 640 px: 1e-5 of the largest
+    record("conv_quad_interp3d", lambda: conv_quad_interp3d(dog),
+           lambda: conv_quad_interp3d(dog.cpu()), 1e-5, rel=True)
+    record("nms3d_minmax", lambda: nms3d_minmax(dog),
+           lambda: nms3d_minmax(dog.cpu()), 0.0)
+    bad = [n for n, r in out.items() if "ok" in r and not r["ok"]]
+    if bad:
+        fail(f"registration_eval (d): card and CPU disagree on {bad}")
+    return out
+
+
+def registration_eval_phase(K, dev) -> dict:
+    """Step 15: registration, MS-SSIM training, evaluation and contrib ops
+    (see the module's docstring)."""
+    from kornia_tpu_torch.geometry.registration import ImageRegistrator
+    from kornia_tpu_torch.losses.losses import ms_ssim_loss
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    src, dst, _ = part("inputs", registration_inputs, dev)
+    reg = part("registration", registration_run, K, dev, src, dst)
+    train = part("msssim", msssim_train, dev)
+    metrics = part("metrics", eval_metrics, dev)
+    contrib = part("contrib", contrib_ops, dev, src)
+    t_path = time.perf_counter()
+    # the path: one registration and one MS-SSIM training step; every fused
+    # blur (the pyramid's pyrdowns, MS-SSIM's five scales) and band adjoint
+    # (MS-SSIM's backward) captured and held to its plain version
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    target = torch.rand(TRAIN_SHAPE, device=dev, generator=gen)
+    pred = (target + 0.1 * torch.randn(TRAIN_SHAPE, device=dev,
+                                       generator=gen)).requires_grad_()
+    def path(iters=REG_ITERS):
+        ImageRegistrator("homography", iters, REG_LR,
+                         REG_LEVELS).register(src, dst)
+        ms_ssim_loss(pred, target).backward()
+
+    names = ("fused_separable_blur2d", "fused_separable_blur2d_adjoint")
+    launches = counted_run(K, path, "registration_eval", names)
+    # profiled and captured with REG_PROFILE_ITERS Adam steps a level: the
+    # same launches of both kernels (the pyramid's and MS-SSIM's; the Adam
+    # loop launches neither), at a twentieth of the profiler's events
+    short = lambda: path(REG_PROFILE_ITERS)  # noqa: E731
+    _, _, kern = device_profile(short, names)
+    calls = capture_launches(K, short, names)
+    per_path = path_kernel_times(K, kern, calls, launches,
+                                 "registration_eval")
+    checks = check_captured(K, calls, "registration_eval")
+    scales = sorted({tuple(a[0].shape[-2:]) for a, _ in
+                     calls["fused_separable_blur2d_adjoint"]})
+    if len(scales) != 5 or scales[-1] != (H, W):
+        fail(f"registration_eval: the band adjoint ran at {scales}, not at "
+             f"MS-SSIM's five scales")
+    results = {f"{n}@registration_eval": captured_entry(K, n, cs, checks[n],
+                                                        REPLACES[n])
+               for n, cs in calls.items()}
+    report(results)
+    parts["path"] = round(time.perf_counter() - t_path, 1)
+    out = dict(registration=reg, msssim=train, metrics=metrics,
+               contrib=contrib, launches=launches, per_path=per_path,
+               checks=checks, parts=parts,
+               seconds=time.perf_counter() - t_phase)
+    print(f"registration_eval phase: {out['seconds']:.1f} s, parts {parts}")
+    print(json.dumps({"registration_eval": out}))
+    return dict(kernels=results,
+                counts={k: launches.get(k.split("@")[0], 0)
+                        for k in results}, **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -5210,6 +5649,8 @@ def main() -> int:
         tracking_io = tracking_io_phase(K, dev)
     with f32_precision():
         image_ops = image_ops_phase(K, dev)
+    with f32_precision():
+        registration_eval = registration_eval_phase(K, dev)
     for ph in phases.values():
         entries += [(name, r, ph["launches"]) for name, r in
                     ph["kernels"].items()]
@@ -5225,6 +5666,8 @@ def main() -> int:
                 tracking_io["kernels"].items()]
     entries += [(name, r, image_ops["counts"]) for name, r in
                 image_ops["kernels"].items()]
+    entries += [(name, r, registration_eval["counts"]) for name, r in
+                registration_eval["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on its path")
@@ -5294,7 +5737,15 @@ def main() -> int:
                           image_ops["device_geomean_img_per_s"],
                       "image_ops_sweep_busy_share":
                           image_ops["sweep_busy_share"],
-                      "image_ops_seconds": image_ops["image_ops_seconds"]}))
+                      "image_ops_seconds": image_ops["image_ops_seconds"],
+                      "registration_ms":
+                          registration_eval["registration"]["ms"],
+                      "registration_error_fraction":
+                          registration_eval["registration"]["error"]
+                          / registration_eval["registration"]["error0"],
+                      "msssim_step_ms": registration_eval["msssim"]["step_ms"],
+                      "registration_eval_seconds":
+                          registration_eval["seconds"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,10 @@ become int64. A rendered scene crosses as its four arrays
 
 A ``TrackState`` crosses as its eight arrays
 (``track_state_from_numpy``), so that both trackers resume from one state.
+An ``ImageRegistrator``'s parameters and optax Adam state (count, mu, nu)
+cross as arrays (``registration_state_from_numpy``), so that both
+optimisers continue from one step; ``KMeans`` crosses as its centres
+(``kmeans_from_numpy``).
 
 The learned nets cross as their parameter dicts (``*_from_numpy``): HardNet,
 OriNet, AffNet and KeyNet store OIHW conv weights, as torch does; LoFTR
@@ -26,17 +30,20 @@ from typing import Any, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from .contrib.ops import KMeans
 from .feature.affnet import AffNet, OriNet
 from .feature.descriptors import KeyNet
 from .feature.hardnet import HardNet
 from .feature.loftr import LoFTR, LoFTRConfig
 from .geometry.liegroup import Quaternion, Se3, So3
+from .geometry.registration import AdamState
 from .slam.ba import BAProblem, BAState
 from .slam.posegraph import PoseGraph
 from .tracking.bytetrack import TrackState
 from .utils.render import PlaneScene
 
-__all__ = ["state_from_numpy", "se3_from_numpy", "ba_state_from_numpy",
+__all__ = ["registration_state_from_numpy", "kmeans_from_numpy",
+           "state_from_numpy", "se3_from_numpy", "ba_state_from_numpy",
            "ba_problem_from_numpy", "pose_graph_from_numpy",
            "plane_scene_from_numpy", "hardnet_from_numpy",
            "orinet_from_numpy", "affnet_from_numpy", "keynet_from_numpy",
@@ -155,3 +162,24 @@ def track_state_from_numpy(mean, cov, score, cls, track_id, alive, misses,
                       _tensor(alive, device, torch.bool),
                       _tensor(misses, device, i32),
                       _tensor(next_id, device, i32))
+
+
+def registration_state_from_numpy(params, count, mu, nu,
+                                  device: Device = "cuda"):
+    """A registrator's (P,) parameters and its optax ``ScaleByAdamState``
+    arrays → (params float32, AdamState with an int32 count)."""
+    return (_tensor(params, device, torch.float32),
+            AdamState(_tensor(count, device, torch.int32),
+                      _tensor(mu, device, torch.float32),
+                      _tensor(nu, device, torch.float32)))
+
+
+def kmeans_from_numpy(cluster_centers, num_clusters: Optional[int] = None,
+                      max_iterations: int = 20, seed: int = 0,
+                      device: Device = "cuda") -> KMeans:
+    """A fitted ``KMeans`` from its (K, D) centres."""
+    centers = _tensor(cluster_centers, device, torch.float32)
+    km = KMeans(num_clusters or centers.shape[0],
+                max_iterations=max_iterations, seed=seed)
+    km.cluster_centers = centers
+    return km

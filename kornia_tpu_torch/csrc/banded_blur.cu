@@ -63,12 +63,14 @@ constexpr int kReplicate = 1;
 constexpr int kCircular = 2;
 
 // source index of tap position t in [0, size) under the border rule, or -1
-// where the rule drops the tap (constant zero; a reflection still outside)
+// where the rule drops the tap (constant zero). A reflection is repeated
+// until it lands inside (numpy's rule), for kernels wider than the image
 __device__ __forceinline__ int border_index(int t, int size, int border) {
     if (border == kReflect) {
-        int i = t < 0 ? -t : t;
-        if (i >= size) i = 2 * (size - 1) - i;
-        return (i >= 0 && i < size) ? i : -1;
+        const int period = size > 1 ? 2 * (size - 1) : 1;
+        int i = t % period;
+        if (i < 0) i += period;
+        return i >= size ? period - i : i;
     }
     if (border == kReplicate) return min(max(t, 0), size - 1);
     if (border == kCircular) {

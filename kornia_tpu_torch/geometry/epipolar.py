@@ -1,9 +1,9 @@
-"""Epipolar geometry (counterpart of ``kornia_tpu/geometry/epipolar.py``,
-the part the front ends and the back end reach): the weighted 8-point, the
-7-point and the 5-point essential solvers, the manifold polish of
-essential candidates, epipolar lines and distances, essential and
-homography decompositions, triangulation and the cheirality choice of
-(R, t).
+"""Epipolar geometry (counterpart of ``kornia_tpu/geometry/epipolar.py``):
+the weighted 8-point, the 7-point and the 5-point essential solvers, the
+manifold polish of essential candidates, epipolar lines and distances,
+essential and homography decompositions (with and without an SVD),
+projection matrices and intrinsics, triangulation and the cheirality
+choice of (R, t).
 
 The 5-point solver is the reference's hidden-variable resultant: the ten
 cubic constraints on E = xE1 + yE2 + zE3 + E4 form a 10x10 matrix C(z);
@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.check import check_shape
+from ..core.check import check, check_shape
 from ..core.dtype import as_float
 from ..core.linalg import (det_3x3, f32_matmul_precision, gauss_det,
                            inverse_3x3,
@@ -54,6 +54,15 @@ __all__ = [
     "triangulate_points",
     "sampson_epipolar_distance",
     "symmetrical_epipolar_distance",
+    "find_essential",
+    "essential_from_fundamental",
+    "KRt_from_projection",
+    "projections_from_fundamental",
+    "fundamental_from_projections",
+    "cross_product_matrix", "intrinsics_like", "random_intrinsics",
+    "scale_intrinsics", "projection_from_Rt", "depth_from_point",
+    "get_perpendicular", "get_closest_point_on_epipolar_line",
+    "matrix_cofactor_tensor", "decompose_essential_matrix_no_svd",
 ]
 
 
@@ -652,3 +661,180 @@ def right_to_left_epipolar_distance(pts1: torch.Tensor, pts2: torch.Tensor,
                                     Fm: torch.Tensor) -> torch.Tensor:
     """Distance of p1 from its epipolar line Fᵀ·p2."""
     return left_to_right_epipolar_distance(pts2, pts1, Fm.transpose(-1, -2))
+
+
+def find_essential(points1: torch.Tensor, points2: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The 5-point solver's (B, 20, 3, 3) candidates."""
+    return run_5point(points1, points2, weights)
+
+
+def essential_from_fundamental(F: torch.Tensor, K1: torch.Tensor,
+                               K2: torch.Tensor) -> torch.Tensor:
+    """E = K2ᵀ F K1."""
+    return K2.transpose(-1, -2) @ F @ K1
+
+
+def KRt_from_projection(P: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """P → (K, R, t) by an RQ decomposition of P[:, :3] (the QR of the
+    row-flipped transpose), K's diagonal made positive and K[2, 2] = 1."""
+    M = P[..., :3]
+    perm = [2, 1, 0]
+    Q_, R_ = torch.linalg.qr(M[..., perm, :].transpose(-1, -2))
+    K = R_.transpose(-1, -2)[..., perm, :][..., :, perm]
+    R = Q_.transpose(-1, -2)[..., perm, :]
+    sign = torch.sign(torch.diagonal(K, dim1=-2, dim2=-1))
+    sign = torch.where(sign == 0, 1.0, sign)
+    K = K * sign[..., None, :]
+    R = R * sign[..., :, None]
+    t = torch.linalg.solve(K, P[..., :, 3:4])
+    K = K / K[..., 2:3, 2:3].clamp_min(1e-9)
+    return K, R, t
+
+
+def fundamental_from_projections(P1: torch.Tensor,
+                                 P2: torch.Tensor) -> torch.Tensor:
+    """F from two (..., 3, 4) projections by the 4x4 determinants of their
+    row pairs."""
+    X = [P1[..., [1, 2], :], P1[..., [2, 0], :], P1[..., [0, 1], :]]
+    Y = [P2[..., [1, 2], :], P2[..., [2, 0], :], P2[..., [0, 1], :]]
+    return torch.stack([
+        torch.stack([torch.linalg.det(torch.cat([x, y], dim=-2)) for x in X],
+                    dim=-1) for y in Y], dim=-2)
+
+
+def projections_from_fundamental(F: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The canonical pair P1 = [I | 0], P2 = [[e']ₓ F | e'] (e' the null
+    vector of Fᵀ, its sign LAPACK's choice)."""
+    from .conversions import vector_to_skew_symmetric_matrix
+    B = F.shape[0]
+    P1 = torch.cat([torch.eye(3, dtype=F.dtype, device=F.device),
+                    torch.zeros((3, 1), dtype=F.dtype, device=F.device)],
+                   dim=-1).expand(B, 3, 4)
+    e2 = lstsq_nullspace(F.transpose(-1, -2))
+    P2 = torch.cat([vector_to_skew_symmetric_matrix(e2) @ F, e2[..., :, None]],
+                   dim=-1)
+    return P1, P2
+
+
+def cross_product_matrix(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) → (..., 3, 3) skew matrix."""
+    from .conversions import vector_to_skew_symmetric_matrix
+    return vector_to_skew_symmetric_matrix(x)
+
+
+def intrinsics_like(focal: float, input: torch.Tensor) -> torch.Tensor:
+    """(B, 3, 3) intrinsics with the principal point at the centre of the
+    (B, C, H, W) input."""
+    check(input.ndim == 4, f"expected (B, C, H, W), got {tuple(input.shape)}")
+    check(focal > 0, f"focal must be positive, got {focal}")
+    B, _, H, W = input.shape
+    K = torch.tensor([[focal, 0.0, W / 2.0], [0.0, focal, H / 2.0],
+                      [0.0, 0.0, 1.0]], dtype=as_float(input).dtype,
+                     device=input.device)
+    return K.expand(B, 3, 3)
+
+
+def random_intrinsics(low, high, generator: Optional[torch.Generator] = None,
+                      device="cuda") -> torch.Tensor:
+    """(1, 3, 3) intrinsics with fx, fy, cx, cy ~ U[low, high), drawn from
+    `generator` (None: one seeded with 0, as the reference's default key)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    fx, fy, cx, cy = low + (high - low) * torch.rand(
+        4, generator=generator, device=generator.device)
+    z, o = torch.zeros_like(fx), torch.ones_like(fx)
+    return torch.stack([fx, z, cx, z, fy, cy, z, z, o]).reshape(1, 3, 3)
+
+
+def scale_intrinsics(camera_matrix: torch.Tensor,
+                     scale_factor) -> torch.Tensor:
+    """Scale the focal lengths and the principal point."""
+    K = as_float(camera_matrix)
+    s = torch.as_tensor(scale_factor, dtype=K.dtype, device=K.device)
+    mask = torch.zeros((3, 3), dtype=K.dtype, device=K.device)
+    mask[0, 0] = mask[1, 1] = mask[0, 2] = mask[1, 2] = 1.0
+    if s.ndim:
+        s = s[..., None, None]
+    return K * ((s - 1.0) * mask + 1.0)
+
+
+def projection_from_Rt(rmat: torch.Tensor, tvec: torch.Tensor
+                       ) -> torch.Tensor:
+    """P = [R | t]."""
+    check(tuple(rmat.shape[-2:]) == (3, 3),
+          f"R must be (*, 3, 3), got {tuple(rmat.shape)}")
+    check(tuple(tvec.shape[-2:]) == (3, 1),
+          f"t must be (*, 3, 1), got {tuple(tvec.shape)}")
+    return torch.cat([as_float(rmat), as_float(tvec)], dim=-1)
+
+
+def depth_from_point(R: torch.Tensor, t: torch.Tensor,
+                     X: torch.Tensor) -> torch.Tensor:
+    """Depth (camera z) of (..., N, 3) world points under [R | t]."""
+    Xc = R @ as_float(X).transpose(-2, -1)
+    return Xc[..., 2, :] + t[..., 2, :]
+
+
+def get_perpendicular(lines: torch.Tensor,
+                      points: torch.Tensor) -> torch.Tensor:
+    """The line through each point perpendicular to the given (a, b, c)
+    line."""
+    check_shape(lines, ["*", "N", "3"], "lines")
+    if points.shape[-1] == 2:
+        points = _to_homog(as_float(points))
+    infinity_point = lines * torch.tensor([1.0, 1.0, 0.0], dtype=lines.dtype,
+                                          device=lines.device)
+    return torch.linalg.cross(points, infinity_point.expand_as(points))
+
+
+def get_closest_point_on_epipolar_line(pts1: torch.Tensor,
+                                       pts2: torch.Tensor,
+                                       Fm: torch.Tensor) -> torch.Tensor:
+    """Foot of the perpendicular from pts2 onto the epipolar line of
+    pts1."""
+    from .conversions import convert_points_from_homogeneous
+    if pts1.shape[-1] == 2:
+        pts1 = _to_homog(as_float(pts1))
+    if pts2.shape[-1] == 2:
+        pts2 = _to_homog(as_float(pts2))
+    line1in2 = compute_correspond_epilines(pts1[..., :2], Fm)
+    perp = get_perpendicular(line1in2, pts2)
+    return convert_points_from_homogeneous(torch.linalg.cross(line1in2, perp))
+
+
+def matrix_cofactor_tensor(M: torch.Tensor) -> torch.Tensor:
+    """Cofactor matrix det(M)·M⁻ᵀ of (*, 3, 3) inputs from cross products
+    of the columns (defined for singular M, such as E)."""
+    c0 = torch.linalg.cross(M[..., 1], M[..., 2])
+    c1 = torch.linalg.cross(M[..., 2], M[..., 0])
+    c2 = torch.linalg.cross(M[..., 0], M[..., 1])
+    return torch.stack([c0, c1, c2], dim=-1)
+
+
+def decompose_essential_matrix_no_svd(E_mat: torch.Tensor
+                                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """(R1, R2, t) from E without an SVD: Horn's (1990) baseline and
+    orientation formulas, cross products and one argmax."""
+    check(tuple(E_mat.shape[-2:]) == (3, 3),
+          f"E must be (*, 3, 3), got {tuple(E_mat.shape)}")
+    E = as_float(E_mat).reshape(-1, 3, 3)
+    e1, e2, e3 = E[..., 0], E[..., 1], E[..., 2]
+    scale = torch.sqrt(0.5 * (E * E).sum((-1, -2)))
+    crosses = torch.stack([torch.linalg.cross(e1, e2),
+                           torch.linalg.cross(e2, e3),
+                           torch.linalg.cross(e3, e1)], dim=1)  # (B, 3, 3)
+    norms = torch.linalg.vector_norm(crosses, dim=-1, keepdim=True)
+    largest = torch.argmax(norms[..., 0], dim=-1)
+    scaled = scale[:, None, None] * crosses / norms.clamp_min(1e-12)
+    b1 = torch.take_along_dim(scaled, largest[:, None, None].expand(-1, 1, 3),
+                              dim=1)[:, 0]  # (B, 3)
+    b1_unit = b1 / torch.linalg.vector_norm(b1, dim=-1,
+                                            keepdim=True).clamp_min(1e-12)
+    B1 = cross_product_matrix(b1)
+    bb = (b1 * b1).sum(-1)[:, None, None].clamp_min(1e-12)
+    cof = matrix_cofactor_tensor(E)
+    return (cof - B1 @ E) / bb, (cof - (-B1) @ E) / bb, b1_unit[..., None]

@@ -32,7 +32,11 @@ __all__ = [
     "oneway_transfer_error",
     "line_segment_transfer_error_one_way",
     "sample_is_valid_for_homography",
+    "TupleTensor",
 ]
+
+# the reference's alias of a pair of tensors (a line segment's endpoints)
+TupleTensor = Tuple[torch.Tensor, torch.Tensor]
 
 
 def normalize_points(points: torch.Tensor, eps: float = 1e-8

@@ -226,8 +226,11 @@ def _fold_index(k: int, size: int, border_type: str, device,
     taps = (torch.arange(size, device=device)[None, :]
             + torch.arange(k, device=device)[:, None] - pad)  # (K, size)
     if border_type == "reflect":
-        idx = taps.abs()
-        idx = torch.where(idx >= size, 2 * (size - 1) - idx, idx)
+        # reflected as often as it takes (numpy's and jnp.pad's rule), so a
+        # kernel wider than the image still reads inside it
+        period = max(2 * (size - 1), 1)
+        idx = torch.remainder(taps, period)
+        idx = torch.where(idx >= size, period - idx, idx)
         valid = torch.ones_like(taps, dtype=torch.bool)
     elif border_type == "replicate":
         idx = taps.clamp(0, size - 1)
@@ -240,8 +243,6 @@ def _fold_index(k: int, size: int, border_type: str, device,
         idx = taps.clamp(0, size - 1)
     else:
         raise ValueError(f"unknown border type {border_type!r}")
-    # a reflection that still falls outside (kernel wider than 2·size) is
-    # dropped, as the JAX scatter drops out-of-range updates
     valid = valid & (idx >= 0) & (idx < size)
     return idx.clamp(0, size - 1), valid
 

@@ -14,7 +14,6 @@ from ..core.check import check, check_shape
 from ..core.dtype import as_float
 from ..core.grid import create_meshgrid3d
 from ..core.linalg import f32_matmul_precision
-from ..geometry.conversions import axis_angle_to_rotation_matrix
 
 __all__ = [
     "grid_sample3d",
@@ -91,6 +90,9 @@ def get_projective_transform(center: torch.Tensor, angles: torch.Tensor,
     """(B, 3, 4) rotation about `center`, `angles` (B, 3) in degrees read
     as an axis-angle vector (not Euler angles), each column scaled by
     `scales` ((B, 1) isotropic or (B, 3))."""
+    # imported here, as the reference does: the geometry package imports
+    # this module
+    from ..geometry.conversions import axis_angle_to_rotation_matrix
     center = as_float(center)
     R = axis_angle_to_rotation_matrix(torch.deg2rad(as_float(angles)))
     scales = torch.as_tensor(scales, dtype=R.dtype, device=R.device)

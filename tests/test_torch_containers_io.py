@@ -31,6 +31,7 @@ from kornia_tpu_torch.image import draw as t_draw
 from kornia_tpu_torch.image import image_print as t_print
 from kornia_tpu_torch.image import utils as t_iutils
 from kornia_tpu_torch.utils import misc as t_misc
+from tests.torch_op_parity import exact_jit
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's core/__init__ binds the name `check` to the function
@@ -342,21 +343,26 @@ def test_draws_against_the_reference():
                           ).astype(np.float32)
     rect[0, 1] = [3.5, 2.25, 17.75, 21.5]  # off the pixel grid
     col = np.array([1.0, 0.5, 0.0], np.float32)
-    for fill in (False, True):
-        _eq(t_draw.draw_rectangle(_t(img), _t(rect), _t(col), fill),
-            j_draw.draw_rectangle(img, rect, col, fill))
     pts = rng.uniform(-3, 35, (7, 2)).astype(np.float32)
-    _eq(t_draw.draw_point2d(_t(img[0]), _t(pts), _t(col)),
-        j_draw.draw_point2d(img[0], pts, col))
-    for p1, p2 in (([2.0, 3.0], [29.0, 17.0]), ([5.5, 20.25], [5.5, 2.0]),
-                   ([4.0, 4.0], [4.0, 4.0])):
-        _eq(t_draw.draw_line(_t(img[1]), _t(p1), _t(p2), _t(col)),
-            j_draw.draw_line(img[1], np.float32(p1), np.float32(p2), col))
+    lines = np.array([[[2.0, 3.0], [29.0, 17.0]], [[5.5, 20.25], [5.5, 2.0]],
+                      [[4.0, 4.0], [4.0, 4.0]]], np.float32)
     poly = np.array([[[4.0, 3.0], [25.0, 5.0], [20.0, 20.0], [6.0, 15.0]],
                      [[10.5, 2.0], [30.0, 12.0], [12.0, 22.5],
                       [2.0, 11.0]]], np.float32)
+    # the reference's draws from one program (each op rounding as eagerly)
+    want = exact_jit(lambda im, r, c, p, ln, pg: dict(
+        rect=[j_draw.draw_rectangle(im, r, c, f) for f in (False, True)],
+        point=j_draw.draw_point2d(im[0], p, c),
+        line=[j_draw.draw_line(im[1], a, b, c) for a, b in ln],
+        poly=j_draw.draw_convex_polygon(im, pg, c)),
+        img, rect, col, pts, lines, poly)
+    for fill, w in zip((False, True), want["rect"]):
+        _eq(t_draw.draw_rectangle(_t(img), _t(rect), _t(col), fill), w)
+    _eq(t_draw.draw_point2d(_t(img[0]), _t(pts), _t(col)), want["point"])
+    for (p1, p2), w in zip(lines, want["line"]):
+        _eq(t_draw.draw_line(_t(img[1]), _t(p1), _t(p2), _t(col)), w)
     _eq(t_draw.draw_convex_polygon(_t(img), _t(poly), _t(col)),
-        j_draw.draw_convex_polygon(img, poly, col))
+        want["poly"])
 
 
 def test_draw_rectangle_mirrored():

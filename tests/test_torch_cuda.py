@@ -1253,3 +1253,63 @@ def test_cuda_elastic_blur_is_the_tiled_fused_kernel(cuda_device):
                                K.fused_separable_blur2d_plain(x, ky, kx,
                                                               border),
                                atol=ATOL, rtol=0)
+
+
+# --- registration, MS-SSIM, metrics and contrib ops (the slice of step 15) ---
+
+def test_cuda_ms_ssim_grad_matches_cpu(cuda_device):
+    """MS-SSIM's gradient (five scales of the fused blur and its band
+    adjoint, the last at 4x4 where the 11 taps reflect twice): card and
+    CPU within 1e-4 of the largest."""
+    rng = np.random.default_rng(23)
+    target = rng.random((2, 3, 64, 64), dtype=np.float32)
+    pred = np.clip(target + 0.2 * rng.standard_normal(target.shape), 0,
+                   1).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        tp = torch.tensor(pred, device=dev, requires_grad=True)
+        t_losses.ms_ssim_loss(tp, torch.tensor(target, device=dev)).backward()
+        grads.append(tp.grad.cpu())
+    scale = grads[0].abs().max()
+    torch.testing.assert_close(grads[1], grads[0], atol=1e-4 * scale, rtol=0)
+
+
+def test_cuda_distance_transform_matches_cpu(cuda_device):
+    from kornia_tpu_torch.contrib.ops import distance_transform
+    img = torch.zeros((1, 2, 40, 56))
+    img[0, 0, 5, 7] = img[0, 0, 30, 40] = img[0, 1, 0, 55] = 1.0
+    cpu = distance_transform(img)
+    card = distance_transform(img.to(cuda_device)).cpu()
+    torch.testing.assert_close(card, cpu, atol=0, rtol=1e-5)
+
+
+def test_cuda_mean_iou_matches_cpu_bit_for_bit(cuda_device):
+    from kornia_tpu_torch.metrics.metrics import confusion_matrix, mean_iou
+    gen = torch.Generator().manual_seed(3)
+    pred = torch.randint(0, 19, (2, 128, 256), generator=gen)
+    true = torch.where(torch.rand(pred.shape, generator=gen) < 0.7, pred,
+                       torch.randint(0, 19, pred.shape, generator=gen))
+    for fn in (confusion_matrix, mean_iou):
+        cpu = fn(pred, true, 19)
+        card = fn(pred.to(cuda_device), true.to(cuda_device), 19).cpu()
+        assert torch.equal(card, cpu), fn.__name__
+
+
+def test_cuda_registration_graph_replays_the_eager_steps(cuda_device):
+    """A level's Adam steps replayed as one CUDA graph equal the same steps
+    launched one by one, bit for bit, and the CPU port's within 1e-4."""
+    from kornia_tpu_torch.geometry.registration import ImageRegistrator
+    gen = torch.Generator().manual_seed(5)
+    src = torch.nn.functional.avg_pool2d(
+        torch.rand((1, 3, 64, 80), generator=gen), 5, 1, 2)
+    dst = torch.roll(src, (1, 2), (-2, -1))
+    reg = ImageRegistrator("homography", 12, 1e-2, 1)
+    p0 = reg.model.init_params("cpu")
+    outs = [reg.run_level(p0.to(cuda_device), src.to(cuda_device),
+                          dst.to(cuda_device), cuda_graph=g) for g in
+            (True, False)]
+    (p_g, s_g), (p_e, s_e) = outs
+    for a, b in zip((p_g, *s_g), (p_e, *s_e)):
+        assert torch.equal(a, b)
+    cpu, _ = reg.run_level(p0, src, dst)
+    torch.testing.assert_close(outs[0][0].cpu(), cpu, atol=1e-4, rtol=0)

@@ -30,6 +30,7 @@ from kornia_tpu_torch.geometry import subpix as t_subpix
 from kornia_tpu_torch.ops import filters as t_filters
 from kornia_tpu_torch.ops import pyramid as t_pyr
 from kornia_tpu_torch.ops import warp as t_warp
+from tests.torch_op_parity import EXACT_OPTIONS
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NF = 96
@@ -65,73 +66,107 @@ def stages():
     return dict(x=x, **out)
 
 
-def test_gaussian_kernels_match_reference():
-    for k, s in [(15, 1.52), (5, 1.0), (9, 2.3)]:
+@pytest.fixture(scope="module")
+def small_refs():
+    """The references of the small stage tests, from one jitted program
+    (one compile in the place of one an eager op), compiled with XLA's
+    rewriting and fusion passes off (EXACT_OPTIONS), so that each op
+    rounds as it does eagerly."""
+    xg = _image(1, 21, 19)
+    xb = np.random.default_rng(2).random((1, 2, 33, 40)).astype(np.float32)
+    xr = _image(3, 60, 80)
+    xw = _image(4, 40, 50)
+    M = np.eye(3, dtype=np.float32)
+    M[0, 2] = -4.0
+    M[1, 0] = 0.01
+    vol = np.random.default_rng(5).standard_normal(
+        (1, 1, 6, 17, 19)).astype(np.float32)
+    rng = np.random.default_rng(7)
+    d1 = rng.random((64, 128)).astype(np.float32)
+    d2 = np.concatenate([d1[:40] + 0.02 * rng.standard_normal((40, 128)),
+                         rng.random((24, 128))]).astype(np.float32)
+    d2 = d2[rng.permutation(64)]
+    m1 = rng.random(64) > 0.1
+    m2 = rng.random(64) > 0.1
+
+    def run(xg, xb, xr, xw, M, vol, d1, d2, m1, m2):
+        return dict(
+            kernels=[j_filters.get_gaussian_kernel1d(k, s)
+                     for k, s in [(15, 1.52), (5, 1.0), (9, 2.3)]]
+            + [j_filters.get_gaussian_discrete_kernel1d(5, 1.6),
+               j_filters.get_gaussian_kernel2d((41, 41), (29.0, 29.0))],
+            gradient={m: j_filters.spatial_gradient(xg, m)
+                      for m in ("sobel", "diff")},
+            blur={b: j_filters.gaussian_blur2d(xb, 7, 1.4, b)
+                  for b in ("reflect", "replicate", "circular", "constant")},
+            resize=j_warp.resize(xr, (30, 40)), pyrdown=j_pyr.pyrdown(xr),
+            warp=j_warp.warp_perspective(xw, M[None], (40, 50)),
+            nms3d=j_subpix.nms3d(vol), nms2d=j_subpix.nms2d(vol[:, 0]),
+            quad=j_subpix.quad_fit3d_planes(vol),
+            smnn=j_match.DescriptorMatcher("smnn", 0.95)(d1, d2, m1, m2))
+
+    args = tuple(map(jnp.asarray, (xg, xb, xr, xw, M, vol, d1, d2, m1,
+                                   m2)))
+    out = jax.tree_util.tree_map(np.asarray, jax.jit(run).lower(
+        *args).compile(compiler_options=EXACT_OPTIONS)(*args))
+    return dict(out, inputs=dict(xg=xg, xb=xb, xr=xr, xw=xw, M=M, vol=vol,
+                                 d1=d1, d2=d2, m1=m1, m2=m2))
+
+
+def test_gaussian_kernels_match_reference(small_refs):
+    kers = small_refs["kernels"]
+    for (k, s), ref in zip([(15, 1.52), (5, 1.0), (9, 2.3)], kers):
         np.testing.assert_allclose(
-            t_filters.get_gaussian_kernel1d(k, s).numpy(),
-            np.asarray(j_filters.get_gaussian_kernel1d(k, s)), atol=1e-7)
+            t_filters.get_gaussian_kernel1d(k, s).numpy(), ref, atol=1e-7)
     np.testing.assert_allclose(
-        t_filters.get_gaussian_discrete_kernel1d(5, 1.6).numpy(),
-        np.asarray(j_filters.get_gaussian_discrete_kernel1d(5, 1.6)),
+        t_filters.get_gaussian_discrete_kernel1d(5, 1.6).numpy(), kers[3],
         atol=1e-7)
     np.testing.assert_allclose(
         t_filters.get_gaussian_kernel2d((41, 41), (29.0, 29.0)).numpy(),
-        np.asarray(j_filters.get_gaussian_kernel2d((41, 41), (29.0, 29.0))),
-        atol=1e-7)
+        kers[4], atol=1e-7)
 
 
 @pytest.mark.parametrize("mode", ["sobel", "diff"])
-def test_spatial_gradient_matches_reference(mode):
-    x = _image(1, 21, 19)
+def test_spatial_gradient_matches_reference(mode, small_refs):
+    x = small_refs["inputs"]["xg"]
     out = t_filters.spatial_gradient(_t(x), mode)
-    ref = j_filters.spatial_gradient(jnp.asarray(x), mode)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), small_refs["gradient"][mode],
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("border", ["reflect", "replicate", "circular",
                                     "constant"])
-def test_gaussian_blur_matches_reference(border):
+def test_gaussian_blur_matches_reference(border, small_refs):
     """The port's banded blur (plain version here) against the reference's
     two-pass convolution on the CPU: sums in another order."""
-    x = np.random.default_rng(2).random((1, 2, 33, 40)).astype(np.float32)
+    x = small_refs["inputs"]["xb"]
     out = t_filters.gaussian_blur2d(_t(x), 7, 1.4, border)
-    ref = j_filters.gaussian_blur2d(jnp.asarray(x), 7, 1.4, border)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), small_refs["blur"][border],
+                               atol=1e-6)
 
 
-def test_resize_and_pyrdown_match_reference():
-    x = _image(3, 60, 80)
-    np.testing.assert_allclose(
-        t_warp.resize(_t(x), (30, 40)).numpy(),
-        np.asarray(j_warp.resize(jnp.asarray(x), (30, 40))), atol=1e-6)
-    np.testing.assert_allclose(
-        t_pyr.pyrdown(_t(x)).numpy(),
-        np.asarray(j_pyr.pyrdown(jnp.asarray(x))), atol=1e-6)
+def test_resize_and_pyrdown_match_reference(small_refs):
+    x = small_refs["inputs"]["xr"]
+    np.testing.assert_allclose(t_warp.resize(_t(x), (30, 40)).numpy(),
+                               small_refs["resize"], atol=1e-6)
+    np.testing.assert_allclose(t_pyr.pyrdown(_t(x)).numpy(),
+                               small_refs["pyrdown"], atol=1e-6)
 
 
-def test_warp_perspective_matches_reference():
-    x = _image(4, 40, 50)
-    M = np.eye(3, dtype=np.float32)
-    M[0, 2] = -4.0
-    M[1, 0] = 0.01
+def test_warp_perspective_matches_reference(small_refs):
+    x, M = small_refs["inputs"]["xw"], small_refs["inputs"]["M"]
     out = t_warp.warp_perspective(_t(x), _t(M[None]), (40, 50))
-    ref = j_warp.warp_perspective(jnp.asarray(x), jnp.asarray(M[None]),
-                                  (40, 50))
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), small_refs["warp"], atol=1e-5)
 
 
-def test_nms_and_quadratic_fit_match_reference():
-    vol = np.random.default_rng(5).standard_normal((1, 1, 6, 17, 19)).astype(
-        np.float32)
-    np.testing.assert_array_equal(
-        t_subpix.nms3d(_t(vol)).numpy(),
-        np.asarray(j_subpix.nms3d(jnp.asarray(vol))))
-    np.testing.assert_array_equal(
-        t_subpix.nms2d(_t(vol[:, 0])).numpy(),
-        np.asarray(j_subpix.nms2d(jnp.asarray(vol[:, 0]))))
-    for o, r in zip(t_subpix.quad_fit3d_planes(_t(vol)),
-                    j_subpix.quad_fit3d_planes(jnp.asarray(vol))):
-        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-5)
+def test_nms_and_quadratic_fit_match_reference(small_refs):
+    vol = small_refs["inputs"]["vol"]
+    np.testing.assert_array_equal(t_subpix.nms3d(_t(vol)).numpy(),
+                                  small_refs["nms3d"])
+    np.testing.assert_array_equal(t_subpix.nms2d(_t(vol[:, 0])).numpy(),
+                                  small_refs["nms2d"])
+    for o, r in zip(t_subpix.quad_fit3d_planes(_t(vol)), small_refs["quad"]):
+        np.testing.assert_allclose(o.numpy(), r, atol=1e-5)
 
 
 def test_scale_pyramid_levels(stages):
@@ -200,18 +235,12 @@ def test_sift_descriptors(stages):
                                atol=1e-5)
 
 
-def test_masked_smnn_matches_reference():
-    rng = np.random.default_rng(7)
-    d1 = rng.random((64, 128)).astype(np.float32)
-    d2 = np.concatenate([d1[:40] + 0.02 * rng.standard_normal((40, 128)),
-                         rng.random((24, 128))]).astype(np.float32)
-    d2 = d2[rng.permutation(64)]
-    m1 = rng.random(64) > 0.1
-    m2 = rng.random(64) > 0.1
+def test_masked_smnn_matches_reference(small_refs):
+    d1, d2, m1, m2 = (small_refs["inputs"][k] for k in ("d1", "d2", "m1",
+                                                         "m2"))
     out = t_match.DescriptorMatcher("smnn", 0.95)(_t(d1), _t(d2), _t(m1),
                                                   _t(m2))
-    ref = j_match.DescriptorMatcher("smnn", 0.95)(
-        jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(m1), jnp.asarray(m2))
+    ref = small_refs["smnn"]
     valid = np.asarray(ref[2])
     assert valid.sum() >= 20
     np.testing.assert_array_equal(out[2].numpy(), valid)

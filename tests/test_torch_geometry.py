@@ -4,13 +4,16 @@ JAX package on the CPU.
 
 RANSAC is held to the reference with the reference's own random draws:
 the test replays the ``jax.random.split`` / ``gumbel`` chain of
-``kornia_tpu/geometry/ransac.py`` and injects it into the port.
+``kornia_tpu/geometry/ransac.py`` and injects it into the port. The
+5-point solver's candidates are held in tests/test_torch_sfm.py, whose
+``incremental_sfm`` reference compiles the same program. The small
+helpers' references run as one program each (``exact_jit``: each op
+rounds as it does eagerly).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from kornia_tpu.core import linalg as j_lin
@@ -27,6 +30,7 @@ from kornia_tpu_torch.geometry.conversions import \
     normalize_points_with_intrinsics as t_norm_k
 from kornia_tpu_torch.geometry.homography import normalize_points as t_norm
 from kornia_tpu_torch.geometry.ransac import ransac as t_ransac
+from tests.torch_op_parity import exact_jit
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -72,115 +76,75 @@ def test_small_linalg_matches_reference():
     rng = np.random.default_rng(0)
     A = rng.standard_normal((16, 10, 10)).astype(np.float32)
     b = rng.standard_normal((16, 10)).astype(np.float32)
-    np.testing.assert_allclose(t_lin.gauss_det(_t(A)).numpy(),
-                               _np(j_lin.gauss_det(jnp.asarray(A))),
+    M3 = rng.standard_normal((8, 3, 3)).astype(np.float32)
+    B = rng.standard_normal((8, 3, 2)).astype(np.float32)
+    # the reference's helpers in one program, each op rounding as eagerly
+    det, sol, inv3, inv2, ref = exact_jit(lambda a, v, m, w: (
+        j_lin.gauss_det(a), j_lin.gauss_solve(a, v), j_lin.inverse_3x3(m),
+        j_lin.inverse_2x2(m[:, :2, :2]), j_lin.solve_refined(m, w)),
+        A, b, M3, B)
+    np.testing.assert_allclose(t_lin.gauss_det(_t(A)).numpy(), _np(det),
                                rtol=1e-5)
     np.testing.assert_allclose(t_lin.gauss_solve(_t(A), _t(b)).numpy(),
-                               _np(j_lin.gauss_solve(jnp.asarray(A),
-                                                     jnp.asarray(b))),
-                               rtol=1e-4, atol=1e-4)
-    M3 = rng.standard_normal((8, 3, 3)).astype(np.float32)
+                               _np(sol), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(t_lin.inverse_3x3(_t(M3)).numpy(),
-                               _np(j_lin.inverse_3x3(jnp.asarray(M3))),
-                               rtol=1e-5, atol=1e-5)
+                               _np(inv3), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(
-        t_lin.inverse_2x2(_t(M3[:, :2, :2])).numpy(),
-        _np(j_lin.inverse_2x2(jnp.asarray(M3[:, :2, :2]))), rtol=1e-5,
+        t_lin.inverse_2x2(_t(M3[:, :2, :2])).numpy(), _np(inv2), rtol=1e-5,
         atol=1e-5)
-    B = rng.standard_normal((8, 3, 2)).astype(np.float32)
     np.testing.assert_allclose(
-        t_lin.solve_refined(_t(M3), _t(B)).numpy(),
-        _np(j_lin.solve_refined(jnp.asarray(M3), jnp.asarray(B))),
-        rtol=1e-4, atol=1e-4)
+        t_lin.solve_refined(_t(M3), _t(B)).numpy(), _np(ref), rtol=1e-4,
+        atol=1e-4)
 
 
 def test_nullspaces_match_reference():
     rng = np.random.default_rng(1)
     A = rng.standard_normal((12, 5, 9)).astype(np.float32)
-    np.testing.assert_allclose(t_lin.nullspace_qr(_t(A)).numpy(),
-                               _np(j_lin.nullspace_qr(jnp.asarray(A))),
-                               atol=1e-5)
     # near rank-deficient 10x10: inverse iteration finds the null vector
     C = rng.standard_normal((12, 10, 9)).astype(np.float32)
     C = np.concatenate([C, C[..., :1] + C[..., 1:2]], -1)
-    out = t_lin.nullspace_inverse_iteration(_t(C)).numpy()
-    ref = _np(j_lin.nullspace_inverse_iteration(jnp.asarray(C)))
-    for o, r in zip(out, ref):
-        assert _same_up_to_sign(o, r, 1e-4)
     G = rng.standard_normal((6, 12, 9)).astype(np.float32)
-    for o, r in zip(t_lin.lstsq_nullspace(_t(G)).numpy(),
-                    _np(j_lin.lstsq_nullspace(jnp.asarray(G)))):
+    qr, inv_it, lsq = exact_jit(lambda a, c, g: (
+        j_lin.nullspace_qr(a), j_lin.nullspace_inverse_iteration(c),
+        j_lin.lstsq_nullspace(g)), A, C, G)
+    np.testing.assert_allclose(t_lin.nullspace_qr(_t(A)).numpy(), _np(qr),
+                               atol=1e-5)
+    out = t_lin.nullspace_inverse_iteration(_t(C)).numpy()
+    for o, r in zip(out, _np(inv_it)):
+        assert _same_up_to_sign(o, r, 1e-4)
+    for o, r in zip(t_lin.lstsq_nullspace(_t(G)).numpy(), _np(lsq)):
         assert _same_up_to_sign(o, r, 1e-4)  # the eigenvector sign is free
 
 
 def test_poly_roots_and_products_match_reference():
     rng = np.random.default_rng(2)
     c = rng.standard_normal((8, 11)).astype(np.float32)
-    out = t_sol.poly_roots(_t(c), tol=1e-5).numpy()
-    ref = _np(j_sol.poly_roots(jnp.asarray(c), tol=1e-5))
-    # same iteration, same order of roots; f32 complex arithmetic
-    np.testing.assert_allclose(out, ref, atol=1e-4)
     a = rng.standard_normal((5, 4)).astype(np.float32)
     b = rng.standard_normal((5, 4)).astype(np.float32)
+    roots, p2_j, p3_j = exact_jit(lambda cc, x, y: (
+        j_sol.poly_roots(cc, tol=1e-5), j_sol.multiply_deg_one_poly(x, y),
+        j_sol.multiply_deg_two_one_poly(j_sol.multiply_deg_one_poly(x, y),
+                                        y)), c, a, b)
+    out = t_sol.poly_roots(_t(c), tol=1e-5).numpy()
+    # same iteration, same order of roots; f32 complex arithmetic
+    np.testing.assert_allclose(out, _np(roots), atol=1e-4)
     p2 = t_sol.multiply_deg_one_poly(_t(a), _t(b))
+    np.testing.assert_allclose(p2.numpy(), _np(p2_j), atol=1e-6)
     np.testing.assert_allclose(
-        p2.numpy(), _np(j_sol.multiply_deg_one_poly(jnp.asarray(a),
-                                                    jnp.asarray(b))),
-        atol=1e-6)
-    np.testing.assert_allclose(
-        t_sol.multiply_deg_two_one_poly(p2, _t(b)).numpy(),
-        _np(j_sol.multiply_deg_two_one_poly(
-            j_sol.multiply_deg_one_poly(jnp.asarray(a), jnp.asarray(b)),
-            jnp.asarray(b))), atol=1e-5)
+        t_sol.multiply_deg_two_one_poly(p2, _t(b)).numpy(), _np(p3_j),
+        atol=1e-5)
 
 
 def test_point_normalisation_matches_reference():
     rng = np.random.default_rng(3)
     p = rng.uniform(0, 640, (4, 50, 2)).astype(np.float32)
-    for o, r in zip(t_norm(_t(p)), j_norm(jnp.asarray(p))):
-        np.testing.assert_allclose(o.numpy(), _np(r), rtol=1e-5, atol=1e-5)
     K = np.array([[512.0, 0, 320], [0, 512, 240], [0, 0, 1]], np.float32)
-    np.testing.assert_allclose(
-        t_norm_k(_t(p[0]), _t(K)).numpy(),
-        _np(j_norm_k(jnp.asarray(p[0]), jnp.asarray(K))), atol=1e-6)
-
-
-@pytest.fixture(scope="module")
-def minimal_samples():
-    x1, x2, R, t = _scene(5 * 24, 4, noise=0.0)
-    p1 = x1.reshape(24, 5, 2)
-    p2 = x2.reshape(24, 5, 2)
-    E_true = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]],
-                       [-t[1], t[0], 0]]) @ R
-    E_true /= np.linalg.norm(E_true)
-    ref = _np(jax.jit(j_epi.run_5point)(jnp.asarray(p1), jnp.asarray(p2)))
-    return p1, p2, E_true, ref
-
-
-def test_five_point_candidates_match_reference(minimal_samples):
-    p1, p2, E_true, ref = minimal_samples
-    out = t_epi.run_5point(_t(p1), _t(p2)).numpy()
-    assert out.shape == ref.shape == (24, 20, 3, 3)
-    def best(E):
-        d = np.minimum(np.abs(E - E_true).reshape(20, 9).max(-1),
-                       np.abs(E + E_true).reshape(20, 9).max(-1))
-        return E[np.argmin(d)], d.min()
-
-    found = 0
-    for b in range(24):
-        # the candidate nearest the true E agrees with the reference's, and
-        # the port finds the true E exactly where the reference does (the
-        # f32 solver misses about one minimal sample in a hundred)
-        eo, do = best(out[b])
-        er, dr = best(ref[b])
-        assert (do < 1e-3) == (dr < 1e-3)
-        assert _same_up_to_sign(eo, er, 1e-3)
-        found += do < 1e-3
-    assert found >= 22
-    # the surviving candidates are, by and large, the same slots
-    alive_o = np.abs(out).sum((-1, -2)) > 0
-    alive_r = np.abs(ref).sum((-1, -2)) > 0
-    assert (alive_o == alive_r).mean() > 0.95
+    normed, normed_k = exact_jit(lambda x, k: (j_norm(x), j_norm_k(x[0], k)),
+                                 p, K)
+    for o, r in zip(t_norm(_t(p)), normed):
+        np.testing.assert_allclose(o.numpy(), _np(r), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t_norm_k(_t(p[0]), _t(K)).numpy(),
+                               _np(normed_k), atol=1e-6)
 
 
 def test_eight_point_and_polish_match_reference():

@@ -32,6 +32,7 @@ from kornia_tpu_torch.feature import responses as t_resp
 from kornia_tpu_torch.ops import filters as t_filters
 from kornia_tpu_torch.ops import pyramid as t_pyr
 from kornia_tpu_torch.ops import warp as t_warp
+from tests.torch_op_parity import exact_jit
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NF = 64
@@ -63,14 +64,15 @@ def _close_rel(out, ref, rel=1e-5):
 @pytest.mark.parametrize("mode", ["sobel", "diff"])
 def test_second_order_gradient_matches_reference(mode):
     x = _image(1, 21, 19)
+    refs = exact_jit(lambda a: (j_filters.spatial_gradient(a, mode, 2),
+                                j_filters.spatial_gradient(a, mode, 2,
+                                                           False)), x)
     out = t_filters.spatial_gradient(_t(x), mode, 2)
-    ref = j_filters.spatial_gradient(jnp.asarray(x), mode, 2)
     assert out.shape == (1, 1, 3, 21, 19)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(refs[0]), atol=1e-6)
     # unnormalised: the integer taps themselves
     out = t_filters.spatial_gradient(_t(x), mode, 2, False)
-    ref = j_filters.spatial_gradient(jnp.asarray(x), mode, 2, False)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(refs[1]), atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["harris_response", "gftt_response",
@@ -88,8 +90,10 @@ def test_responses_match_reference(name, image):
             sigmas = np.array([1.6, 2.0159], np.float32)
     out = getattr(t_resp, name)(_t(x), sigmas=None if sigmas is None
                                 else _t(sigmas))
-    ref = getattr(j_resp, name)(jnp.asarray(x), sigmas=None if sigmas is None
-                                else jnp.asarray(sigmas))
+    fn = getattr(j_resp, name)
+    ref = (exact_jit(lambda a: fn(a, sigmas=None), x, exact=False)
+           if sigmas is None else
+           exact_jit(lambda a, s: fn(a, sigmas=s), x, sigmas, exact=False))
     _close_rel(out.numpy(), ref)
 
 
@@ -113,11 +117,11 @@ def test_dog_responses_match_reference():
     ref = jax.jit(j_resp.dog_response_single)(jnp.asarray(x))
     assert out.shape == x.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
-    stack = np.stack([x, np.asarray(j_filters.gaussian_blur2d(
-        jnp.asarray(x), 5, 1.0))], axis=1)
+    stack = np.stack([x, np.asarray(exact_jit(
+        lambda a: j_filters.gaussian_blur2d(a, 5, 1.0), x))], axis=1)
     np.testing.assert_array_equal(
         t_resp.dog_response(_t(stack)).numpy(),
-        np.asarray(j_resp.dog_response(jnp.asarray(stack))))
+        np.asarray(exact_jit(j_resp.dog_response, stack)))
 
 
 def test_single_scale_detection_matches_reference():
@@ -126,12 +130,14 @@ def test_single_scale_detection_matches_reference():
     x = np.zeros((1, 1, 32, 32), np.float32)
     x[:, :, 8:24, 8:24] = 1.0
     resp_t = t_resp.harris_response(_t(x))
-    resp_j = j_resp.harris_response(jnp.asarray(x))
-    for minima in (False, True):
+    resp_j, dets = exact_jit(lambda a: (
+        j_resp.harris_response(a),
+        [j_det.detect_features_single_scale(j_resp.harris_response(a), 16,
+                                            minima_are_also_good=m)
+         for m in (False, True)]), x, exact=False)
+    for minima, (xy_j, vals_j, valid_j) in zip((False, True), dets):
         xy, vals, valid = t_det.detect_features_single_scale(
             _t(np.asarray(resp_j)), 16, minima_are_also_good=minima)
-        xy_j, vals_j, valid_j = j_det.detect_features_single_scale(
-            resp_j, 16, minima_are_also_good=minima)
         np.testing.assert_array_equal(valid.numpy(), np.asarray(valid_j))
         np.testing.assert_array_equal(xy.numpy(), np.asarray(xy_j))
         np.testing.assert_allclose(vals.numpy(), np.asarray(vals_j),
@@ -166,13 +172,14 @@ def test_resize_keeps_the_positional_order():
     assert torch.equal(a, b)
     # nearest and antialiased resizes (refused before the op layer was
     # ported) keep the positional order too, and compute the reference's
-    xj = jnp.asarray(_image(6, 20, 30))
+    near_j, aa_j = exact_jit(lambda a: (
+        j_warp.resize(a, (10, 15), "nearest"),
+        j_warp.resize(a, (10, 15), antialias=True)), _image(6, 20, 30))
     np.testing.assert_array_equal(
-        t_warp.resize(x, (10, 15), "nearest").numpy(),
-        np.asarray(j_warp.resize(xj, (10, 15), "nearest")))
+        t_warp.resize(x, (10, 15), "nearest").numpy(), np.asarray(near_j))
     np.testing.assert_allclose(
         t_warp.resize(x, (10, 15), "bilinear", None, "short", True).numpy(),
-        np.asarray(j_warp.resize(xj, (10, 15), antialias=True)), atol=1e-5)
+        np.asarray(aa_j), atol=1e-5)
 
 
 def test_upscale_double_and_doubled_pyramid_match_reference():

@@ -19,6 +19,7 @@ from kornia_tpu.ops import pallas_kernels as pk
 from kornia_tpu.ops.filters import get_gaussian_kernel1d as jax_gauss1d
 from kornia_tpu_torch.convert import state_from_numpy
 from kornia_tpu_torch.ops import kernels as K
+from tests.torch_op_parity import exact_jit
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BORDERS = ["reflect", "replicate", "circular", "constant"]
@@ -72,8 +73,8 @@ def test_patch_sample_plain_matches_pallas(atlas_hw, ps):
     off = rng.uniform(-55, 55, (N, S, 2))
     px = (centers[:, None, 0] + off[..., 0]).astype(np.float32)
     py = (centers[:, None, 1] + off[..., 1]).astype(np.float32)
-    ref = pk.patch_sample_mxu(jnp.asarray(atlas), jnp.asarray(px),
-                              jnp.asarray(py), interpret=True)
+    ref = exact_jit(lambda a, x, y: pk.patch_sample_mxu(
+        a, x, y, interpret=True), atlas, px, py, exact=False)
     out = K.patch_sample(torch.from_numpy(atlas), torch.from_numpy(px),
                          torch.from_numpy(py))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
@@ -93,8 +94,8 @@ def test_patch_sample_border_rule():
 @pytest.mark.parametrize("border", BORDERS)
 def test_band_matrix_matches_reference(border):
     k = np.asarray(jax_gauss1d(9, 1.7))[0]
-    ref = state_from_numpy({"S": np.asarray(pk._band_matrix(
-        jnp.asarray(k), 23, border))}, "cpu")
+    ref = state_from_numpy({"S": np.asarray(exact_jit(
+        lambda a: pk._band_matrix(a, 23, border), k))}, "cpu")
     out = K.band_matrix(torch.from_numpy(k), 23, border)
     torch.testing.assert_close(out, ref["S"], atol=1e-7, rtol=0)
 
@@ -102,11 +103,14 @@ def test_band_matrix_matches_reference(border):
 def test_cumulative_operators_match_reference():
     sigmas = [1.23, 1.55, 1.95, 2.45, 3.09]
     kers = _kernels_1d([(2 * int(np.ceil(4 * s)) + 1, s) for s in sigmas])
-    cum = jnp.eye(64, dtype=jnp.float32)
-    ref = []
-    for k in kers:
-        cum = pk._cum_op(pk._band_matrix(jnp.asarray(k), 64, "replicate"), cum)
-        ref.append(np.asarray(cum))
+    def chain(*ks):
+        cum, out = jnp.eye(64, dtype=jnp.float32), []
+        for k in ks:
+            cum = pk._cum_op(pk._band_matrix(k, 64, "replicate"), cum)
+            out.append(cum)
+        return out
+
+    ref = [np.asarray(c) for c in exact_jit(chain, *kers)]
     state = state_from_numpy({"ops": np.stack(ref), "kernels": kers}, "cpu")
     out = K.cumulative_operators(state["kernels"], 64, "replicate")
     # f32 matrix products summed in another order
@@ -270,8 +274,8 @@ def test_patch_sample_bf16_plain_matches_jax_formula():
     ref = jax.jit(_jax_bf16_sample)(jnp.asarray(atlas), jnp.asarray(px),
                                     jnp.asarray(py))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
-    split = pk.patch_sample_mxu(jnp.asarray(atlas), jnp.asarray(px),
-                                jnp.asarray(py), interpret=True, mode="split")
+    split = exact_jit(lambda a, x, y: pk.patch_sample_mxu(
+        a, x, y, interpret=True, mode="split"), atlas, px, py, exact=False)
     np.testing.assert_allclose(out.numpy(), np.asarray(split), atol=4e-3)
     assert not np.array_equal(out.numpy(), np.asarray(split))
 
@@ -359,9 +363,9 @@ def _border_index(t, size, border):
     """csrc/banded_blur.cu::border_index: the source of index t under the
     border rule, -1 where the rule drops it."""
     if border == "reflect":
-        i = t.abs()
-        i = torch.where(i >= size, 2 * (size - 1) - i, i)
-        return torch.where((i >= 0) & (i < size), i, -1)
+        period = max(2 * (size - 1), 1)
+        i = torch.remainder(t, period)
+        return torch.where(i >= size, period - i, i)
     if border == "replicate":
         return t.clamp(0, size - 1)
     if border == "circular":

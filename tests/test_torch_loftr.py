@@ -25,6 +25,7 @@ from scipy.ndimage import gaussian_filter
 from kornia_tpu.feature import loftr as j_loftr
 from kornia_tpu_torch import convert
 from kornia_tpu_torch.feature import loftr as t_loftr
+from tests.torch_op_parity import exact_jit
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(coarse_dim=64, fine_dim=32, num_coarse_layers=1, num_heads=4,
@@ -157,8 +158,8 @@ def test_coarse_match_matches_reference(runs, hw, cfg):
     h, w = hw
     hwc = (h // 8, w // 8)
     c = MATCH_CFGS[cfg]
-    ref = _np(j_loftr._coarse_match(j_loftr.LoFTRConfig(**c),
-                                    jnp.asarray(conf), hwc, hwc, 32))
+    ref = _np(exact_jit(lambda m: j_loftr._coarse_match(
+        j_loftr.LoFTRConfig(**c), m, hwc, hwc, 32), conf))
     got = [t.numpy() for t in t_loftr._coarse_match(
         t_loftr.LoFTRConfig(**c), _t(conf), hwc, hwc, 32)]
     want = _valid_matches(*ref)
@@ -188,9 +189,8 @@ def test_coarse_match_rules():
     assert got == {(14, 15), (21, 21)}
     assert all(a in inner for a, _ in got)
     np.testing.assert_allclose(np.sort(s[v])[::-1], [0.9, 0.6])
-    ref = _np(j_loftr._coarse_match(j_loftr.LoFTRConfig(**CFG),
-                                    jnp.asarray(conf.numpy()), (6, 6),
-                                    (6, 6), 4))
+    ref = _np(exact_jit(lambda m: j_loftr._coarse_match(
+        j_loftr.LoFTRConfig(**CFG), m, (6, 6), (6, 6), 4), conf.numpy()))
     assert _valid_matches(*ref).keys() == got
 
 
@@ -226,7 +226,8 @@ def test_forward_matches_reference(runs, hw, cfg):
 def test_position_encoding_matches_reference(fix, d_model):
     """Both the floor-division variant (div = exp(-k) for d_model 256) and
     the fixed one."""
-    ref = np.asarray(j_loftr.position_encoding(d_model, (5, 7), fix))
+    ref = np.asarray(exact_jit(lambda: j_loftr.position_encoding(
+        d_model, (5, 7), fix)))
     got = t_loftr.position_encoding(d_model, (5, 7), fix, device="cpu")
     assert got.shape == (1, d_model, 5, 7)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
@@ -238,7 +239,7 @@ def test_linear_attention_and_transformer_match_reference(weights):
     rng = np.random.default_rng(4)
     q, k, v = (rng.normal(size=(2, 30, 4, 16)).astype(np.float32)
                for _ in range(3))
-    ref = np.asarray(j_loftr._linear_attention(*map(jnp.asarray, (q, k, v))))
+    ref = np.asarray(exact_jit(j_loftr._linear_attention, q, k, v))
     _close_rel(t_loftr._linear_attention(_t(q), _t(k), _t(v)).numpy(), ref)
     f0, f1 = (rng.normal(size=(2, 25, 32)).astype(np.float32)
               for _ in range(2))
@@ -255,8 +256,8 @@ def test_window_gather_and_expectation_match_reference():
     rng = np.random.default_rng(5)
     feat = rng.normal(size=(2, 16, 24, 8)).astype(np.float32)  # NHWC
     ids = rng.integers(0, 4 * 6, size=(2, 7))
-    ref = np.asarray(j_loftr._gather_windows(jnp.asarray(feat),
-                                             jnp.asarray(ids), 6, 5, 4))
+    ref = np.asarray(exact_jit(lambda f, i: j_loftr._gather_windows(
+        f, i, 6, 5, 4), feat, ids))
     got = t_loftr._gather_windows(_t(np.transpose(feat, (0, 3, 1, 2))),
                                   _t(ids), 6, 5, 4)
     assert got.shape == (2, 7, 25, 8)
@@ -265,7 +266,7 @@ def test_window_gather_and_expectation_match_reference():
     heat /= heat.sum((1, 2), keepdims=True)
     np.testing.assert_allclose(
         t_loftr._spatial_expectation(_t(heat)).numpy(),
-        np.asarray(j_loftr._spatial_expectation(jnp.asarray(heat))),
+        np.asarray(exact_jit(j_loftr._spatial_expectation, heat)),
         rtol=0, atol=1e-6)
 
 

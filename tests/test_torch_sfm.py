@@ -18,6 +18,13 @@ within 1e-4 px and camera centres within 1e-3 after the similarity
 alignment, and the reference's own bounds (RMS < 0.8 px, Sim3 ATE < 0.05);
 the batched re-triangulation equal to the per-point calls to 1e-5
 relative.
+
+The JAX 5-point solver compiles for about 35 s; ``incremental_sfm`` runs
+it on one minimal sample, so the solver's candidates are also held here,
+sample by sample through the same compiled program
+(``_J_RUN_5POINT``): one compile serves both tests (from
+tests/test_torch_geometry.py, where the solver compiled a second time at
+a batch of 24).
 """
 
 import jax
@@ -28,16 +35,22 @@ import torch
 
 import kornia_tpu.slam.sfm as j_sfm_mod
 from kornia_tpu.geometry import calibration as j_cal
+from kornia_tpu.geometry import epipolar as j_epi
 from kornia_tpu.geometry.conversions import axis_angle_to_rotation_matrix
 from kornia_tpu.geometry.scene import generate_scene as j_scene
 from kornia_tpu.metrics import metrics as j_met
 from kornia_tpu_torch.geometry import calibration as t_cal
+from kornia_tpu_torch.geometry import epipolar as t_epi
 from kornia_tpu_torch.geometry.epipolar import (projection_from_KRt,
                                                 triangulate_points)
 from kornia_tpu_torch.geometry.scene import generate_scene as t_scene
 from kornia_tpu_torch.metrics import metrics as t_met
 from kornia_tpu_torch.slam import sfm as t_sfm
+from tests.test_torch_geometry import _same_up_to_sign, _scene
 from tests.torch_threads import one_torch_thread  # noqa: F401
+
+# one minimal sample (1, 5, 2), the shape at which incremental_sfm calls it
+_J_RUN_5POINT = jax.jit(j_epi.run_5point)
 
 
 def _t(a):
@@ -159,6 +172,47 @@ def _centres(R, t):
 
 
 @pytest.fixture(scope="module")
+def minimal_samples():
+    x1, x2, R, t = _scene(5 * 24, 4, noise=0.0)
+    p1 = x1.reshape(24, 5, 2)
+    p2 = x2.reshape(24, 5, 2)
+    E_true = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]],
+                       [-t[1], t[0], 0]]) @ R
+    E_true /= np.linalg.norm(E_true)
+    # sample by sample through the program incremental_sfm's test shares
+    ref = np.concatenate([np.asarray(_J_RUN_5POINT(
+        jnp.asarray(p1[b:b + 1]), jnp.asarray(p2[b:b + 1])))
+        for b in range(24)])
+    return p1, p2, E_true, ref
+
+
+def test_five_point_candidates_match_reference(minimal_samples):
+    p1, p2, E_true, ref = minimal_samples
+    out = t_epi.run_5point(_t(p1), _t(p2)).numpy()
+    assert out.shape == ref.shape == (24, 20, 3, 3)
+    def best(E):
+        d = np.minimum(np.abs(E - E_true).reshape(20, 9).max(-1),
+                       np.abs(E + E_true).reshape(20, 9).max(-1))
+        return E[np.argmin(d)], d.min()
+
+    found = 0
+    for b in range(24):
+        # the candidate nearest the true E agrees with the reference's, and
+        # the port finds the true E exactly where the reference does (the
+        # f32 solver misses about one minimal sample in a hundred)
+        eo, do = best(out[b])
+        er, dr = best(ref[b])
+        assert (do < 1e-3) == (dr < 1e-3)
+        assert _same_up_to_sign(eo, er, 1e-3)
+        found += do < 1e-3
+    assert found >= 22
+    # the surviving candidates are, by and large, the same slots
+    alive_o = np.abs(out).sum((-1, -2)) > 0
+    alive_r = np.abs(ref).sum((-1, -2)) > 0
+    assert (alive_o == alive_r).mean() > 0.95
+
+
+@pytest.fixture(scope="module")
 def sfm_run():
     """tests/test_sfm.py::test_reconstructs_synthetic_scene through both
     packages. The JAX reference runs its geometry helpers under jit (the
@@ -175,6 +229,7 @@ def sfm_run():
     for name in ("triangulate_points", "motion_from_essential_choose_solution",
                  "solve_pnp_dlt", "sampson_epipolar_distance"):
         mp.setattr(j_sfm_mod, name, jax.jit(getattr(j_sfm_mod, name)))
+    mp.setattr(j_sfm_mod, "run_5point", _J_RUN_5POINT)
     try:
         res_j = j_sfm_mod.incremental_sfm(jnp.asarray(obs), jnp.asarray(vis),
                                           s["K"][0], ba_iters=10)

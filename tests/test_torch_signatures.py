@@ -83,7 +83,7 @@ def test_the_twins_are_found():
     """The walk reaches every ported module with a twin, this slice's
     included."""
     ids = {p.id for p in _twins()}
-    assert len(ids) >= 260
+    assert len(ids) >= 640
     for name in ("ops.warp.resize", "ops.filters.spatial_gradient",
                  "feature.detector.ScaleSpaceDetector",
                  "geometry.ransac.ransac", "geometry.ransac.RANSAC",
@@ -123,5 +123,26 @@ def test_the_twins_are_found():
                  "utils.elastic.latest_checkpoint",
                  "utils.checkpoint.save_checkpoint",
                  "utils.checkpoint.load_checkpoint",
-                 "feature.loftr.loftr_coarse_context_parallel"):
+                 "feature.loftr.loftr_coarse_context_parallel",
+                 "geometry.registration.ImageRegistrator",
+                 "geometry.registration.Homography",
+                 "geometry.epipolar.find_essential",
+                 "geometry.epipolar.random_intrinsics",
+                 "geometry.epipolar.decompose_essential_matrix_no_svd",
+                 "geometry.subpix.iterative_quad_interp3d",
+                 "geometry.subpix.conv_soft_argmax2d",
+                 "geometry.conversions.ARKitQTVecs_to_ColmapQTVecs",
+                 "geometry.linalg.point_line_distance",
+                 "geometry.pose.NamedPose",
+                 "geometry.pointcloud.save_pointcloud_ply",
+                 "geometry.Affine", "geometry.AdaptiveQuadInterp3d",
+                 "losses.losses.ms_ssim_loss",
+                 "losses.losses.hausdorff_distance_loss",
+                 "losses.mutual_information.MILossFromRef2D",
+                 "losses.mutual_information.mutual_information_loss",
+                 "metrics.metrics.mean_average_precision",
+                 "metrics.metrics.confusion_matrix",
+                 "contrib.ops.KMeans", "contrib.ops.kmeans",
+                 "contrib.ops.distance_transform",
+                 "contrib.BoxMotTracker"):
         assert name in ids

@@ -114,6 +114,34 @@ def batch_references(cases: Dict[str, Case], jax_mod) -> Dict[str, Any]:
     return out
 
 
+_EXACT_PROGRAMS = {}
+
+
+def exact_jit(fn, *args, exact: bool = True):
+    """fn(*args) through one jitted program, compiled with EXACT_OPTIONS
+    (unless `exact` is False), so that each op rounds as it does eagerly:
+    one compile in the place of one an eager op. Array arguments are
+    traced; fix the others in `fn`. The program is kept per code object,
+    closure values, options and argument shapes, so a parametrised test
+    that calls the same function on other values compiles once."""
+    import jax
+    args = tuple(jnp.asarray(a) for a in args)
+    try:
+        key = (fn.__code__, tuple(c.cell_contents for c in
+                                  fn.__closure__ or ()),
+               tuple((a.shape, str(a.dtype)) for a in args), exact)
+        hash(key)
+    except (AttributeError, TypeError):
+        key = None
+    program = _EXACT_PROGRAMS.get(key) if key is not None else None
+    if program is None:
+        program = jax.jit(fn).lower(*args).compile(
+            compiler_options=EXACT_OPTIONS if exact else {})
+        if key is not None:
+            _EXACT_PROGRAMS[key] = program
+    return program(*args)
+
+
 def run_case(case: Case, torch_mod, want):
     """`case` through the port, against `want` (from `batch_references`)."""
     tf = case.torch_fn or getattr(torch_mod, case.fn)
