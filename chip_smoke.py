@@ -8,17 +8,24 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
 (sm_90a), then:
 
 1. holds each kernel of the two-view path against its plain PyTorch
-   version on the same CUDA tensors at the path's shapes, and times
-   kernel, plain version and (where one exists) the single PyTorch call
-   that computes the same function: device time of the wrapper's calls
-   summed by torch.profiler, with the L2 flushed before each call;
+   version on random CUDA tensors at the path's shapes, each blur on the
+   route ROUTES names, and the patch kernel (both modes) also on streams
+   that are ragged, at 4-byte offsets, one sample long or empty;
 2. drives ``two_view_pose`` on the benchmark's input (a blurred random
    480x640 image and its 4 px shift, 1024 features) on the card, with every
-   launch counter reset just before and read just after, checks the pose
-   and the route (tiled kernel or two passes) each blur took,
-   and times pairs and stages, and the device's busy share of a pair
+   launch counter reset just before and read just after, checks the pose,
+   the launch list and the route (tiled kernel or two passes) each blur
+   took, and times pairs and stages, and the device's busy share of a pair
    (with ``--profile-out DIR``, the profiler's table goes to
-   DIR/twoview_profile.txt);
+   DIR/twoview_profile.txt); every kernel call of a pair is captured and
+   held against its plain version, each kernel's device time a pair is
+   set beside the sum of its launches' bounds, and the kernels line times
+   kernel, plain version and (where one exists) the single PyTorch call
+   that computes the same function on the pair's largest call of each
+   kernel: device time summed by torch.profiler, the L2 flushed before
+   each call. Every later step builds its entries of the kernels line the
+   same way (counted_run, device_profile, capture_launches,
+   check_captured, path_kernel_times, captured_entry);
 3. runs the port at 256x256 with 512 features on the card and on the CPU
    with the same injected RANSAC noise and compares the results;
 4. train: five Adam steps (lr 1e-2) on the SSIM loss at (8, 3, 480, 640),
@@ -31,8 +38,8 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    streaming kernel against its plain version;
 6. fast_patches: ``two_view_pose`` with ``SIFTFeature(fast_patches=True)``
    (bf16 patch sampling), the pose check of step 2, its per-pair device
-   time of the bf16 patch kernel, and the bf16 kernel against its plain
-   version and against the exact kernel;
+   time of each kernel, each captured call against its plain version, and
+   the bf16 kernel against the exact kernel;
 7. backend: the SLAM optimisation back end, which runs no kernel of its
    own: dense LM bundle adjustment at bench.py's configuration (50
    cameras, 2,000 points, 10,000 observations; iterations/s reckoned as
@@ -371,6 +378,9 @@ FLUSH_KERNEL = "FillFunctor<short>"
 # device_profile's windows: one that lost a path kernel's events is taken
 # again, up to this many
 PROFILE_WINDOWS = 5
+# timed_call's spin: about 3 ms at the H100's clock, longer than any timed
+# call takes to enqueue
+SPIN_CYCLES = 5_000_000
 
 
 def l2_flush() -> None:
@@ -389,8 +399,9 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     after an l2_flush, whose kernel (FLUSH_KERNEL) is left out of the sum.
     The profiler now and then records no device event, or fewer kernels
     than the calls launched, for a window; such a window is taken again,
-    and after three such windows each call is timed with CUDA events around
-    it (launch gaps included), which is said on a line of its own."""
+    and after three such windows each call is timed by timed_call (the gaps
+    between its own kernels included), which is said on a line of its
+    own."""
     try:
         return _device_ms(fn, reps, warmup)
     finally:
@@ -418,18 +429,26 @@ def _device_ms(fn, reps: int, warmup: int) -> float:
     events = []
     for _ in range(reps):
         l2_flush()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
+        events.append(timed_call(fn))
     torch.cuda.synchronize()
     ms = sum(a.elapsed_time(b) for a, b in events) / reps
     print(f"torch.profiler recorded no device time three times: CUDA "
-          f"events give {ms:.4f} ms a call")
+          f"events (timed_call) give {ms:.4f} ms a call")
     if not ms > 0:
         fail("no device time recorded")
     return ms
+
+
+def timed_call(fn):
+    """fn between two CUDA events, after a spin kernel of SPIN_CYCLES that
+    holds the device while the host enqueues the call: the events time the
+    device's work, not the host's launches. Returns the events."""
+    torch.cuda._sleep(SPIN_CYCLES)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    return start, end
 
 
 def bound(nbytes: float, flops: float):
@@ -455,6 +474,16 @@ def patch_bound(atlas_numel: int, samples: int):
     """patch_sample: the atlas read once, px, py read and the samples
     written once; 13 flops a bilinear sample."""
     return bound(atlas_numel * 4 + 3 * samples * 4, 13 * samples)
+
+
+def min2_bound(n: int, m: int, d: int):
+    """streaming_min2 of (n, d) rows against (m, d): both read once, three
+    (n,) results written; the product accurate to f32 is three TF32
+    products on the tensor cores (on the CUDA cores in f32 it would be
+    one)."""
+    t_bytes = ((n + m) * d + 3 * n) * 4 / H100_BYTES_PER_S * 1e3
+    t_ops = 3 * 2 * n * m * d / H100_TF32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def path_launch_shapes(h: int, w: int, patch_sizes=(19, 41)):
@@ -492,13 +521,18 @@ PAIR_KERNELS = {
                          "tile_band_blur"),
     "patch_sample": ("patch_sample_kernel",),
 }
-# ... and of the fused blur's band adjoint (the backward of step 14's JPEG
-# codec): its tiled kernel, or its two passes. A path that counts it runs
-# the adjoint under a reflect or replicate border (the constant and
-# circular adjoints run the forward's kernels) and no multi-level blur
-# adjoint (which shares these kernels): path_kernel_times checks both
-KERNELS = dict(PAIR_KERNELS, fused_separable_blur2d_adjoint=(
-    "tile_band_adjoint", "band_vertical", "band_horizontal_sum"))
+# ... and of every other launch counter: the bf16 patch kernel; the band
+# adjoints (their tiled kernel, or their two passes), which the fused blur's
+# adjoint and the multi-level adjoint share, so a path that sums one by
+# these names runs the fused adjoint under a reflect or replicate border
+# (the constant and circular adjoints run the forward's kernels) and no
+# multi-level adjoint: path_kernel_times checks both; the matcher's three
+BAND_ADJOINT = ("tile_band_adjoint", "band_vertical", "band_horizontal_sum")
+KERNELS = dict(PAIR_KERNELS, **{
+    "patch_sample[bf16]": ("patch_sample_bf16_kernel",),
+    "fused_separable_blur2d_adjoint": BAND_ADJOINT,
+    "multi_level_blur_adjoint": BAND_ADJOINT,
+    "streaming_min2": ("row_norms", "min2_partial", "min2_merge")})
 
 
 def _kernel_name(key: str) -> str:
@@ -507,6 +541,317 @@ def _kernel_name(key: str) -> str:
     head = re.split(r"[(<]", key.replace("(anonymous namespace)::", ""),
                     maxsplit=1)[0]
     return head.split("::")[-1].split()[-1]
+
+
+# --- the kernels line: one way for every step -------------------------------
+#
+# A step that drives a path counts its launches (counted_run), profiles it
+# on the device (device_profile), captures every call of its kernels'
+# wrappers (capture_launches), holds each captured call against its plain
+# version on its ROUTES route (check_captured), sums the path's device time
+# and bound per kernel (path_kernel_times) and, for the kernels line, times
+# the largest captured call of each kernel (captured_entry, path_entries).
+
+# the launch counters whose wrappers pick a route (tiled or two passes)
+ROUTED = ("fused_separable_blur2d", "fused_separable_blur2d_adjoint",
+          "multi_level_blur", "multi_level_blur_adjoint")
+CAPTURE_TOL = {"fused_separable_blur2d": BLUR_ATOL,
+               "fused_separable_blur2d_adjoint": BLUR_ATOL,
+               "multi_level_blur": BLUR_ATOL,
+               "multi_level_blur_adjoint": BLUR_ATOL,
+               "patch_sample": PATCH_ATOL, "patch_sample[bf16]": BF16_ATOL,
+               "streaming_min2": MATCH_ATOL}
+KERNEL_SOURCES = {
+    "fused_separable_blur2d": "kornia_tpu_torch/csrc/banded_blur.cu",
+    "fused_separable_blur2d_adjoint": "kornia_tpu_torch/csrc/banded_blur.cu",
+    "multi_level_blur": "kornia_tpu_torch/csrc/banded_blur.cu",
+    "multi_level_blur_adjoint": "kornia_tpu_torch/csrc/banded_blur.cu",
+    "patch_sample": "kornia_tpu_torch/csrc/patch_sample.cu",
+    "patch_sample[bf16]": "kornia_tpu_torch/csrc/patch_sample.cu",
+    "streaming_min2": "kornia_tpu_torch/csrc/streaming_min2.cu"}
+REPLACES = {"fused_separable_blur2d": "kornia_tpu/ops/pallas_kernels.py:239",
+            "fused_separable_blur2d_adjoint":
+                "kornia_tpu/ops/pallas_kernels.py:216",
+            "multi_level_blur": "kornia_tpu/ops/pallas_kernels.py:378",
+            "multi_level_blur_adjoint": "kornia_tpu/ops/pallas_kernels.py:351",
+            "patch_sample": "kornia_tpu/ops/pallas_kernels.py:539",
+            "patch_sample[bf16]": "kornia_tpu/ops/pallas_kernels.py:512",
+            "streaming_min2": "kornia_tpu/ops/pallas_kernels.py:71"}
+
+
+def wrapper_of(K, name: str):
+    """A launch counter's wrapper and plain version: 'patch_sample[bf16]'
+    counts K.patch_sample's bf16 calls."""
+    base = name.split("[")[0]
+    return getattr(K, base), getattr(K, base + "_plain")
+
+
+def counted_run(K, fn, what: str, names=tuple(PAIR_KERNELS)) -> dict:
+    """Launch counters set to 0 just before fn, read just after; every
+    kernel in `names` must have launched."""
+    torch.cuda.synchronize()
+    K.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    print(f"{what} launches: {launches}")
+    for name in names:
+        if launches.get(name, 0) <= 0:
+            fail(f"{what} never launched kernel {name}")
+    return launches
+
+
+def device_profile(fn, expect=()):
+    """fn once under a device-only torch.profiler trace: (busy ms, kernels
+    launched, the device-side entries). The profiler now and then drops a
+    window's device events, often in runs of windows (device_ms's note): a
+    window in which a kernel of a wrapper in `expect` (KERNELS' names) left
+    no event is taken again, up to PROFILE_WINDOWS windows;
+    path_kernel_times times a kernel still missing with CUDA events."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(PROFILE_WINDOWS):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {_kernel_name(e.key) for e in kern}
+        if all(seen & set(KERNELS[n]) for n in expect):
+            break
+        print(f"torch.profiler recorded no kernel of "
+              f"{[n for n in expect if not seen & set(KERNELS[n])]} in "
+              f"a window: taken again")
+    return (sum(e.self_device_time_total for e in kern) / 1e3,
+            sum(e.count for e in kern), kern)
+
+
+def capture_launches(K, fn, names=tuple(PAIR_KERNELS)) -> dict:
+    """Run fn once with a spy on each kernel wrapper that counts a launch
+    in `names`: the cloned arguments of every call, by launch counter (a
+    bf16 patch call under 'patch_sample[bf16]')."""
+    from kornia_tpu_torch.feature import laf as laf_mod
+    from kornia_tpu_torch.feature import matching as match_mod
+    from kornia_tpu_torch.ops import pyramid as pyr_mod
+    calls = {name: [] for name in names}
+    sites = [(K, "fused_separable_blur2d"),
+             (K, "fused_separable_blur2d_adjoint"),
+             (pyr_mod, "multi_level_blur"), (K, "multi_level_blur_adjoint"),
+             (laf_mod, "patch_sample"), (match_mod, "streaming_min2")]
+    wrapped = {name.split("[")[0] for name in names}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in sites
+             if attr in wrapped]
+
+    def counter(attr, args, kwargs):
+        if attr != "patch_sample":
+            return attr
+        mode = args[3] if len(args) > 3 else kwargs.get("mode", "split")
+        return "patch_sample[bf16]" if K._PATCH_MODES[mode] else attr
+
+    def spy(attr, real):
+        def call(*args, **kwargs):
+            key = counter(attr, args, kwargs)
+            if key in calls:
+                calls[key].append((tuple(a.clone() if torch.is_tensor(a)
+                                         else a for a in args), dict(kwargs)))
+            return real(*args, **kwargs)
+        return call
+
+    try:
+        for mod, attr, real in saved:
+            setattr(mod, attr, spy(attr, real))
+        fn()
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return calls
+
+
+def _max_err(name: str, got, ref) -> float:
+    """The largest difference of a kernel's output from its plain version's;
+    streaming_min2's argmin must agree but on rows whose two nearest lie
+    within TIE_RTOL of each other."""
+    if name != "streaming_min2":
+        return (got - ref).abs().max().item()
+    tie = (ref[1] - ref[0]) <= TIE_RTOL * ref[1]
+    if ((got[2] != ref[2]) & ~tie).any():
+        fail("streaming_min2's argmin differs from its plain version")
+    return max((got[0] - ref[0]).abs().max().item(),
+               (got[1] - ref[1]).abs().max().item())
+
+
+def check_captured(K, calls: dict, what: str) -> dict:
+    """Each captured call again through its kernel and its plain version:
+    the largest difference per launch counter, and the routes the blurs
+    took; every blur's shape must be in ROUTES and take the route listed
+    there. CAPTURE_TOL is stated for [0, 1] inputs: a call whose input
+    reaches beyond 1 (JPEG's 0-255 chroma planes) is held to it times its
+    largest |input|, the same f32 precision; `tol` is the largest such
+    limit."""
+    out = {}
+    for name, cs in calls.items():
+        if not cs:
+            fail(f"{what}: no call of {name} captured")
+        kern, plain = wrapper_of(K, name)
+        err, worst, scale, routes = 0.0, 0.0, 1.0, {}
+        for args, kwargs in cs:
+            if name in ROUTED:
+                route, got = route_of(K, name, lambda: kern(*args, **kwargs))
+                routes[route] = routes.get(route, 0) + 1
+                hw = tuple(args[0].shape[-2:])
+                if ROUTES.get((name, *hw)) != route:
+                    fail(f"{what}: {name} at {hw[0]}x{hw[1]} took the "
+                         f"{route} route, ROUTES lists "
+                         f"{ROUTES.get((name, *hw))}")
+            else:
+                got = kern(*args, **kwargs)
+            e = _max_err(name, got, plain(*args, **kwargs))
+            s_call = max(1.0, args[0].abs().max().item())
+            err, worst = max(err, e), max(worst, e / s_call)
+            scale = max(scale, s_call)
+        if not worst <= CAPTURE_TOL[name]:
+            fail(f"{what}: {name} disagrees with its plain version on the "
+                 f"path's inputs: max abs err {err}, {worst} of the input's "
+                 f"range")
+        shapes = sorted({tuple(a[0].shape) for a, _ in cs})
+        out[name] = dict(calls=len(cs), max_abs_err=err, routes=routes,
+                         tol=CAPTURE_TOL[name] * scale,
+                         shapes=[list(t) for t in shapes])
+        print(f"{what} {name}: {len(cs)} calls against the plain version, "
+              f"max abs err {err:.3e} ({worst:.3e} of the input's range), "
+              f"routes {routes}, shapes {shapes}")
+    return out
+
+
+def launch_bound(name: str, args):
+    """(ms, 'bytes' or 'operations'): the bound of one captured launch, at
+    its own shapes."""
+    x = args[0]
+    if name.startswith("patch_sample"):
+        return patch_bound(x.numel(), args[1].numel())
+    if name == "streaming_min2":
+        return min2_bound(x.shape[0], args[1].shape[0], x.shape[1])
+    h, w = x.shape[-2:]
+    n = x.numel() // (h * w)
+    if name in ("fused_separable_blur2d", "fused_separable_blur2d_adjoint"):
+        # the adjoint: one read of g, one write of dx, the same taps
+        return blur_bound(h, w, n, args[1].numel() + args[2].numel())
+    levels = len(args[1])
+    taps = sum(k.numel() for k in args[1]) + sum(k.numel() for k in args[2])
+    if name == "multi_level_blur_adjoint":
+        n //= levels  # g holds one gradient a level
+    return ml_bound(h, w, n, levels, taps)
+
+
+def replay_ms(kern, calls: list) -> float:
+    """The captured calls of one wrapper, each launched once more after a
+    warm-up call and timed by timed_call: their sum, in ms."""
+    with torch.no_grad():
+        for args, kwargs in calls:
+            kern(*args, **kwargs)
+        events = [timed_call(lambda: kern(*args, **kwargs))
+                  for args, kwargs in calls]
+        torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events)
+
+
+def path_kernel_times(K, kern, calls: dict, launches: dict,
+                      what: str) -> dict:
+    """Per ported kernel of one profiled run: its device time summed over
+    the run's CUDA kernels, its launches and the sum of each captured
+    launch's bound; fails where the captured calls and the counted launches
+    disagree. A kernel that left no event in device_profile's windows is
+    timed by replay_ms on its captured calls, which is said on a line of
+    its own."""
+    out = {}
+    if ("fused_separable_blur2d_adjoint" in calls
+            and (launches.get("multi_level_blur_adjoint")
+                 or any((a[3] if len(a) > 3 else kw.get("border_type"))
+                        in ("constant", "circular")
+                        for a, kw in calls["fused_separable_blur2d_adjoint"]))):
+        fail(f"{what}: the band adjoint's kernels are shared with another "
+             f"launch of the path (KERNELS' note)")
+    for name, cs in calls.items():
+        if len(cs) != launches.get(name):
+            fail(f"{what}: {len(cs)} calls of {name} captured, "
+                 f"{launches.get(name)} launches counted")
+        ms = sum(e.self_device_time_total for e in kern
+                 if _kernel_name(e.key) in KERNELS[name]) / 1e3
+        if not ms > 0:
+            ms = replay_ms(wrapper_of(K, name)[0], cs)
+            print(f"{what}: torch.profiler recorded no event of {name} in "
+                  f"{PROFILE_WINDOWS} windows: CUDA events around its "
+                  f"{len(cs)} captured calls give {ms:.4f} ms")
+        if not ms > 0:
+            fail(f"{what}: no device time of {name}")
+        b = sum(launch_bound(name, a)[0] for a, _ in cs)
+        out[name] = dict(ms=ms, launches=len(cs), bound_ms=b)
+        print(f"{what} {name}: {ms:.4f} ms device in {len(cs)} launches, "
+              f"bound {b:.5f} ms")
+    return out
+
+
+def captured_entry(K, name: str, calls: list, checks: dict) -> dict:
+    """The kernels line's entry of a path's kernel: kernel and plain
+    version timed on the path's largest captured call (by bound), its bound
+    at that call's shapes, the largest difference check_captured found.
+    patch_sample is timed in turns with F.grid_sample (exact modes: the
+    one PyTorch call of the same function) on one call of each distinct
+    shape of the path (`per_shape`)."""
+    args, kwargs = max(calls, key=lambda c: launch_bound(name, c[0])[0])
+    kern, plain = wrapper_of(K, name)
+    b_ms, b_by = launch_bound(name, args)
+    err, lib_ms, per_shape = checks["max_abs_err"], None, None
+    if name.startswith("patch_sample"):
+        mode = args[3] if len(args) > 3 else kwargs.get("mode", "split")
+        distinct = {}
+        for a, _ in calls:
+            distinct.setdefault((tuple(a[0].shape), tuple(a[1].shape)), a[:3])
+        per_shape = path_patch_times(K, list(distinct.values()), mode)
+        for d in per_shape:
+            d.pop("inputs")
+            err = max(err, d["max_abs_err"])
+        top = max(per_shape, key=lambda d: d["bound_ms"])
+        ms = statistics.mean(top["kernel_ms"])
+        lib_ms = top["library_ms"] and statistics.mean(top["library_ms"])
+    else:
+        ms = device_ms(lambda: kern(*args, **kwargs))
+    return dict(source=KERNEL_SOURCES[name], replaces=REPLACES[name],
+                max_abs_err=err, ms=ms,
+                plain_ms=device_ms(lambda: plain(*args, **kwargs)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                tol=checks["tol"], per_shape=per_shape,
+                shape=[list(a.shape) for a in args if torch.is_tensor(a)])
+
+
+def path_entries(K, calls: dict, checks: dict, launches: dict,
+                 tag: str = "") -> tuple:
+    """The kernels line's entries of one path, keyed name@tag (name alone
+    without a tag), and each entry's launches on the path."""
+    results, counts = {}, {}
+    for name, cs in calls.items():
+        key = f"{name}@{tag}" if tag else name
+        results[key] = captured_entry(K, name, cs, checks[name])
+        counts[key] = launches.get(name, 0)
+    return results, counts
+
+
+def check_launch_list(launches: dict, shapes: dict, n_detect: int,
+                      what: str) -> None:
+    """The launches counted over `n_detect` detections of a path against
+    one detection's launch list (path_launch_shapes, planar_launch_shapes),
+    and each blur's launches against the route ROUTES names at its shape:
+    fails on any miscount."""
+    want = {}
+    for name in ("fused_separable_blur2d", "multi_level_blur"):
+        for shape in shapes[name]:
+            key = f"{name}:{expected_route(name, *shape[:2])}"
+            want[key] = want.get(key, 0) + n_detect
+    for name in PAIR_KERNELS:
+        want[name] = n_detect * len(shapes[name])
+    for key, n in want.items():
+        if launches.get(key) != n:
+            fail(f"{what}: {launches.get(key)} launches of {key}, the launch "
+                 f"list and ROUTES give {n}")
 
 
 def capture_patch_coords(dev, img, feature=None):
@@ -541,71 +886,52 @@ def in_turns(first, second, reps: int = 20):
 
 
 def kernel_phase(K, filters, dev) -> dict:
-    """Each kernel against its plain version at the path's shapes; times of
-    the wrappers as the path calls them, at each shape the path gives
-    them."""
+    """Step 1: each kernel of the pair's path against its plain version on
+    random inputs at the path's shapes, each blur on the route ROUTES
+    names; the patch kernel in both modes on coordinates over and beyond
+    the atlas, and on streams that are ragged, at 4-byte offsets, empty or
+    one sample long. The kernels line's entries are timed on the pair's own
+    calls (main_path)."""
     from kornia_tpu_torch.ops.pyramid import ScalePyramid
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results = {}
     shapes = path_launch_shapes(H, W)
+    errs = {}
+
+    def check(name, got, ref, tol):
+        e = (got - ref).abs().max().item() if got.numel() else 0.0
+        errs[name] = max(errs.get(name, 0.0), e)
+        if not e <= tol:
+            fail(f"{name} disagrees with its plain version: max abs err "
+                 f"{e} > {tol}")
 
     # --- fused_separable_blur2d: first-level Gaussian (k=15, replicate) and
-    # the pyrdown chain of the patch atlas (k=5, reflect), each distinct
-    # shape of the path
-    x = torch.rand((1, 1, H, W), device=dev, generator=gen)
-    sig0 = math.sqrt(1.6 ** 2 - 0.5 ** 2)
-    k15 = filters.get_gaussian_kernel1d(15, sig0, device=dev).reshape(-1)
+    # the pyrdown chain of the patch atlas (k=5, reflect)
+    k15 = filters.get_gaussian_kernel1d(
+        15, math.sqrt(1.6 ** 2 - 0.5 ** 2), device=dev).reshape(-1)
     k5 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev) / 16.0
     taps = {15: k15, 5: k5}
-    err = 0.0
-    per_shape = []
     for hh, ww, k, border in dict.fromkeys(shapes["fused_separable_blur2d"]):
-        xi = x if (hh, ww) == (H, W) else torch.rand(
-            (1, 1, hh, ww), device=dev, generator=gen)
+        xi = torch.rand((1, 1, hh, ww), device=dev, generator=gen)
         ki = taps[k]
-        route, out = check_route(
+        _, out = check_route(
             K, "fused_separable_blur2d", hh, ww,
             lambda: K.fused_separable_blur2d(xi, ki, ki, border))
-        ref = K.fused_separable_blur2d_plain(xi, ki, ki, border)
-        err = max(err, (out - ref).abs().max().item())
-        t = device_ms(lambda: K.fused_separable_blur2d(xi, ki, ki, border))
-        b = blur_bound(hh, ww, 1, 2 * k)[0]
-        per_shape.append(dict(shape=[hh, ww], k=k, border=border, ms=t,
-                              bound_ms=b, route=route))
-        print(f"fused_separable_blur2d {hh}x{ww} k={k} {border} ({route}): "
-              f"{t:.4f} ms, bound {b:.5f} ms ({t / b:.1f}x)")
-    ms = device_ms(lambda: K.fused_separable_blur2d(x, k15, k15, "replicate"))
-    plain_ms = device_ms(lambda: K.fused_separable_blur2d_plain(
-        x, k15, k15, "replicate"))
-    b_ms, b_by = blur_bound(H, W, 1, 15 + 15)
-    results["fused_separable_blur2d"] = dict(per_shape=per_shape,
-        source="kornia_tpu_torch/csrc/banded_blur.cu",
-        replaces="kornia_tpu/ops/pallas_kernels.py:239",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+        check("fused_separable_blur2d", out,
+              K.fused_separable_blur2d_plain(xi, ki, ki, border), BLUR_ATOL)
 
     # --- multi_level_blur: every octave of the 480x640 pyramid, with the
     # pyramid's own incremental kernels (host tensors, as it passes them)
     kers, _ = ScalePyramid()._level_kernels(1.6)
-    L = len(kers)
-    chain_taps = 2 * sum(k.numel() for k in kers)
-    err = 0.0
-    per_shape = []
     for hh, ww in shapes["multi_level_blur"]:
-        xi = x if (hh, ww) == (H, W) else torch.rand(
-            (1, 1, hh, ww), device=dev, generator=gen)
-        route, out = check_route(
+        xi = torch.rand((1, 1, hh, ww), device=dev, generator=gen)
+        _, out = check_route(
             K, "multi_level_blur", hh, ww,
             lambda: K.multi_level_blur(xi, kers, kers, "replicate"))
-        ref = K.multi_level_blur_plain(xi, kers, kers, "replicate")
-        err = max(err, (out - ref).abs().max().item())
-        t = device_ms(lambda: K.multi_level_blur(xi, kers, kers, "replicate"))
-        b = ml_bound(hh, ww, 1, L, chain_taps)[0]
-        per_shape.append(dict(shape=[hh, ww], levels=L, ms=t, bound_ms=b,
-                              route=route))
-        print(f"multi_level_blur {hh}x{ww} L={L} ({route}): {t:.4f} ms, "
-              f"bound {b:.5f} ms ({t / b:.1f}x)")
+        check("multi_level_blur", out,
+              K.multi_level_blur_plain(xi, kers, kers, "replicate"),
+              BLUR_ATOL)
     # the band tables are built once per (kernels, size, border, device)
+    x = torch.rand((1, 1, H, W), device=dev, generator=gen)
     K._band_tables_cached.cache_clear()
     K._cumulative_cached.cache_clear()
     torch.cuda.synchronize()
@@ -613,55 +939,44 @@ def kernel_phase(K, filters, dev) -> dict:
     K.multi_level_blur(x, kers, kers, "replicate")
     torch.cuda.synchronize()
     tables_ms = (time.perf_counter() - t0) * 1e3
-    ms = device_ms(lambda: K.multi_level_blur(x, kers, kers, "replicate"))
-    plain_ms = device_ms(lambda: K.multi_level_blur_plain(
-        x, kers, kers, "replicate"))
-    taps = K._band_tables_cached(K._values(kers), H, "replicate",
-                                 str(dev))[2]
-    band_taps = sum(taps) + sum(K._band_tables_cached(
-        K._values(kers), W, "replicate", str(dev))[2])
-    # the cumulative bands compute the chain in one pass, with more taps
-    b_ms, b_by = ml_bound(H, W, 1, L, min(chain_taps, band_taps))
-    print(f"multi_level_blur 480x640: band taps per pixel {band_taps} "
-          f"(levels {list(taps)} vertical), sequential chain "
-          f"{chain_taps}; band tables built in {tables_ms:.2f} ms on the "
-          f"first call (host clock), cached after")
-    results["multi_level_blur"] = dict(per_shape=per_shape,
-        source="kornia_tpu_torch/csrc/banded_blur.cu",
-        replaces="kornia_tpu/ops/pallas_kernels.py:378",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+    band_taps = [K._band_tables_cached(K._values(kers), n, "replicate",
+                                       str(dev))[2] for n in (H, W)]
+    print(f"multi_level_blur 480x640: band taps per pixel "
+          f"{sum(map(sum, band_taps))} (levels {list(band_taps[0])} "
+          f"vertical), sequential chain {2 * sum(k.numel() for k in kers)}; "
+          f"band tables built in {tables_ms:.2f} ms on the first call (host "
+          f"clock), cached after")
 
-    # --- patch_sample: random coordinates over the whole atlas (clamping
-    # at every edge) as a correctness check, orienter (19² samples, atlas
-    # 930 rows) and descriptor (41², 900 rows) calls of 1024 keypoints
-    err = 0.0
-    for rows, S in shapes["patch_sample"]:
+    # --- patch_sample, both modes: the orienter's (19², atlas 930 rows) and
+    # the descriptor's (41², 900 rows) calls of 1024 keypoints on random
+    # coordinates (clamping at every edge), then streams the kernel splits
+    # into a head, 8-byte pairs and a tail (csrc/patch_sample.cu): ragged,
+    # views at 4-byte offsets (px and py on the same and on other 8-byte
+    # parities), one sample, none
+    def at_offset(t, k):
+        flat = torch.empty(t.numel() + 8, device=dev)
+        view = flat[k:k + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    cases = [(rows, NF, S, 0, 0) for rows, S in shapes["patch_sample"]] + [
+        (900, 1023, 1681, 0, 0), (900, 3, 5, 0, 0), (900, 1, 1, 0, 0),
+        (900, 0, 361, 0, 0), (930, NF, 361, 1, 2), (900, NF, 1681, 3, 1),
+        (900, 97, 361, 2, 0)]
+    for rows, n, S, kx, ky in cases:
         atlas = torch.rand((rows, W), device=dev, generator=gen)
-        px = torch.rand((NF, S), device=dev, generator=gen) * (W + 20) - 10
-        py = torch.rand((NF, S), device=dev, generator=gen) * (rows + 20) - 10
-        out = K.patch_sample(atlas, px, py)
-        ref = K.patch_sample_plain(atlas, px, py)
-        err = max(err, (out - ref).abs().max().item())
-    # the times on the coordinates the path gives it: the pair's own LAFs
-    img0 = bench_input(H, W, dev)[0]
-    path_ms = path_patch_times(K, capture_patch_coords(dev, img0), "split")
-    for c in path_ms:
-        err = max(err, c["max_abs_err"])
-    desc = path_ms[-1]  # the 41² descriptor call, the larger
-    atlas, px, py = desc.pop("inputs")
-    plain_ms = device_ms(lambda: K.patch_sample_plain(atlas, px, py))
-    results["patch_sample"] = dict(per_shape=path_ms,
-        source="kornia_tpu_torch/csrc/patch_sample.cu",
-        replaces="kornia_tpu/ops/pallas_kernels.py:539",
-        max_abs_err=err, ms=statistics.mean(desc["kernel_ms"]),
-        plain_ms=plain_ms, bound_ms=desc["bound_ms"], bound_by=desc["bound_by"],
-        library_ms=statistics.mean(desc["library_ms"]), tol=PATCH_ATOL)
-    for c in path_ms:
-        c.pop("inputs", None)
-
-    report(results)
-    return results
+        px = at_offset(torch.rand((n, S), device=dev, generator=gen)
+                       * (W + 20) - 10, kx)
+        py = at_offset(torch.rand((n, S), device=dev, generator=gen)
+                       * (rows + 20) - 10, ky)
+        for mode, name, tol in (("split", "patch_sample", PATCH_ATOL),
+                                ("bf16", "patch_sample[bf16]", BF16_ATOL)):
+            check(name, K.patch_sample(atlas, px, py, mode),
+                  K.patch_sample_plain(atlas, px, py, mode), tol)
+    print(f"kernels vs plain on random inputs at the path's shapes (patch "
+          f"cases {[c[1:] for c in cases]}: N, S, px and py offsets in "
+          f"floats): {errs}")
+    return errs
 
 
 def path_patch_times(K, calls, mode: str) -> list:
@@ -783,6 +1098,14 @@ def main_path(K, dev, profile_out) -> dict:
         if launches.get(name, 0) <= 0:
             fail(f"main path never launched kernel {name}")
     rot, t, n_inl = check_pose(res, "pose")
+    check_launch_list(launches, path_launch_shapes(H, W), 2, "pair")
+    # every kernel call of a pair, held to its plain version; the kernels
+    # line's entries
+    calls = capture_launches(K, lambda: two_view_pose(
+        img0, img1, Kc, generator=gen, num_features=NF, device=dev))
+    kernels, counts = path_entries(
+        K, calls, check_captured(K, calls, "pair"), launches)
+    report(kernels)
 
     # pairs: host clock around synchronised calls
     times = []
@@ -852,11 +1175,12 @@ def main_path(K, dev, profile_out) -> dict:
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
-    per_pair = pair_kernel_times(kern, launches)
+    per_pair = path_kernel_times(K, kern, calls, launches, "per pair")
     print(json.dumps({"per_pair": per_pair}))
     return dict(launches=launches, pair_ms=pair_ms, stage_ms=stage_ms,
                 busy_ms=busy_ms, n_kernels=n_kernels, rotation_deg=rot,
-                t=t.tolist(), inliers=n_inl, per_pair=per_pair)
+                t=t.tolist(), inliers=n_inl, per_pair=per_pair,
+                kernels=kernels, counts=counts)
 
 
 def profile_kernels(fn):
@@ -872,60 +1196,6 @@ def profile_kernels(fn):
     ka = prof.key_averages()
     return ka, [e for e in ka
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def pair_kernel_times(kern, launches, patch_sizes=(19, 41),
-                      what: str = "per pair") -> dict:
-    """Per ported kernel of the pair: its device time summed over the
-    profiled pair's CUDA kernels, and the sum of each launch's own bound at
-    its own shape (both images). Fails where the launch list disagrees with
-    the counted launches."""
-    from kornia_tpu_torch.ops.pyramid import ScalePyramid
-    shapes = path_launch_shapes(H, W, patch_sizes)
-    kers = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)[0]
-    chain, levels = 2 * sum(k.numel() for k in kers), len(kers)
-    bounds = {
-        "fused_separable_blur2d": [blur_bound(h, w, 1, 2 * k)[0]
-                                   for h, w, k, _ in
-                                   shapes["fused_separable_blur2d"]],
-        "multi_level_blur": [ml_bound(h, w, 1, levels, chain)[0]
-                             for h, w in shapes["multi_level_blur"]],
-        "patch_sample": [patch_bound(rows * W, NF * s)[0]
-                         for rows, s in shapes["patch_sample"]],
-    }
-    # the routes the pair's blurs take, both images
-    routes = {}
-    for h, w, _, _ in shapes["fused_separable_blur2d"]:
-        key = ("fused_separable_blur2d",
-               expected_route("fused_separable_blur2d", h, w))
-        routes[key] = routes.get(key, 0) + 2
-    for h, w in shapes["multi_level_blur"]:
-        key = ("multi_level_blur", expected_route("multi_level_blur", h, w))
-        routes[key] = routes.get(key, 0) + 2
-    for (name, route), n in routes.items():
-        if launches.get(f"{name}:{route}") != n:
-            fail(f"{name}: {launches.get(f'{name}:{route}')} launches on the "
-                 f"{route} route on the pair, PERF.md's routes give {n}")
-    out = {}
-    for name, names in PAIR_KERNELS.items():
-        if launches.get(name) != 2 * len(bounds[name]):
-            fail(f"{name}: {launches.get(name)} launches on the pair, the "
-                 f"launch list has {2 * len(bounds[name])}")
-        by = {}
-        for e in kern:
-            kn = _kernel_name(e.key)
-            if kn in names:
-                by[kn] = by.get(kn, 0.0) + e.self_device_time_total / 1e3
-        ms = sum(by.values())
-        if not ms > 0:
-            fail(f"{name}: no device time of {names} in the pair's profile")
-        b = 2 * sum(bounds[name])
-        out[name] = dict(ms_per_pair=ms, bound_per_pair=b,
-                         loss_per_pair=ms - b, launches=launches[name],
-                         cuda_kernels={k: round(v, 5) for k, v in by.items()})
-        print(f"{what} {name}: {ms:.4f} ms device, bound {b:.5f} ms, "
-              f"{launches[name]} launches, kernels {out[name]['cuda_kernels']}")
-    return out
 
 
 def cross_check(K, dev) -> None:
@@ -1068,15 +1338,13 @@ def train_phase(K, dev) -> dict:
     else:
         fail("patch_sample on the card accepted an input that requires grad")
 
-    results = {}
     # --- fused adjoint: the SSIM blur (11 taps, sigma 1.5, reflect and
     # replicate), the first-level blur of the pyramid (15 taps, replicate)
-    # and the flipped-tap borders
+    # and the flipped-tap borders, each on the route ROUTES names
     k11 = get_gaussian_kernel1d(11, 1.5, device=dev).reshape(-1)
     k15 = get_gaussian_kernel1d(15, math.sqrt(1.6 ** 2 - 0.5 ** 2),
                                 device=dev).reshape(-1)
     g = torch.rand(TRAIN_SHAPE, device=dev, generator=gen)
-    err = 0.0
     cases = [(g, k11, "reflect"), (g, k11, "replicate"),
              (base, k15, "replicate")] + [
         (torch.rand((2, 3, 61, 83), device=dev, generator=gen), k11, b)
@@ -1086,72 +1354,46 @@ def train_phase(K, dev) -> dict:
         route, out = check_route(
             K, "fused_separable_blur2d_adjoint", hh, ww,
             lambda: K.fused_separable_blur2d_adjoint(gi, ki, ki, border))
-        ref = K.fused_separable_blur2d_adjoint_plain(gi, ki, ki, border)
-        e = (out - ref).abs().max().item()
-        err = max(err, e)
+        e = (out - K.fused_separable_blur2d_adjoint_plain(
+            gi, ki, ki, border)).abs().max().item()
         print(f"fused_separable_blur2d_adjoint {tuple(gi.shape)} k="
               f"{ki.numel()} {border} ({route}): max abs err {e:.3e}")
-    fwd_ms = device_ms(lambda: K.fused_separable_blur2d(
-        g, k11, k11, "reflect"))
-    print(f"fused_separable_blur2d forward at {TRAIN_SHAPE}, 11 taps, "
-          f"reflect: {fwd_ms:.4f} ms")
-    # one read of g, one write of dx; 2 flops a tap, 11 + 11 taps
-    b_ms, b_by = bound(2 * g.numel() * 4, 2 * (11 + 11) * g.numel())
-    times = {}
-    for border in ("reflect", "replicate"):
-        times[border] = device_ms(lambda: K.fused_separable_blur2d_adjoint(
-            g, k11, k11, border))
-        print(f"fused_separable_blur2d_adjoint {TRAIN_SHAPE} k=11 {border} "
-              f"(tiled): {times[border]:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}, {times[border] / b_ms:.1f}x)")
-    plain_ms = device_ms(lambda: K.fused_separable_blur2d_adjoint_plain(
-        g, k11, k11, "reflect"))
-    results["fused_separable_blur2d_adjoint"] = dict(
-        source="kornia_tpu_torch/csrc/banded_blur.cu",
-        replaces="kornia_tpu/ops/pallas_kernels.py:216",
-        max_abs_err=err, ms=times["reflect"], plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
+        if not e <= BLUR_ATOL:
+            fail(f"fused_separable_blur2d_adjoint {border} disagrees with "
+                 f"its plain version: {e}")
 
     # --- multi-level adjoint: every octave of the 480x640 pyramid, on the
-    # route PERF.md names for it
+    # route ROUTES names for it
     kers, _ = ScalePyramid()._level_kernels(1.6)
     L = len(kers)
-    chain_taps = 2 * sum(k.numel() for k in kers)
-    err = 0.0
     for i in range(4):
         hh, ww = H >> i, W >> i
         gl = torch.rand((L, 1, 1, hh, ww), device=dev, generator=gen)
         route, out = check_route(
             K, "multi_level_blur_adjoint", hh, ww,
             lambda: K.multi_level_blur_adjoint(gl, kers, kers))
-        ref = K.multi_level_blur_adjoint_plain(gl, kers, kers)
-        e = (out - ref).abs().max().item()
-        err = max(err, e)
-        t = device_ms(lambda: K.multi_level_blur_adjoint(gl, kers, kers))
-        # one read of each of the L gradients, one write of dx; the least
-        # work is the sequential chain's adjoint, 2 flops a tap
-        bo = bound((L + 1) * hh * ww * 4, 2 * chain_taps * hh * ww)[0]
-        print(f"multi_level_blur_adjoint {hh}x{ww} L={L} ({route}): "
-              f"{t:.4f} ms, bound {bo:.5f} ms ({t / bo:.1f}x), max abs err "
-              f"{e:.3e}")
-    gl = torch.rand((L, 1, 1, H, W), device=dev, generator=gen)
-    ms = device_ms(lambda: K.multi_level_blur_adjoint(gl, kers, kers))
-    plain_ms = device_ms(lambda: K.multi_level_blur_adjoint_plain(
-        gl, kers, kers))
-    taps = K._adjoint_band_tables_cached(K._values(kers), H, "replicate",
-                                         str(dev))[2]
-    band_taps = sum(taps) + sum(K._adjoint_band_tables_cached(
-        K._values(kers), W, "replicate", str(dev))[2])
-    b_ms, b_by = bound((L + 1) * H * W * 4,
-                       2 * min(chain_taps, band_taps) * H * W)
-    results["multi_level_blur_adjoint"] = dict(
-        source="kornia_tpu_torch/csrc/banded_blur.cu",
-        replaces="kornia_tpu/ops/pallas_kernels.py:351",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
-    report(results)
-    return dict(kernels=results, launches=launches, losses=losses,
-                step_ms=statistics.median(step_ms))
+        e = (out - K.multi_level_blur_adjoint_plain(gl, kers, kers)
+             ).abs().max().item()
+        print(f"multi_level_blur_adjoint {hh}x{ww} L={L} ({route}): max abs "
+              f"err {e:.3e}")
+        if not e <= BLUR_ATOL:
+            fail(f"multi_level_blur_adjoint at {hh}x{ww} disagrees with its "
+                 f"plain version: {e}")
+
+    # the kernels line: the adjoints of one step of the path (an SSIM step
+    # and the pyramid's backward), captured and held to their plain versions
+    def one_step():
+        ssim_loss(init.clone().requires_grad_(), target).backward()
+        dog_energy(base.clone().requires_grad_())[0].backward()
+
+    calls = capture_launches(K, one_step, ("fused_separable_blur2d_adjoint",
+                                           "multi_level_blur_adjoint"))
+    kernels, counts = path_entries(K, calls, check_captured(K, calls,
+                                                            "train"),
+                                   launches)
+    report(kernels)
+    return dict(kernels=kernels, counts=counts, launches=launches,
+                losses=losses, step_ms=statistics.median(step_ms))
 
 
 def match_phase(K, dev) -> dict:
@@ -1206,45 +1448,30 @@ def match_phase(K, dev) -> dict:
     if not int(valid.sum()) > n // 2:
         fail(f"only {int(valid.sum())} of {n} rows matched")
 
-    # the kernel against its plain version, one direction
-    out = K.streaming_min2(d1, d2)
-    ref = K.streaming_min2_plain(d1, d2)
-    tie = (ref[1] - ref[0]) <= TIE_RTOL * ref[1]
-    err = max((out[0] - ref[0]).abs().max().item(),
-              (out[1] - ref[1]).abs().max().item())
-    if ((out[2] != ref[2]) & ~tie).any():
-        fail("streaming_min2 argmin differs from its plain version")
-    ms = device_ms(lambda: K.streaming_min2(d1, d2))
-    plain_ms = device_ms(lambda: K.streaming_min2_plain(d1, d2))
+    # the kernels line: the matcher's two launches (both directions),
+    # captured and held to the plain version
+    calls = capture_launches(K, lambda: DescriptorMatcher(
+        "smnn", th, streaming=True)(d1, d2), ("streaming_min2",))
+    kernels, counts = path_entries(K, calls, check_captured(K, calls,
+                                                            "match"),
+                                   launches)
     cublas_ms = device_ms(lambda: d1 @ d2.T)
     stream_match_ms = device_ms(lambda: DescriptorMatcher(
         "smnn", th, streaming=True)(d1, d2), reps=5)
     dense_match_ms = device_ms(lambda: DescriptorMatcher("smnn", th)(d1, d2),
                                reps=5)
-    # bytes: d1, d2 read, three (N,) results written. Operations: the
-    # product accurate to f32 is three TF32 products on the tensor cores;
-    # in f32 on the CUDA cores it would be one
-    nbytes = (2 * n * d + 3 * n) * 4
-    cuda_core_ms = bound(nbytes, 2 * n * n * d)[0]
-    t_ops = 3 * 2 * n * n * d / H100_TF32_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
-        t_bytes, "bytes")
+    e = kernels["streaming_min2"]
+    cuda_core_ms = bound((2 * n * d + 3 * n) * 4, 2 * n * n * d)[0]
     print(f"match: streaming_min2 {n}x{n}x{d} (3xTF32, tensor cores): "
-          f"{ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, 3xTF32 at 495 "
-          f"TFLOP/s; {ms / b_ms:.2f}x), CUDA-core f32 bound "
-          f"{cuda_core_ms:.5f} ms; d1 @ d2.T (cuBLAS f32, TF32 off) "
+          f"{e['ms']:.4f} ms, bound {e['bound_ms']:.5f} ms ({e['bound_by']}, "
+          f"3xTF32 at 495 TFLOP/s; {e['ms'] / e['bound_ms']:.2f}x), CUDA-core "
+          f"f32 bound {cuda_core_ms:.5f} ms; d1 @ d2.T (cuBLAS f32, TF32 off) "
           f"{cublas_ms:.4f} ms, a yardstick, not the same function; SMNN "
           f"matcher device ms: streaming {stream_match_ms:.4f}, plain "
           f"(dense) {dense_match_ms:.4f}")
-    results = {"streaming_min2": dict(
-        source="kornia_tpu_torch/csrc/streaming_min2.cu",
-        replaces="kornia_tpu/ops/pallas_kernels.py:71",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, tol=MATCH_ATOL)}
-    report(results)
-    return dict(kernels=results, launches=launches, cublas_ms=cublas_ms,
-                stream_match_ms=stream_match_ms,
+    report(kernels)
+    return dict(kernels=kernels, counts=counts, launches=launches,
+                cublas_ms=cublas_ms, stream_match_ms=stream_match_ms,
                 dense_match_ms=dense_match_ms, peak_bytes=peak)
 
 
@@ -1290,57 +1517,40 @@ def fast_patches_phase(K, dev) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     print(f"fast_patches: two_view_pose median {statistics.median(times):.2f}"
           f" ms/pair, runs {[round(v, 2) for v in times]}")
-    # the bf16 kernel's device time in the profile of one pair, beside the
-    # sum of its launches' bounds (both images)
-    _, kern = profile_kernels(lambda: two_view_pose(
-        img0, img1, Kc, generator=gen, num_features=NF, feature=feat,
-        device=dev))
-    per_pair_ms = sum(e.self_device_time_total for e in kern
-                      if _kernel_name(e.key) == "patch_sample_bf16_kernel") \
-        / 1e3
-    per_pair_bound = 2 * sum(patch_bound(rows * W, NF * n)[0] for rows, n in
-                             path_launch_shapes(H, W)["patch_sample"])
-    if not per_pair_ms > 0:
-        fail("no device time of patch_sample_bf16_kernel in the profile of a "
-             "fast_patches pair")
-    print(f"per pair patch_sample[bf16]: {per_pair_ms:.4f} ms device, bound "
-          f"{per_pair_bound:.5f} ms, {launches['patch_sample[bf16]']} "
-          f"launches")
+    # one pair profiled on the device and captured: each kernel's device
+    # time and bound a pair, each call held to its plain version
+    names = ("fused_separable_blur2d", "multi_level_blur",
+             "patch_sample[bf16]")
+    pair = lambda: two_view_pose(img0, img1, Kc,  # noqa: E731
+                                 generator=gen, num_features=NF,
+                                 feature=feat, device=dev)
+    calls = capture_launches(K, pair, names)
+    checks = check_captured(K, calls, "fast_patches")
+    bf16 = "patch_sample[bf16]"
+    kernels, counts = path_entries(K, {bf16: calls[bf16]}, checks, launches)
+    report(kernels)
+    _, _, kern = device_profile(pair, names)
+    per_pair = path_kernel_times(K, kern, calls, launches,
+                                 "fast_patches per pair")
 
+    # the bf16 kernel against the exact kernel: bf16 keeps 8 bits
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    err = split_err = 0.0
-    for rows, S in ((930, 19 * 19), (900, 41 * 41)):
+    split_err = 0.0
+    for rows, S in path_launch_shapes(H, W)["patch_sample"]:
         atlas = torch.rand((rows, W), device=dev, generator=gen)
         px = torch.rand((NF, S), device=dev, generator=gen) * (W - 1)
         py = torch.rand((NF, S), device=dev, generator=gen) * (rows - 1)
-        out = K.patch_sample(atlas, px, py, "bf16")
-        err = max(err, (out - K.patch_sample_plain(atlas, px, py, "bf16"))
-                  .abs().max().item())
-        split_err = max(split_err, (out - K.patch_sample(atlas, px, py))
+        split_err = max(split_err, (K.patch_sample(atlas, px, py, "bf16")
+                                    - K.patch_sample(atlas, px, py))
                         .abs().max().item())
     print(f"fast_patches: bf16 kernel vs the exact kernel max abs diff "
           f"{split_err:.3e} (limit {BF16_VS_EXACT})")
     if not split_err <= BF16_VS_EXACT:
         fail(f"bf16 patch kernel is {split_err} from the exact kernel")
-    # the times on the coordinates the path gives it
-    path_ms = path_patch_times(K, capture_patch_coords(dev, img0), "bf16")
-    for c in path_ms:
-        err = max(err, c["max_abs_err"])
-    desc = path_ms[-1]
-    atlas, px, py = desc.pop("inputs")
-    plain_ms = device_ms(lambda: K.patch_sample_plain(atlas, px, py, "bf16"))
-    for c in path_ms:
-        c.pop("inputs", None)
-    results = {"patch_sample[bf16]": dict(per_shape=path_ms,
-        source="kornia_tpu_torch/csrc/patch_sample.cu",
-        replaces="kornia_tpu/ops/pallas_kernels.py:512",
-        max_abs_err=err, ms=statistics.mean(desc["kernel_ms"]),
-        plain_ms=plain_ms, bound_ms=desc["bound_ms"],
-        bound_by=desc["bound_by"], library_ms=None, tol=BF16_ATOL)}
-    report(results)
-    return dict(kernels=results, launches=launches,
-                pair_ms=statistics.median(times), per_pair_ms=per_pair_ms,
-                per_pair_bound_ms=per_pair_bound)
+    return dict(kernels=kernels, counts=counts, launches=launches,
+                pair_ms=statistics.median(times),
+                per_pair_ms=per_pair[bf16]["ms"],
+                per_pair_bound_ms=per_pair[bf16]["bound_ms"])
 
 
 # --- step 7: the SLAM back end --------------------------------------------
@@ -1923,68 +2133,16 @@ def planar_launch_shapes(h: int, w: int):
     return dict(base, fused_separable_blur2d=fused)
 
 
-def gftt_kernel_times(kern, launches, what: str, n_detect: int,
-                      images: int, n_profiled: int, nf: int) -> dict:
-    """Per ported kernel of one frame of a GFTTSIFTFeature path (`images`
-    detections a frame, `nf` features): its device time in a profile of
-    `n_profiled` frames and the sum of its launches' own bounds; the launch
-    list is checked against the launches counted over the path's
-    `n_detect` detections, and each blur's route against ROUTES."""
-    from kornia_tpu_torch.ops.pyramid import ScalePyramid
-    shapes = planar_launch_shapes(H, W)
-    kers = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)[0]
-    chain, levels = 2 * sum(k.numel() for k in kers), len(kers)
-    bounds = {
-        "fused_separable_blur2d": [blur_bound(h, w, n, 2 * k)[0]
-                                   for h, w, k, _, n in
-                                   shapes["fused_separable_blur2d"]],
-        "multi_level_blur": [ml_bound(h, w, 1, levels, chain)[0]
-                             for h, w in shapes["multi_level_blur"]],
-        "patch_sample": [patch_bound(rows * W, nf * s)[0]
-                         for rows, s in shapes["patch_sample"]],
-    }
-    routes = {}
-    for h, w, _, _, _ in shapes["fused_separable_blur2d"]:
-        key = ("fused_separable_blur2d",
-               expected_route("fused_separable_blur2d", h, w))
-        routes[key] = routes.get(key, 0) + n_detect
-    for h, w in shapes["multi_level_blur"]:
-        key = ("multi_level_blur", expected_route("multi_level_blur", h, w))
-        routes[key] = routes.get(key, 0) + n_detect
-    for (name, route), n in routes.items():
-        if launches.get(f"{name}:{route}") != n:
-            fail(f"{what}: {name} launched "
-                 f"{launches.get(f'{name}:{route}')} times on the {route} "
-                 f"route, PERF.md's routes give {n}")
-    out = {}
-    for name, names in PAIR_KERNELS.items():
-        if launches.get(name) != n_detect * len(bounds[name]):
-            fail(f"{what}: {name}: {launches.get(name)} launches in "
-                 f"{n_detect} detections, the launch list has "
-                 f"{n_detect * len(bounds[name])}")
-        ms = sum(e.self_device_time_total for e in kern
-                 if _kernel_name(e.key) in names) / 1e3 / n_profiled
-        if not ms > 0:
-            fail(f"{what}: no device time of {names} in the frames' profile")
-        b = images * sum(bounds[name])
-        n = images * len(bounds[name])
-        out[name] = dict(ms_per_frame=ms, bound_per_frame=b,
-                         launches_per_frame=n)
-        print(f"{what} per frame {name}: {ms:.4f} ms device, bound "
-              f"{b:.5f} ms, {n} launches")
-    return out
-
-
 def planar_blur_checks(K, filters, dev) -> dict:
     """The structure tensor's blurs at depth 6 on every octave of the
     tracker's pyramid, and SIFTFeatureScaleSpace's 960x1280 octave of
-    multi_level_blur (its own launch and the route a SIFTFeatureScaleSpace
-    run takes there), each against its plain version on its named route."""
+    multi_level_blur, each against its plain version on its named route;
+    then a SIFTFeatureScaleSpace run, its launches counted and its
+    multi-level calls captured (the kernels line's doubled octave)."""
     from kornia_tpu_torch.feature.integrated import SIFTFeatureScaleSpace
     from kornia_tpu_torch.ops.pyramid import ScalePyramid
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     k7 = filters.get_gaussian_kernel1d(7, 1.0, device=dev).reshape(-1)
-    err, per_shape = 0.0, []
     for hh, ww in path_launch_shapes(H, W)["multi_level_blur"]:
         x = torch.rand((GFTT_LEVELS, 1, hh, ww), device=dev, generator=gen)
         route, out = check_route(
@@ -1992,72 +2150,46 @@ def planar_blur_checks(K, filters, dev) -> dict:
             lambda: K.fused_separable_blur2d(x, k7, k7, "reflect"))
         e = (out - K.fused_separable_blur2d_plain(x, k7, k7, "reflect")
              ).abs().max().item()
-        err = max(err, e)
-        t = device_ms(lambda: K.fused_separable_blur2d(x, k7, k7, "reflect"))
-        b = blur_bound(hh, ww, GFTT_LEVELS, 14)[0]
-        per_shape.append(dict(shape=[GFTT_LEVELS, hh, ww], k=7, ms=t,
-                              bound_ms=b, route=route, max_abs_err=e))
         print(f"planar: structure tensor blur {GFTT_LEVELS}x{hh}x{ww} k=7 "
-              f"reflect ({route}): {t:.4f} ms, bound {b:.5f} ms "
-              f"({t / b:.1f}x), max abs err {e:.3e}")
-    if not err <= BLUR_ATOL:
-        fail(f"structure tensor blur disagrees with its plain version: "
-             f"{err} > {BLUR_ATOL}")
-    x = torch.rand((GFTT_LEVELS, 1, H, W), device=dev, generator=gen)
-    big = per_shape[0]
-    fused = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
-                 replaces="kornia_tpu/ops/pallas_kernels.py:239",
-                 per_shape=per_shape, max_abs_err=err, ms=big["ms"],
-                 plain_ms=device_ms(lambda: K.fused_separable_blur2d_plain(
-                     x, k7, k7, "reflect")),
-                 bound_ms=big["bound_ms"],
-                 bound_by=blur_bound(H, W, GFTT_LEVELS, 14)[1],
-                 library_ms=None, tol=BLUR_ATOL)
+              f"reflect ({route}): max abs err {e:.3e}")
+        if not e <= BLUR_ATOL:
+            fail(f"structure tensor blur disagrees with its plain version: "
+                 f"{e} > {BLUR_ATOL}")
 
     # the doubled octave: its own launch against the plain version
     pyr = ScalePyramid(3, 1.6, 32, double_image=True)
     kers, _ = pyr._level_kernels(1.6)
-    L, chain = len(kers), 2 * sum(k.numel() for k in kers)
     x = torch.rand((1, 1, 2 * H, 2 * W), device=dev, generator=gen)
     route, out = check_route(
         K, "multi_level_blur", 2 * H, 2 * W,
         lambda: K.multi_level_blur(x, kers, kers, "replicate"))
     e = (out - K.multi_level_blur_plain(x, kers, kers, "replicate")
          ).abs().max().item()
-    t = device_ms(lambda: K.multi_level_blur(x, kers, kers, "replicate"))
-    b_ms, b_by = ml_bound(2 * H, 2 * W, 1, L, chain)
-    print(f"planar: multi_level_blur {2 * H}x{2 * W} L={L} ({route}): "
-          f"{t:.4f} ms, bound {b_ms:.5f} ms ({t / b_ms:.1f}x), max abs err "
-          f"{e:.3e} (tol {ML_ATOL:.0e})")
+    print(f"planar: multi_level_blur {2 * H}x{2 * W} L={len(kers)} "
+          f"({route}): max abs err {e:.3e} (tol {ML_ATOL:.0e})")
     if not e <= ML_ATOL:
         fail(f"multi_level_blur at {2 * H}x{2 * W} disagrees with its plain "
              f"version: {e} > {ML_ATOL}")
     # and a SIFTFeatureScaleSpace run: every octave on its named route
     target = bench_input(H, W, dev)[0]
-    torch.cuda.synchronize()
-    K.reset_launches()
-    SIFTFeatureScaleSpace(num_features=PLANAR_NF)(target)
-    torch.cuda.synchronize()
-    sss_launches = dict(K.launches)
+    sss = lambda: SIFTFeatureScaleSpace(  # noqa: E731
+        num_features=PLANAR_NF)(target)
+    launches = counted_run(K, sss, "planar: SIFTFeatureScaleSpace 480x640",
+                           ("multi_level_blur",))
     octaves = [(2 * H >> o, 2 * W >> o)
                for o in range(pyr.n_octaves(H, W))]
     want = {}
     for hh, ww in octaves:
         key = "multi_level_blur:" + expected_route("multi_level_blur", hh, ww)
         want[key] = want.get(key, 0) + 1
-    print(f"planar: SIFTFeatureScaleSpace 480x640 (doubled: octaves "
-          f"{octaves}) launches {sss_launches}")
+    print(f"planar: SIFTFeatureScaleSpace 480x640 doubled octaves {octaves}")
     for key, n in want.items():
-        if sss_launches.get(key) != n:
+        if launches.get(key) != n:
             fail(f"SIFTFeatureScaleSpace launched {key} "
-                 f"{sss_launches.get(key)} times, PERF.md's routes give {n}")
-    ml = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
-              replaces="kornia_tpu/ops/pallas_kernels.py:378",
-              max_abs_err=e, ms=t,
-              plain_ms=device_ms(lambda: K.multi_level_blur_plain(
-                  x, kers, kers, "replicate")),
-              bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=ML_ATOL)
-    return dict(fused=fused, doubled=ml, doubled_launches=sss_launches)
+                 f"{launches.get(key)} times, PERF.md's routes give {n}")
+    calls = capture_launches(K, sss, ("multi_level_blur",))
+    return path_entries(K, calls, check_captured(
+        K, calls, "planar: SIFTFeatureScaleSpace"), launches, "double_image")
 
 
 def planar_phase(K, filters, dev) -> dict:
@@ -2190,69 +2322,37 @@ def planar_phase(K, filters, dev) -> dict:
           f"{ {k: round(v, 3) for k, v in stage_ms.items()} }, RANSAC "
           f"rounds {rounds}")
 
-    # the device's busy share of one frame (chained from frame 0's estimate)
-    tr.previous_homography = card[0][0]
-    _, kern = profile_kernels(lambda: tr(frames[1], gumbel=gumbels_dev[1]))
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    n_kernels = sum(e.count for e in kern)
+    # the launch list of the tracked sequence (two detections a frame), then
+    # one frame (chained from frame 0's estimate) counted, profiled on the
+    # device and captured: the busy share, each kernel's device time and
+    # bound a frame, each call held to its plain version on its route
+    check_launch_list(launches, planar_launch_shapes(H, W),
+                      2 * PLANAR_FRAMES, "planar")
+
+    def frame():
+        tr.previous_homography = card[0][0]
+        tr(frames[1], gumbel=gumbels_dev[1])
+
+    frame_launches = counted_run(K, frame, "planar: one frame")
+    calls = capture_launches(K, frame)
+    results, counts = path_entries(K, calls, check_captured(K, calls,
+                                                            "planar"),
+                                   launches, "planar")
+    busy_ms, n_kernels, kern = device_profile(frame, tuple(PAIR_KERNELS))
     print(f"planar: device busy {busy_ms:.3f} ms of a {frame_ms:.2f} ms "
           f"frame (idle share {1.0 - busy_ms / frame_ms:.4f}), device kernels "
           f"launched {n_kernels}")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
-    per_frame = gftt_kernel_times(kern, launches, "planar",
-                                  2 * PLANAR_FRAMES, 2, 1, PLANAR_NF)
+    per_frame = path_kernel_times(K, kern, calls, frame_launches,
+                                  "planar per frame")
     routes = {k: v for k, v in launches.items() if ":" in k}
     print(f"planar: routes over {PLANAR_FRAMES} frames {routes}")
-
-    blurs = planar_blur_checks(K, filters, dev)
-    # patch_sample on the tracker's own coordinates (GFTT LAFs, 512)
-    from kornia_tpu_torch.feature.integrated import GFTTSIFTFeature
-    path_ms = path_patch_times(K, capture_patch_coords(
-        dev, target, GFTTSIFTFeature(num_features=PLANAR_NF)), "split")
-    desc = path_ms[-1]
-    atlas, px, py = desc.pop("inputs")
-    for c in path_ms:
-        c.pop("inputs", None)
-    patch = dict(source="kornia_tpu_torch/csrc/patch_sample.cu",
-                 replaces="kornia_tpu/ops/pallas_kernels.py:539",
-                 per_shape=path_ms,
-                 max_abs_err=max(c["max_abs_err"] for c in path_ms),
-                 ms=statistics.mean(desc["kernel_ms"]),
-                 plain_ms=device_ms(lambda: K.patch_sample_plain(atlas, px,
-                                                                 py)),
-                 bound_ms=desc["bound_ms"], bound_by=desc["bound_by"],
-                 library_ms=statistics.mean(desc["library_ms"]),
-                 tol=PATCH_ATOL)
-    # the tracker's octaves of multi_level_blur: the pair's shapes
-    from kornia_tpu_torch.ops.pyramid import ScalePyramid
-    kers, _ = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)
-    x = torch.rand((1, 1, H, W), device=dev)
-    ml_err = (K.multi_level_blur(x, kers, kers, "replicate")
-              - K.multi_level_blur_plain(x, kers, kers, "replicate")
-              ).abs().max().item()
-    b_ms, b_by = ml_bound(H, W, 1, len(kers), 2 * sum(k.numel()
-                                                      for k in kers))
-    ml = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
-              replaces="kornia_tpu/ops/pallas_kernels.py:378",
-              max_abs_err=ml_err,
-              ms=device_ms(lambda: K.multi_level_blur(x, kers, kers,
-                                                      "replicate")),
-              plain_ms=device_ms(lambda: K.multi_level_blur_plain(
-                  x, kers, kers, "replicate")),
-              bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
-    results = {"fused_separable_blur2d@planar": blurs["fused"],
-               "multi_level_blur@planar": ml,
-               "patch_sample@planar": patch,
-               "multi_level_blur@double_image": blurs["doubled"]}
+    doubled, doubled_counts = planar_blur_checks(K, filters, dev)
+    results.update(doubled)
+    counts.update(doubled_counts)
     report(results)
-    # each entry's launches: the tracked sequence's, and for the doubled
-    # octave those of the SIFTFeatureScaleSpace run
-    counts = {name: launches.get(name.split("@")[0], 0)
-              for name in results}
-    counts["multi_level_blur@double_image"] = blurs["doubled_launches"].get(
-        "multi_level_blur", 0)
     out = dict(frame_ms=frame_ms, frame_runs_ms=times, stage_ms=stage_ms,
                ransac_rounds=rounds, busy_ms=busy_ms,
                idle_share=1.0 - busy_ms / frame_ms,
@@ -2545,12 +2645,14 @@ def vo_xcheck(dev, Kt, frames) -> dict:
     return out
 
 
-def vo_profile(dev, Kt, frames, track_ms: float) -> dict:
-    """VO_PROFILE tracked frames (detection, pair step, host read) under
-    torch.profiler, after the keyframe's detection: device busy ms, idle
-    share against the walk's median tracking time, kernels a frame. Only
-    the device is traced: with the host's operators traced too (190k
-    launches in 5 frames) this part took about two minutes."""
+def vo_profile(K, dev, Kt, frames, track_ms: float) -> dict:
+    """VO_PROFILE tracked frames (detection, pair step, host read) after
+    the keyframe's detection, counted, under torch.profiler and captured:
+    device busy ms, idle share against the walk's median tracking time,
+    kernels a frame, each ported kernel's device time and bound a frame,
+    each captured call held to its plain version. Only the device is
+    traced: with the host's operators traced too (190k launches in 5
+    frames) this part took about two minutes."""
     from kornia_tpu_torch.core.linalg import f32_precision
     from kornia_tpu_torch.slam import vo as vo_mod
     vo = vo_mod.VisualOdometry(Kt, device=dev, **VO_KW)
@@ -2570,26 +2672,28 @@ def vo_profile(dev, Kt, frames, track_ms: float) -> dict:
                 vo_mod._read_step(out[0], out[1], out[3], out[7], *cur,
                                   out[4], out[5], out[6])
 
-        frames_fn()  # warm: the same frames once outside the profile
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            frames_fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / VO_PROFILE
-    n_k = sum(e.count for e in kern) / VO_PROFILE
+        # counted (also the warm-up), traced, captured
+        launches = counted_run(K, frames_fn,
+                               f"vo: {VO_PROFILE} profiled frames")
+        busy, n_k, kern = device_profile(frames_fn, tuple(PAIR_KERNELS))
+        calls = capture_launches(K, frames_fn)
+    busy, n_k = busy / VO_PROFILE, n_k / VO_PROFILE
     print(f"vo profile: device busy {busy:.3f} ms of a {track_ms:.1f} ms "
           f"frame (idle share {1.0 - busy / track_ms:.4f}), {n_k:.0f} "
           f"kernels a frame")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / VO_PROFILE:9.3f} ms a "
               f"frame x{e.count // VO_PROFILE:<6d} {e.key[:90]}")
+    per = path_kernel_times(K, kern, calls, launches,
+                            f"vo: {VO_PROFILE} frames,")
+    per_frame = {n: {k: v / VO_PROFILE for k, v in d.items()}
+                 for n, d in per.items()}
     return dict(busy_ms=busy, idle_share=1.0 - busy / track_ms,
-                kernels_per_frame=n_k, kern=kern)
+                kernels_per_frame=n_k, per_frame=per_frame, calls=calls,
+                checks=check_captured(K, calls, "vo"))
 
 
-def vo_phase(K, filters, dev) -> dict:
+def vo_phase(K, dev) -> dict:
     """Step 9: visual odometry and loop closure on the card (see the
     module's docstring)."""
     t_phase = time.perf_counter()
@@ -2612,64 +2716,13 @@ def vo_phase(K, filters, dev) -> dict:
     stages = part("stages", vo_stages, dev, Kt, frames)
     loop = part("loop", vo_loop, dev, Kt, scene)
     xcheck = part("xcheck", vo_xcheck, dev, Kt, frames)
-    prof = part("profile", vo_profile, dev, Kt, frames,
+    prof = part("profile", vo_profile, K, dev, Kt, frames,
                 walk["track_ms_median"])
-    per_frame = gftt_kernel_times(prof.pop("kern"), launches, "vo", VO_WALK,
-                                  1, VO_PROFILE, VO_NF)
-
-    # each kernel against its plain version on the VO's own inputs: the
-    # first-level blur and octave 0 of a rendered, degraded frame, and the
-    # patch coordinates of its GFTT detection
-    from kornia_tpu_torch.feature.integrated import GFTTSIFTFeature
-    from kornia_tpu_torch.ops.pyramid import ScalePyramid
-    img = frames[1]
-    k15 = filters.get_gaussian_kernel1d(15, 1.6, device=dev).reshape(-1)
-    blur = lambda: K.fused_separable_blur2d(img, k15, k15,  # noqa: E731
-                                            "replicate")
-    e_blur = (blur() - K.fused_separable_blur2d_plain(
-        img, k15, k15, "replicate")).abs().max().item()
-    b_ms, b_by = blur_bound(H, W, 1, 30)
-    fused = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
-                 replaces="kornia_tpu/ops/pallas_kernels.py:239",
-                 max_abs_err=e_blur, ms=device_ms(blur),
-                 plain_ms=device_ms(lambda: K.fused_separable_blur2d_plain(
-                     img, k15, k15, "replicate")),
-                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                 tol=BLUR_ATOL)
-    kers, _ = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)
-    ml = lambda: K.multi_level_blur(img, kers, kers,  # noqa: E731
-                                    "replicate")
-    e_ml = (ml() - K.multi_level_blur_plain(img, kers, kers, "replicate")
-            ).abs().max().item()
-    b_ms, b_by = ml_bound(H, W, 1, len(kers),
-                          2 * sum(k.numel() for k in kers))
-    mlr = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
-               replaces="kornia_tpu/ops/pallas_kernels.py:378",
-               max_abs_err=e_ml, ms=device_ms(ml),
-               plain_ms=device_ms(lambda: K.multi_level_blur_plain(
-                   img, kers, kers, "replicate")),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
-    path_ms = path_patch_times(K, capture_patch_coords(
-        dev, img, GFTTSIFTFeature(num_features=VO_NF)), "split")
-    desc = path_ms[-1]
-    atlas, px, py = desc.pop("inputs")
-    for c in path_ms:
-        c.pop("inputs", None)
-    patch = dict(source="kornia_tpu_torch/csrc/patch_sample.cu",
-                 replaces="kornia_tpu/ops/pallas_kernels.py:539",
-                 max_abs_err=max(c["max_abs_err"] for c in path_ms),
-                 ms=statistics.mean(desc["kernel_ms"]),
-                 plain_ms=device_ms(lambda: K.patch_sample_plain(atlas, px,
-                                                                 py)),
-                 bound_ms=desc["bound_ms"], bound_by=desc["bound_by"],
-                 library_ms=statistics.mean(desc["library_ms"]),
-                 tol=PATCH_ATOL)
-    results = {"fused_separable_blur2d@vo": fused,
-               "multi_level_blur@vo": mlr, "patch_sample@vo": patch}
+    check_launch_list(launches, planar_launch_shapes(H, W), VO_WALK, "vo")
+    results, counts = path_entries(K, prof.pop("calls"), prof.pop("checks"),
+                                   launches, "vo")
     report(results)
-    counts = {name: launches.get(name.split("@")[0], 0) for name in results}
-    out = dict(walk=walk, stage_ms=stages, loop=loop, xcheck=xcheck,
-               per_frame=per_frame, **prof,
+    out = dict(walk=walk, stage_ms=stages, loop=loop, xcheck=xcheck, **prof,
                routes={k: v for k, v in launches.items() if ":" in k},
                part_s=part_s, seconds=time.perf_counter() - t_phase)
     print(f"vo phase: {out['seconds']:.1f} s, parts "
@@ -2690,9 +2743,6 @@ LEARNED_INLIER_RTOL = 0.02  # ... inlier counts within 2% of each other
 LOFTR_RTOL = 1e-4           # LoFTR card vs CPU: maps, tokens, confidences
 LOFTR_FINE_PX = 1e-3        # ... fine keypoints, teacher-forced
 LOFTR_XH, LOFTR_XW = 240, 320
-CAPTURE_TOL = {"fused_separable_blur2d": BLUR_ATOL,
-               "fused_separable_blur2d_adjoint": BLUR_ATOL,
-               "multi_level_blur": BLUR_ATOL, "patch_sample": PATCH_ATOL}
 
 
 def config2_feature(dev, nf: int = NF):
@@ -2709,92 +2759,6 @@ def config2_feature(dev, nf: int = NF):
                         LAFOrienter(19))
 
 
-def capture_launches(K, fn, names=tuple(PAIR_KERNELS)) -> dict:
-    """Run fn once with a spy on each front-end kernel wrapper in `names`:
-    the cloned arguments of every call, by wrapper name."""
-    from kornia_tpu_torch.feature import laf as laf_mod
-    from kornia_tpu_torch.ops import pyramid as pyr_mod
-    calls = {name: [] for name in names}
-    sites = [(K, "fused_separable_blur2d"),
-             (K, "fused_separable_blur2d_adjoint"),
-             (pyr_mod, "multi_level_blur"), (laf_mod, "patch_sample")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in sites
-             if name in names]
-
-    def spy(name, real):
-        def call(*args, **kwargs):
-            calls[name].append((tuple(a.clone() if torch.is_tensor(a) else a
-                                      for a in args), dict(kwargs)))
-            return real(*args, **kwargs)
-        return call
-
-    try:
-        for mod, name, real in saved:
-            setattr(mod, name, spy(name, real))
-        fn()
-    finally:
-        for mod, name, real in saved:
-            setattr(mod, name, real)
-    return calls
-
-
-def check_captured(K, calls: dict, what: str) -> dict:
-    """Each captured call again through its kernel and its plain version:
-    the largest difference per wrapper, and the routes the blurs took;
-    every blur's shape must be in ROUTES and take the route listed there.
-    CAPTURE_TOL is stated for [0, 1] inputs: a call whose input reaches
-    beyond 1 (JPEG's 0-255 chroma planes) is held to it times its largest
-    |input|, the same f32 precision; `tol` is the largest such limit."""
-    out = {}
-    for name, cs in calls.items():
-        if not cs:
-            fail(f"{what}: no call of {name} captured")
-        kern, plain = getattr(K, name), getattr(K, name + "_plain")
-        err, worst, scale, routes = 0.0, 0.0, 1.0, {}
-        for args, kwargs in cs:
-            if name == "patch_sample":
-                got = kern(*args, **kwargs)
-            else:
-                route, got = route_of(K, name, lambda: kern(*args, **kwargs))
-                routes[route] = routes.get(route, 0) + 1
-                hw = tuple(args[0].shape[-2:])
-                if ROUTES.get((name, *hw)) != route:
-                    fail(f"{what}: {name} at {hw[0]}x{hw[1]} took the "
-                         f"{route} route, ROUTES lists "
-                         f"{ROUTES.get((name, *hw))}")
-            e = (got - plain(*args, **kwargs)).abs().max().item()
-            s_call = max(1.0, args[0].abs().max().item())
-            err, worst = max(err, e), max(worst, e / s_call)
-            scale = max(scale, s_call)
-        if not worst <= CAPTURE_TOL[name]:
-            fail(f"{what}: {name} disagrees with its plain version on the "
-                 f"path's inputs: max abs err {err}, {worst} of the input's "
-                 f"range")
-        shapes = sorted({tuple(a[0].shape) for a, _ in cs})
-        out[name] = dict(calls=len(cs), max_abs_err=err, routes=routes,
-                         tol=CAPTURE_TOL[name] * scale,
-                         shapes=[list(t) for t in shapes])
-        print(f"{what} {name}: {len(cs)} calls against the plain version, "
-              f"max abs err {err:.3e} ({worst:.3e} of the input's range), "
-              f"routes {routes}, shapes {shapes}")
-    return out
-
-
-def counted_run(K, fn, what: str, names=tuple(PAIR_KERNELS)) -> dict:
-    """Launch counters set to 0 just before fn, read just after; every
-    kernel in `names` must have launched."""
-    torch.cuda.synchronize()
-    K.reset_launches()
-    fn()
-    torch.cuda.synchronize()
-    launches = dict(K.launches)
-    print(f"{what} launches: {launches}")
-    for name in names:
-        if launches.get(name, 0) <= 0:
-            fail(f"{what} never launched kernel {name}")
-    return launches
-
-
 def median_ms(fn, n: int = 5):
     """Host clock around n synchronised calls: (median, every run)."""
     times = []
@@ -2805,30 +2769,6 @@ def median_ms(fn, n: int = 5):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), times
-
-
-def device_profile(fn, expect=()):
-    """fn once under a device-only torch.profiler trace: (busy ms, kernels
-    launched, the device-side entries). The profiler now and then drops a
-    window's device events, often in runs of windows (device_ms's note): a
-    window in which a kernel of a wrapper in `expect` (KERNELS' names) left
-    no event is taken again, up to PROFILE_WINDOWS windows;
-    path_kernel_times times a kernel still missing with CUDA events."""
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(PROFILE_WINDOWS):
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = {_kernel_name(e.key) for e in kern}
-        if all(seen & set(KERNELS[n]) for n in expect):
-            break
-        print(f"torch.profiler recorded no kernel of "
-              f"{[n for n in expect if not seen & set(KERNELS[n])]} in "
-              f"a window: taken again")
-    return (sum(e.self_device_time_total for e in kern) / 1e3,
-            sum(e.count for e in kern), kern)
 
 
 def learned_config2(K, dev) -> dict:
@@ -2883,16 +2823,17 @@ def learned_config2(K, dev) -> dict:
     busy, n_k, kern = device_profile(pair)
     print(f"learned (a) device busy {busy:.3f} ms of a {pair_ms:.2f} ms pair "
           f"(idle share {1.0 - busy / pair_ms:.4f}), {n_k} kernels")
-    per_pair = pair_kernel_times(kern, launches, (19, 32),
+    check_launch_list(launches, path_launch_shapes(H, W, (19, 32)), 2,
+                      "learned (a) pair")
+    calls = capture_launches(K, pair)
+    per_pair = path_kernel_times(K, kern, calls, launches,
                                  "learned (a) per pair")
-    calls = capture_launches(K, lambda: feat(img0))
     checks = check_captured(K, calls, "learned (a)")
     return dict(launches=launches, pair_ms=pair_ms, runs_ms=runs,
                 stage_ms=stage_ms, busy_ms=busy, idle_share=1.0 - busy
                 / pair_ms, kernels_per_pair=n_k, per_pair=per_pair,
                 checks=checks, rotation_deg=rot,
-                inliers=int(res.num_inliers),
-                desc_call=calls["patch_sample"][-1][0][:3])
+                inliers=int(res.num_inliers), calls=calls)
 
 
 def learned_presets(K, dev) -> dict:
@@ -3092,7 +3033,7 @@ def loftr_xcheck(dev) -> dict:
     return dict(rel=rel, fine_px=fine_px, valid=int(v.sum()))
 
 
-def learned_phase(K, filters, dev) -> dict:
+def learned_phase(K, dev) -> dict:
     """Step 10: learned local features and dense matching (see the
     module's docstring)."""
     t_phase = time.perf_counter()
@@ -3110,54 +3051,16 @@ def learned_phase(K, filters, dev) -> dict:
     xcheck = part("xcheck", learned_xcheck, dev)
     loftr_x = part("loftr_xcheck", loftr_xcheck, dev)
 
-    # the kernels line's entries: each kernel on the config-2 path, the
-    # patch kernel on its 32² HardNet call (1024 x 1024 samples)
-    img = bench_input(H, W, dev)[0]
-    errs = {name: max([a["checks"][name]["max_abs_err"]]
-                      + [p["checks"][name]["max_abs_err"]
-                         for p in b.values()])
-            for name in PAIR_KERNELS}
-    k15 = filters.get_gaussian_kernel1d(
-        15, math.sqrt(1.6 ** 2 - 0.5 ** 2), device=dev).reshape(-1)
-    b_ms, b_by = blur_bound(H, W, 1, 30)
-    fused = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
-                 replaces="kornia_tpu/ops/pallas_kernels.py:239",
-                 max_abs_err=errs["fused_separable_blur2d"],
-                 ms=device_ms(lambda: K.fused_separable_blur2d(
-                     img, k15, k15, "replicate")),
-                 plain_ms=device_ms(lambda: K.fused_separable_blur2d_plain(
-                     img, k15, k15, "replicate")),
-                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                 tol=BLUR_ATOL)
-    from kornia_tpu_torch.ops.pyramid import ScalePyramid
-    kers, _ = ScalePyramid(3, 1.6, 32)._level_kernels(1.6)
-    b_ms, b_by = ml_bound(H, W, 1, len(kers),
-                          2 * sum(k.numel() for k in kers))
-    mlr = dict(source="kornia_tpu_torch/csrc/banded_blur.cu",
-               replaces="kornia_tpu/ops/pallas_kernels.py:378",
-               max_abs_err=errs["multi_level_blur"],
-               ms=device_ms(lambda: K.multi_level_blur(img, kers, kers,
-                                                       "replicate")),
-               plain_ms=device_ms(lambda: K.multi_level_blur_plain(
-                   img, kers, kers, "replicate")),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None, tol=BLUR_ATOL)
-    desc = path_patch_times(K, [a.pop("desc_call")], "split")[0]
-    atlas, px, py = desc.pop("inputs")
-    patch = dict(source="kornia_tpu_torch/csrc/patch_sample.cu",
-                 replaces="kornia_tpu/ops/pallas_kernels.py:539",
-                 max_abs_err=max(errs["patch_sample"], desc["max_abs_err"]),
-                 ms=statistics.mean(desc["kernel_ms"]),
-                 plain_ms=device_ms(lambda: K.patch_sample_plain(atlas, px,
-                                                                 py)),
-                 bound_ms=desc["bound_ms"], bound_by=desc["bound_by"],
-                 library_ms=statistics.mean(desc["library_ms"]),
-                 tol=PATCH_ATOL)
-    results = {"fused_separable_blur2d@learned": fused,
-               "multi_level_blur@learned": mlr,
-               "patch_sample@learned": patch}
+    # the kernels line's entries: each kernel on the config-2 pair (the
+    # patch kernel on its 32² HardNet call, 1024 x 1024 samples), its
+    # largest difference from the plain version over (a) and (b)
+    checks = {name: dict(chk, max_abs_err=max(
+        [chk["max_abs_err"]] + [p["checks"][name]["max_abs_err"]
+                                for p in b.values()]))
+              for name, chk in a["checks"].items()}
+    results, counts = path_entries(K, a.pop("calls"), checks, a["launches"],
+                                   "learned")
     report(results)
-    counts = {name: a["launches"].get(name.split("@")[0], 0)
-              for name in results}
     out = dict(config2=a, presets=b, loftr=c, xcheck=xcheck,
                loftr_xcheck=loftr_x, part_s=part_s,
                seconds=time.perf_counter() - t_phase)
@@ -3193,122 +3096,6 @@ KANNALA_BRANDT = (0.05, -0.02, 0.006, -0.001)
 STITCH_FULL_W, STITCH_SHIFT = 920, 280  # right view = columns 280-919
 STITCH_CORNER_PX = 1.0  # estimated H vs the true +280 px shift, corners
 STITCH_MAD = 0.01       # columns 648-911: mean |out - source| / range
-
-
-def launch_bound(name: str, args) -> float:
-    """The bound (ms) of one captured launch, at its own shapes."""
-    x = args[0]
-    if name == "patch_sample":
-        return patch_bound(x.numel(), args[1].numel())[0]
-    h, w = x.shape[-2:]
-    n = x.numel() // (h * w)
-    if name in ("fused_separable_blur2d", "fused_separable_blur2d_adjoint"):
-        return blur_bound(h, w, n, args[1].numel() + args[2].numel())[0]
-    taps = sum(k.numel() for k in args[1]) + sum(k.numel() for k in args[2])
-    return ml_bound(h, w, n, len(args[1]), taps)[0]
-
-
-def replay_ms(kern, calls: list) -> float:
-    """The captured calls of one wrapper, each launched once more after a
-    warm-up call and timed with CUDA events around it (launch gaps
-    included): their sum, in ms."""
-    with torch.no_grad():
-        for args, kwargs in calls:
-            kern(*args, **kwargs)
-        events = []
-        for args, kwargs in calls:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            kern(*args, **kwargs)
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in events)
-
-
-def path_kernel_times(K, kern, calls: dict, launches: dict,
-                      what: str) -> dict:
-    """Per ported kernel of one profiled run: its device time summed over
-    the run's CUDA kernels, its launches and the sum of each captured
-    launch's bound; fails where the captured calls and the counted launches
-    disagree. A kernel that left no event in device_profile's windows is
-    timed by replay_ms on its captured calls, which is said on a line of
-    its own."""
-    out = {}
-    if ("fused_separable_blur2d_adjoint" in calls
-            and (launches.get("multi_level_blur_adjoint")
-                 or any((a[3] if len(a) > 3 else kw.get("border_type"))
-                        in ("constant", "circular")
-                        for a, kw in calls["fused_separable_blur2d_adjoint"]))):
-        fail(f"{what}: the band adjoint's kernels are shared with another "
-             f"launch of the path (KERNELS' note)")
-    for name, cs in calls.items():
-        if len(cs) != launches.get(name):
-            fail(f"{what}: {len(cs)} calls of {name} captured, "
-                 f"{launches.get(name)} launches counted")
-        ms = sum(e.self_device_time_total for e in kern
-                 if _kernel_name(e.key) in KERNELS[name]) / 1e3
-        if not ms > 0:
-            ms = replay_ms(getattr(K, name), cs)
-            print(f"{what}: torch.profiler recorded no event of {name} in "
-                  f"{PROFILE_WINDOWS} windows: CUDA events around its "
-                  f"{len(cs)} captured calls give {ms:.4f} ms")
-        if not ms > 0:
-            fail(f"{what}: no device time of {name}")
-        b = sum(launch_bound(name, a) for a, _ in cs)
-        out[name] = dict(ms=ms, launches=len(cs), bound_ms=b)
-        print(f"{what} {name}: {ms:.4f} ms device in {len(cs)} launches, "
-              f"bound {b:.5f} ms")
-    return out
-
-
-def captured_entry(K, name: str, calls: list, checks: dict,
-                   replaces: str) -> dict:
-    """The kernels line's entry of a path's kernel: kernel, plain version
-    and (for patch_sample) F.grid_sample timed on the path's largest
-    captured call, its bound at that call's shapes."""
-    args, kwargs = max(calls, key=lambda c: c[0][0].numel() * (
-        c[0][1].numel() if name == "patch_sample" else 1))
-    src = {"patch_sample": "kornia_tpu_torch/csrc/patch_sample.cu"}.get(
-        name, "kornia_tpu_torch/csrc/banded_blur.cu")
-    if name == "patch_sample":
-        mode = args[3] if len(args) > 3 else kwargs.get("mode", "split")
-        d = path_patch_times(K, [args[:3]], mode)[0]
-        atlas, px, py = d.pop("inputs")
-        return dict(source=src, replaces=replaces,
-                    max_abs_err=max(checks["max_abs_err"], d["max_abs_err"]),
-                    ms=statistics.mean(d["kernel_ms"]),
-                    plain_ms=device_ms(lambda: K.patch_sample_plain(
-                        atlas, px, py, mode)),
-                    bound_ms=d["bound_ms"], bound_by=d["bound_by"],
-                    library_ms=statistics.mean(d["library_ms"]),
-                    tol=PATCH_ATOL, shape=[list(atlas.shape),
-                                           list(px.shape)])
-    kern, plain = getattr(K, name), getattr(K, name + "_plain")
-    x = args[0]
-    h, w = x.shape[-2:]
-    n = x.numel() // (h * w)
-    if name in ("fused_separable_blur2d", "fused_separable_blur2d_adjoint"):
-        # the adjoint: one read of g, one write of dx, the same taps
-        b_ms, b_by = blur_bound(h, w, n, args[1].numel() + args[2].numel())
-    else:
-        b_ms, b_by = ml_bound(h, w, n, len(args[1]),
-                              sum(k.numel() for k in args[1])
-                              + sum(k.numel() for k in args[2]))
-    return dict(source=src, replaces=replaces,
-                max_abs_err=checks["max_abs_err"],
-                ms=device_ms(lambda: kern(*args, **kwargs)),
-                plain_ms=device_ms(lambda: plain(*args, **kwargs)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                tol=checks["tol"], shape=list(x.shape))
-
-
-REPLACES = {"fused_separable_blur2d": "kornia_tpu/ops/pallas_kernels.py:239",
-            "fused_separable_blur2d_adjoint":
-                "kornia_tpu/ops/pallas_kernels.py:216",
-            "multi_level_blur": "kornia_tpu/ops/pallas_kernels.py:378",
-            "patch_sample": "kornia_tpu/ops/pallas_kernels.py:539"}
 
 
 def keynet_pair(K, dev) -> dict:
@@ -3756,11 +3543,10 @@ def keynet_stereo_phase(K, dev) -> dict:
     c = part("stitch", stitch_path, K, dev)
     results, counts = {}, {}
     for path, r in (("keynet", a), ("stereo", b), ("stitch", c)):
-        for name, cs in r.pop("calls").items():
-            key = f"{name}@{path}"
-            results[key] = captured_entry(K, name, cs, r["checks"][name],
-                                          REPLACES[name])
-            counts[key] = r["launches"].get(name, 0)
+        entries = path_entries(K, r.pop("calls"), r["checks"],
+                               r["launches"], path)
+        results.update(entries[0])
+        counts.update(entries[1])
     report(results)
     out = dict(keynet_pair=a, keynet_match=a2, keynet_xcheck=ax, stereo=b,
                stereo_xcheck=bx, stitch=c, part_s=part_s,
@@ -3769,7 +3555,6 @@ def keynet_stereo_phase(K, dev) -> dict:
           f"{ {k: round(v, 1) for k, v in part_s.items()} }")
     print(json.dumps({"keynet_stereo": out}))
     return dict(kernels=results, counts=counts, **out)
-
 
 
 # --- step 12: the communication runtime ------------------------------------------
@@ -4729,12 +4514,8 @@ def tracking_io_phase(K, dev) -> dict:
     a = part("bytetrack", bytetrack_stream, dev)
     b = part("boxtracker", boxtracker_visualize, dev, a.pop("dets"))
     c = part("files", files_to_path, K, dev)
-    results, counts = {}, {}
-    for name, cs in c.pop("calls").items():
-        key = f"{name}@tracking_io"
-        results[key] = captured_entry(K, name, cs, c["checks"][name],
-                                      REPLACES[name])
-        counts[key] = c["launches"].get(name, 0)
+    results, counts = path_entries(K, c.pop("calls"), c["checks"],
+                                   c["launches"], "tracking_io")
     report(results)
     out = dict(bytetrack=a, boxtracker=b, files=c, part_s=part_s,
                seconds=time.perf_counter() - t_phase)
@@ -5170,9 +4951,7 @@ def image_ops_phase(K, dev) -> dict:
     calls = capture_launches(K, path, names)
     per_path = path_kernel_times(K, kern, calls, launches, "image_ops")
     checks = check_captured(K, calls, "image_ops")
-    results = {f"{n}@image_ops": captured_entry(K, n, cs, checks[n],
-                                                REPLACES[n])
-               for n, cs in calls.items()}
+    results, counts = path_entries(K, calls, checks, launches, "image_ops")
     report(results)
     out = dict(per_op=rows, per_op_geomean_throughput=geomean,
                device_geomean_img_per_s=dev_geomean, sweep_ms=wall_ms,
@@ -5182,9 +4961,7 @@ def image_ops_phase(K, dev) -> dict:
                image_ops_seconds=time.perf_counter() - t_phase)
     print(f"image_ops phase: {out['image_ops_seconds']:.1f} s")
     print(json.dumps({"image_ops": out}))
-    return dict(kernels=results,
-                counts={k: launches.get(k.split("@")[0], 0)
-                        for k in results}, **out)
+    return dict(kernels=results, counts=counts, **out)
 
 
 REG_ITERS, REG_LR, REG_LEVELS = 300, 1e-2, 3  # tests/test_registration_vo.py:22-23
@@ -5586,9 +5363,8 @@ def registration_eval_phase(K, dev) -> dict:
     if len(scales) != 5 or scales[-1] != (H, W):
         fail(f"registration_eval: the band adjoint ran at {scales}, not at "
              f"MS-SSIM's five scales")
-    results = {f"{n}@registration_eval": captured_entry(K, n, cs, checks[n],
-                                                        REPLACES[n])
-               for n, cs in calls.items()}
+    results, counts = path_entries(K, calls, checks, launches,
+                                   "registration_eval")
     report(results)
     parts["path"] = round(time.perf_counter() - t_path, 1)
     out = dict(registration=reg, msssim=train, metrics=metrics,
@@ -5597,9 +5373,7 @@ def registration_eval_phase(K, dev) -> dict:
                seconds=time.perf_counter() - t_phase)
     print(f"registration_eval phase: {out['seconds']:.1f} s, parts {parts}")
     print(json.dumps({"registration_eval": out}))
-    return dict(kernels=results,
-                counts={k: launches.get(k.split("@")[0], 0)
-                        for k in results}, **out)
+    return dict(kernels=results, counts=counts, **out)
 
 
 def main() -> int:
@@ -5627,20 +5401,18 @@ def main() -> int:
         print(f"  {name}: {'; '.join(regs)}")
     dev = torch.device("cuda", 0)
     with f32_precision():
-        kres = kernel_phase(K, filters, dev)
+        kernel_phase(K, filters, dev)
     path = main_path(K, dev, args.profile_out)
     cross_check(K, dev)
-    # each kernel's launches are those of the path that runs it
-    entries = [(name, r, path["launches"]) for name, r in kres.items()]
     with f32_precision():
         phases = {"train": train_phase(K, dev), "match": match_phase(K, dev),
                   "fast_patches": fast_patches_phase(K, dev)}
     backend = backend_phase(dev, card)
     with f32_precision():
         planar = planar_phase(K, filters, dev)
-    vo = vo_phase(K, filters, dev)
+    vo = vo_phase(K, dev)
     with f32_precision():
-        learned = learned_phase(K, filters, dev)
+        learned = learned_phase(K, dev)
     with f32_precision():
         keynet_stereo = keynet_stereo_phase(K, dev)
     with f32_precision():
@@ -5651,23 +5423,11 @@ def main() -> int:
         image_ops = image_ops_phase(K, dev)
     with f32_precision():
         registration_eval = registration_eval_phase(K, dev)
-    for ph in phases.values():
-        entries += [(name, r, ph["launches"]) for name, r in
-                    ph["kernels"].items()]
-    entries += [(name, r, planar["counts"]) for name, r in
-                planar["kernels"].items()]
-    entries += [(name, r, vo["counts"]) for name, r in
-                vo["kernels"].items()]
-    entries += [(name, r, learned["counts"]) for name, r in
-                learned["kernels"].items()]
-    entries += [(name, r, keynet_stereo["counts"]) for name, r in
-                keynet_stereo["kernels"].items()]
-    entries += [(name, r, tracking_io["counts"]) for name, r in
-                tracking_io["kernels"].items()]
-    entries += [(name, r, image_ops["counts"]) for name, r in
-                image_ops["kernels"].items()]
-    entries += [(name, r, registration_eval["counts"]) for name, r in
-                registration_eval["kernels"].items()]
+    # each kernel's launches are those of the path that runs it
+    entries = [(name, r, ph["counts"]) for ph in (
+        path, *phases.values(), planar, vo, learned, keynet_stereo,
+        tracking_io, image_ops, registration_eval)
+        for name, r in ph["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on its path")

@@ -1,13 +1,14 @@
-"""Device times of the port's blur kernels (and the kernels that share their
-source or their timing rules) at the shapes their paths give them, for a
-same-call comparison of two trees:
+"""Device times of the port's kernels at the shapes their paths give them,
+for a same-call comparison of two trees:
 
-    python3 kernel_times.py [--tree DIR] [--label NAME]
+    python3 kernel_times.py [--tree DIR] [--label NAME] [--only TEXT]
 
 imports ``kornia_tpu_torch`` from DIR (default: this checkout), builds its
 kernels into DIR/build/kernels, checks each wrapper against its plain
-version and prints one JSON line of device ms (torch.profiler, 20 calls)
-per case. To compare a parent commit with the working tree on one card,
+version and prints one JSON line of device ms (torch.profiler, 20 calls,
+each from a cold L2) per case; ``--only`` keeps the cases whose name holds
+TEXT (``--only patch_sample``: both patch modes on the paths' own
+coordinates). To compare a parent commit with the working tree on one card,
 unpack the parent into a git-ignored directory and run, in one command,
 parent, change, change, parent:
 
@@ -144,13 +145,48 @@ def cases(K, dev):
                 lambda: K.streaming_min2_plain(d1, d2)[0],
                 3 * 2 * cs.MATCH_N ** 2 * cs.MATCH_D / cs.H100_TF32_FLOPS
                 * 1e3))
-    return cs, out
+    return cs, out + patch_cases(K, cs, dev)
+
+
+def patch_cases(K, cs, dev) -> list:
+    """patch_sample in both modes on the coordinates the paths give it: the
+    pair's SIFTFeature (1024 keypoints: 19² orientation and 41² descriptor
+    patches), the tracker's and the stitch's GFTTSIFTFeature (512), config
+    2's HardNet (32², 1024) and the KeyNet pair's 32² patches (2048)."""
+    from kornia_tpu_torch.feature.integrated import (GFTTSIFTFeature,
+                                                     KeyNetAffNetHardNet)
+    img = cs.bench_input(cs.H, cs.W, dev)[0]
+    feats = {"pair": None,
+             "gftt": GFTTSIFTFeature(num_features=cs.PLANAR_NF),
+             "config2": cs.config2_feature(dev),
+             "keynet": KeyNetAffNetHardNet(num_features=cs.KEYNET_NF,
+                                           device=dev)}
+    seen, out = set(), []
+    for path, feat in feats.items():
+        with torch.no_grad():
+            calls = cs.capture_patch_coords(dev, img, feat)
+        for atlas, px, py in calls:
+            key = (tuple(atlas.shape), tuple(px.shape))
+            if key in seen:
+                continue
+            seen.add(key)
+            b = cs.patch_bound(atlas.numel(), px.numel())[0]
+            for mode in ("split", "bf16"):
+                out.append((
+                    f"patch_sample[{mode}] {path} {px.shape[0]}x"
+                    f"{px.shape[1]} on {atlas.shape[0]}x{atlas.shape[1]}",
+                    lambda a=atlas, x=px, y=py, m=mode: K.patch_sample(
+                        a, x, y, m),
+                    lambda a=atlas, x=px, y=py, m=mode: K.patch_sample_plain(
+                        a, x, y, m), b))
+    return out
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=str(HERE))
     p.add_argument("--label", default=None)
+    p.add_argument("--only", default="")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; nothing was run", file=sys.stderr)
@@ -170,8 +206,11 @@ def main() -> int:
     with f32_precision():
         cs, todo = cases(K, dev)
         for name, kern, plain, b in todo:
+            if args.only not in name:
+                continue
             err = (kern() - plain()).abs().max().item()
-            if not err <= 1e-5:
+            # bf16 patches: the plain version's own roundings
+            if not err <= (1e-6 if "[bf16]" in name else 1e-5):
                 raise RuntimeError(f"{name}: {err} from the plain version")
             ms = cs.device_ms(kern)
             res[name] = dict(ms=ms, bound_ms=b, max_abs_err=err)

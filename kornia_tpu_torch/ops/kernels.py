@@ -88,6 +88,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}  # C function name -> bound function
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+_LONG = ctypes.c_longlong
 _INTP = ctypes.POINTER(ctypes.c_int)
 # C function -> (library, argument types)
 _BANDS = [_VOIDP] * 5 + [_INTP] * 2 + [_VOIDP] * 2 + [_INT] * 7 + [_VOIDP]
@@ -97,8 +98,8 @@ _FUNCS = {
     "banded_blur": ("banded_blur", _BANDS),
     "banded_blur_adjoint": ("banded_blur", _BANDS),
     "patch_sample": ("patch_sample", [_VOIDP, _INT, _INT, _VOIDP, _VOIDP,
-                                      _VOIDP, ctypes.c_longlong, _INT,
-                                      _VOIDP]),
+                                      _VOIDP, _LONG, _LONG, _LONG, _INT,
+                                      _INT, _VOIDP]),
     "streaming_min2": ("streaming_min2", [_VOIDP] * 10 + [_INT] * 5
                        + [_VOIDP]),
 }
@@ -848,13 +849,43 @@ def patch_sample(atlas: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
             or py.dtype != torch.float32:
         raise TypeError("patch_sample expects f32 atlas and coordinates")
     H, W = atlas.shape
-    out = torch.empty_like(px)
+    if not 0 < H * W < 2 ** 31:
+        raise ValueError(f"{name}: a {H}x{W} atlas is empty or exceeds the "
+                         f"kernel's 32-bit texel offsets")
+    n = px.numel()
+    if n == 0:
+        return torch.empty_like(px)  # nothing to sample: no launch
+    # the output starts on px's 8-byte parity, so that the kernel's 8-byte
+    # loads and stores line up (csrc/patch_sample.cu)
+    shift = (px.data_ptr() // 4) % 2
+    out = torch.empty(n + 1, dtype=torch.float32,
+                      device=px.device)[shift:shift + n].view(px.shape)
+    head, pairs = _patch_plan(n, px.data_ptr(), py.data_ptr(), out.data_ptr())
     with torch.cuda.device(atlas.device):
+        sms = torch.cuda.get_device_properties(
+            atlas.device).multi_processor_count
         err = _fn("patch_sample")(atlas.data_ptr(), H, W, px.data_ptr(),
-                                  py.data_ptr(), out.data_ptr(), px.numel(),
-                                  int(_PATCH_MODES[mode]), _stream(atlas))
+                                  py.data_ptr(), out.data_ptr(), n, head,
+                                  pairs, sms, int(_PATCH_MODES[mode]),
+                                  _stream(atlas))
     _check_launch(name, err)
     return out
+
+
+def _patch_plan(total: int, px_ptr: int, py_ptr: int,
+                out_ptr: int) -> Tuple[int, int]:
+    """How csrc/patch_sample.cu splits `total` samples: (head, pairs).
+    Samples [head, head + 2 * pairs) go two a thread through 8-byte loads
+    and stores, the head and the tail one a thread. A stream that starts
+    on an odd 4-byte offset has a head of one sample; px, py and out on
+    different 8-byte parities take the one-a-thread loop throughout."""
+    if px_ptr % 4 or py_ptr % 4 or out_ptr % 4:
+        raise ValueError("patch_sample: streams not 4-byte aligned")
+    parity = {p // 4 % 2 for p in (px_ptr, py_ptr, out_ptr)}
+    if len(parity) > 1:
+        return 0, 0
+    head = min(total, parity.pop())
+    return head, (total - head) // 2
 
 
 # -----------------------------------------------------------------------------

@@ -11,6 +11,8 @@ are missing:
 shapes.)
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -181,6 +183,113 @@ def test_cuda_patch_sample_refuses_grad(cuda_device):
         K.patch_sample(atlas, px, px)
     with torch.no_grad():
         assert K.patch_sample(atlas, px, px).shape == (2, 9)
+
+
+# patch_sample's grid-stride kernel (csrc/patch_sample.cu: two samples a
+# thread through 8-byte loads, the head and tail one a thread): streams that
+# are ragged, at 4-byte offsets, empty or one sample long; less work than
+# the grid has threads and several grid-strides of it; coordinates far
+# outside the atlas; a footprint wider than the TPU kernel's 128 x 256
+# window. A kernel that never ends would hang the suite, so each launch is
+# waited for against a deadline.
+PATCH_WAIT_S = 30.0
+PATCH_TOL = {"split": ATOL, "bf16": 1e-6}
+PATCH_GRID_THREADS = 16 * 128  # kBlocksPerSm x kThreads an SM
+
+
+def _wait_or_fail(what, seconds=PATCH_WAIT_S):
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.monotonic() + seconds
+    while not done.query():
+        if time.monotonic() > deadline:
+            pytest.fail(f"{what} did not finish within {seconds} s")
+        time.sleep(1e-3)
+
+
+def _patch_grid_samples(device, factor):
+    """`factor` times the samples one pass of the grid takes (two a
+    thread)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, int(factor * sms * PATCH_GRID_THREADS * 2))
+
+
+def _patch_case(case, device):
+    """(atlas, px, py) of one case; coordinates over the atlas and 10 px
+    beyond it unless the case says otherwise."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    rand = lambda *shape: torch.rand(shape, device=device,  # noqa: E731
+                                     generator=gen)
+    atlas = rand(900, 640)
+    H, W = atlas.shape
+
+    def coords(n, s):
+        return rand(n, s) * (W + 20) - 10, rand(n, s) * (H + 20) - 10
+
+    def at_offset(t, k):
+        """t's values in a contiguous view k floats into a larger buffer."""
+        flat = torch.empty(t.numel() + 8, device=device)
+        view = flat[k:k + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    if case == "ragged":  # N·S odd: neither a multiple of 4 nor of a tile
+        return (atlas, *coords(1023, 1681))
+    if case == "small_ragged":
+        return (atlas, *coords(3, 5))
+    if case == "empty":
+        return (atlas, *coords(0, 361))
+    if case == "one":
+        return (atlas, *coords(1, 1))
+    if case.startswith("offset"):  # px, py k floats past a 16-byte boundary
+        kx, ky = int(case[-2]), int(case[-1])
+        px, py = coords(1024, 361)
+        return atlas, at_offset(px, kx), at_offset(py, ky)
+    if case == "row_views":  # laf.py's px[b] rows of an odd-sized batch
+        px, py = coords(3 * 97, 361)
+        return atlas, px.view(3, 97, 361)[1], py.view(3, 97, 361)[2]
+    if case == "sliced":
+        px, py = coords(64, 1682)
+        return atlas, px[:, 1:].contiguous(), py[:, :-1].contiguous()
+    if case.startswith("grid"):  # below, at and above one grid pass
+        factor = {"grid_below": 0.1, "grid_at": 1.0, "grid_above": 7.3}[case]
+        n = _patch_grid_samples(device, factor) // 1681 + 1
+        return (atlas, *coords(n, 1681))
+    if case == "far_outside":
+        px = (rand(256, 361) - 0.5) * 2e6
+        py = (rand(256, 361) - 0.5) * 2e6
+        px[0, :4] = torch.tensor([float("inf"), -float("inf"), 1e30, -1e30])
+        py[1, :4] = torch.tensor([float("inf"), -float("inf"), 1e30, -1e30])
+        return atlas, px, py
+    if case == "wide_footprint":  # each patch spans the whole atlas
+        t = torch.linspace(0.0, 1.0, 41, device=device)
+        gy, gx = torch.meshgrid(t, t, indexing="ij")
+        jitter = rand(128, 1, 1)
+        px = (gx[None] * (W - 1) * (0.5 + 0.5 * jitter)).reshape(128, -1)
+        py = (gy[None] * (H - 1) * (0.5 + 0.5 * jitter)).reshape(128, -1)
+        return atlas, px.contiguous(), py.contiguous()
+    raise ValueError(case)
+
+
+PATCH_CASES = (["ragged", "small_ragged", "empty", "one", "row_views",
+                "sliced", "grid_below", "grid_at", "grid_above",
+                "far_outside", "wide_footprint"]
+               + [f"offset{kx}{ky}" for kx, ky in
+                  [(1, 0), (0, 2), (3, 3), (1, 2), (2, 3)]])
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+@pytest.mark.parametrize("case", PATCH_CASES)
+def test_cuda_patch_sample_stream_cases(cuda_device, case, mode):
+    atlas, px, py = _patch_case(case, cuda_device)
+    name = "patch_sample[bf16]" if mode == "bf16" else "patch_sample"
+    before = K.launches[name]
+    out = K.patch_sample(atlas, px, py, mode)
+    _wait_or_fail(f"{name} on case {case}")
+    assert K.launches[name] == before + (1 if px.numel() else 0)
+    assert out.shape == px.shape
+    torch.testing.assert_close(out, K.patch_sample_plain(atlas, px, py, mode),
+                               atol=PATCH_TOL[mode], rtol=0)
 
 
 # --- adjoints and gradients ------------------------------------------------------

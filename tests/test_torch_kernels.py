@@ -172,6 +172,41 @@ def test_wrappers_refuse_devices_without_a_kernel():
         K.patch_sample(x[0, 0], x[0, 0], x[0, 0])
 
 
+# --- patch_sample's plan: head, pairs, tail ------------------------------------
+
+@pytest.mark.parametrize("total", [0, 1, 2, 3, 4, 5, 15, 361, 1023, 1024,
+                                   1681, 35_017, 1_719_663, 1_721_344])
+def test_patch_plan_covers_the_stream_once(total):
+    """Every sample is taken once, by the two-a-thread body or by the
+    one-a-thread head and tail; the body's 8-byte loads and stores start on
+    8-byte boundaries of px, py and out (the output is allocated on px's
+    parity); streams on different parities go one a thread."""
+    for ox in range(4):
+        for oy in range(4):
+            for oo in range(4):
+                px, py, out = 512 + 4 * ox, 1024 + 4 * oy, 2048 + 4 * oo
+                head, pairs = K._patch_plan(total, px, py, out)
+                body_end = head + 2 * pairs
+                assert 0 <= head <= 1 and body_end <= total
+                assert total - body_end <= (1 if pairs else total)
+                if total <= 2048:
+                    covered = (list(range(head))
+                               + list(range(body_end, total))
+                               + [i for g in range(pairs)
+                                  for i in (head + 2 * g, head + 2 * g + 1)])
+                    assert sorted(covered) == list(range(total))
+                if pairs:
+                    for p in (px, py, out):
+                        assert (p + 4 * head) % 8 == 0
+                same = ox % 2 == oy % 2 == oo % 2
+                assert pairs == (0 if not same else (total - head) // 2)
+
+
+def test_patch_plan_refuses_unaligned_floats():
+    with pytest.raises(ValueError, match="4-byte"):
+        K._patch_plan(100, 514, 1024, 2048)
+
+
 # --- the adjoints' operators --------------------------------------------------
 
 def _dyadic_taps(k, seed):
