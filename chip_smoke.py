@@ -205,10 +205,42 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    of a (1, 1, 5, 480, 640) DoG stack, against the CPU port. Every fused
    blur (the pyramid's, MS-SSIM's five scales) and band adjoint (MS-SSIM's
    backward) of the path captured and held against its plain version on
-   its ROUTES route. It prints one JSON line of its own.
+   its ROUTES route. It prints one JSON line of its own;
+16. augmentation: the augmentation layer and the dissolving diffusion
+   model, on the training-data pipelines its users run, each timed on the
+   host clock around synchronised calls (median of 5) with items a second,
+   the device's busy share, kernels a call and peak memory: (a) two
+   SimCLR views (RandomResizedCrop 224, flip, ColorJiggle(0.8, 0.8, 0.8,
+   0.2, p=0.8), grey p=0.2, Gaussian blur 23 p=0.5, solarize p=0.2,
+   ImageNet normalisation) of 256 x 3 x 256 x 256 from a device generator,
+   the forward under no_host_sync; (b) a detection and segmentation batch
+   (16 x 3 x 512 x 512, a label mask, 20 boxes and 50 keypoints an image)
+   through flip, affine, perspective, elastic, box blur and JPEG with every
+   data key, then its inverse: the forward under no_host_sync, the
+   keypoints mapped back within 1e-2 px; (c) RandAugment(2, 10),
+   TrivialAugment and AutoAugment (imagenet, cifar10) at 64 x 3 x 224 x
+   224; (d) VideoSequential on 8 x 3 x 16 x 112 x 112 clips (one matrix a
+   clip) and PatchSequential (4 x 4) at 32 x 3 x 224 x 224; (e) the
+   volumetric ops at 4 x 1 x 64 x 128 x 128; (f) ADA at p = 0.6 with a
+   backward and an update, and a differentiable box blur, jitter, affine
+   and JPEG pipeline with its backward at 64 x 3 x 256 x 256, Operation's
+   magnitude gradients card vs CPU; (g) MixUp, CutMix, Mosaic, Jigsaw and
+   transplantation at 64 x 3 x 224 x 224; (h) RandomDissolving at 4 x 3 x
+   256 x 256 with the default configuration and SD 1.5's widths (seeded
+   weights). Then every exported class, the containers and dispatchers,
+   ADA, the policies and the diffusion model on the card and on the CPU
+   port at 8 x 3 x 64 x 64 (volumes 2 x 1 x 16 x 32 x 32) with the same
+   params, at the CPU tests' tolerances (the integer and selection ops bit
+   for bit, each op's gradient in (f) at 1e-4 of the largest); the chains
+   op by op on the CPU's input to each op, and the SimCLR view and (f)'s
+   gradient end to end at the limits AUG_CHAIN_GAIN and
+   AUG_CHAIN_GRAD_RTOL set out beside them. Every fused blur and band
+   adjoint of (b)'s forward and inverse, (d)'s clips and (f)'s step
+   captured and held against its plain version on its ROUTES route. It
+   prints one JSON line of its own.
 
 Each of steps 2, 4, 5, 6, 8, 9, 10 (its paths (a) and (b)), 11 (each of
-its paths), 13 (c), 14 and 15 resets the launch counters just before it
+its paths), 13 (c), 14, 15 and 16 resets the launch counters just before it
 drives its path and reads them just after; every kernel must have launched on its path. Every failure exits non-zero.
 The last lines are one JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
@@ -5376,6 +5408,721 @@ def registration_eval_phase(K, dev) -> dict:
     return dict(kernels=results, counts=counts, **out)
 
 
+# --- step 16: the augmentation layer ------------------------------------------
+
+AUG_REPS = 5                      # host-clock calls a pipeline, median
+SIMCLR_SHAPE = (256, 3, 256, 256)  # kornia's SimCLR recipe at 256 px
+SIMCLR_CROP = 224
+DET_SHAPE, DET_BOXES, DET_KP = (16, 3, 512, 512), 20, 50
+AUTO_SHAPE = (64, 3, 224, 224)
+CLIP_SHAPE = (8, 3, 16, 112, 112)  # (B, C, T, H, W): the Kinetics clip
+PATCH_SHAPE = (32, 3, 224, 224)
+VOL_SHAPE = (4, 1, 64, 128, 128)
+VOL_CROP = (48, 112, 112)
+GAN_SHAPE = (64, 3, 256, 256)
+MIX_SHAPE = (64, 3, 224, 224)
+DISSOLVE_SHAPE = (4, 3, 256, 256)
+AUG_XCHECK = (8, 3, 64, 64)        # every class, card against the CPU port
+AUG_XCHECK_VOL = (2, 1, 16, 32, 32)
+# the chains end to end, card vs CPU: the SimCLR view at its last op's
+# limit times the jitter's largest gain (a contrast or saturation factor
+# of 1 + 0.8); (f)'s gradient relative to the largest, where JPEG's
+# rounding turns the warp's ulps into gradient differences (2.069e-4 in
+# five runs on an H100; the ops one by one hold GRAD_RTOL)
+AUG_CHAIN_GAIN = 1.8
+AUG_CHAIN_GRAD_RTOL = 1e-3
+AUG_KP_PX = 1e-2                   # the inverse maps keypoints back, px
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# step 16's fused blurs: (b)'s 5x5 box blur on 48 planes, the elastic
+# noise's 63-tap smoothing on 32 (forward and mask path) and JPEG's chroma
+# blur on 16 of 512x512; (d)'s 3x3 box blur on 384 frames' planes of
+# 112x112; (f)'s box and chroma blurs on 192 and 64 planes of 256x256 (in
+# ROUTES) and their band adjoints there. Each grid fills the card two
+# blocks per SM or more: tiled
+for _hw in [(512, 512), (112, 112)]:
+    ROUTES[("fused_separable_blur2d", *_hw)] = "tiled"
+
+
+def simclr_pipeline(A, size: int = 0):
+    """kornia's SimCLR view: resized crop (to SIMCLR_CROP unless `size`),
+    flip, colour jitter, grey, blur, solarize, ImageNet normalisation."""
+    size = size or SIMCLR_CROP
+    return A.ImageSequential(
+        A.RandomResizedCrop((size, size), scale=(0.08, 1.0)),
+        A.RandomHorizontalFlip(),
+        A.ColorJiggle(0.8, 0.8, 0.8, 0.2, p=0.8),
+        A.RandomGrayscale(p=0.2),
+        A.RandomGaussianBlur((23, 23), (0.1, 2.0), p=0.5),
+        A.RandomSolarize(p=0.2),
+        A.Normalize(list(IMAGENET_MEAN), list(IMAGENET_STD)))
+
+
+DET_KEYS = ["input", "mask", "bbox_xyxy", "keypoints"]
+
+
+def detection_pipeline(A, elastic: bool = True):
+    """The detection and segmentation recipe: flip, affine, perspective,
+    elastic, box blur, JPEG; every data key."""
+    ops = [A.RandomHorizontalFlip(),
+           A.RandomAffine(15.0, (0.1, 0.1), (0.8, 1.2), 5.0),
+           A.RandomPerspective(0.3)]
+    if elastic:
+        ops.append(A.RandomElasticTransform(p=0.5))
+    ops += [A.RandomBoxBlur((5, 5)), A.RandomJPEG((50.0, 90.0))]
+    return A.AugmentationSequential(*ops, data_keys=DET_KEYS)
+
+
+def detection_inputs(dev, shape=None, gen_seed=SEED + 16):
+    """Images (DET_SHAPE unless `shape`), a 5-class label mask in 32 px
+    blocks, DET_BOXES xyxy boxes and DET_KP keypoints an image, seeded."""
+    shape = shape or DET_SHAPE
+    B, _, Hd, Wd = shape
+    g = torch.Generator(device=dev).manual_seed(gen_seed)
+    img = torch.rand(shape, device=dev, generator=g)
+    blocks = torch.randint(0, 5, (B, 1, Hd // 32, Wd // 32), device=dev,
+                           generator=g).float()
+    mask = blocks.repeat_interleave(32, -2).repeat_interleave(32, -1)
+    c = torch.rand((B, DET_BOXES, 2), device=dev, generator=g) * 0.6 + 0.2
+    wh = torch.rand((B, DET_BOXES, 2), device=dev, generator=g) * 0.25 + 0.02
+    size = torch.tensor([Wd, Hd], device=dev, dtype=torch.float32)
+    boxes = torch.cat([(c - wh / 2) * size, (c + wh / 2) * size], -1)
+    kp = torch.rand((B, DET_KP, 2), device=dev, generator=g) * (size - 1)
+    return img, mask, boxes, kp
+
+
+def _timed(what: str, fn, n_img: int, expect=()) -> dict:
+    """One pipeline's figures: host ms (median of AUG_REPS synchronised
+    calls), items a second, device busy ms, kernels and busy share of a
+    call, peak memory above what was allocated before it."""
+    fn()
+    torch.cuda.synchronize()
+    ms, runs = median_ms(fn, AUG_REPS)
+    busy, n_k, _ = device_profile(fn, expect)
+    peak = peak_bytes(fn)
+    out = dict(ms=ms, runs_ms=runs, per_s=n_img / (ms / 1e3),
+               busy_ms=busy, kernels=n_k, busy_share=busy / ms,
+               peak_bytes=peak)
+    print(f"augmentation {what}: {ms:.2f} ms ({n_img / (ms / 1e3):.1f} a "
+          f"second), device busy {busy:.2f} ms (share {busy / ms:.3f}), "
+          f"{n_k} kernels, peak {peak / 2**20:.1f} MiB")
+    return out
+
+
+def aug_simclr(dev) -> dict:
+    """(a) two SimCLR views of a 256-image batch, drawn from a device
+    generator; the whole forward, sampling included, under no_host_sync
+    (after the warm-up call, which fills the per-device constant
+    tables)."""
+    import kornia_tpu_torch.augmentation as TA
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand(SIMCLR_SHAPE, device=dev, generator=g)
+    pipe = simclr_pipeline(TA)
+
+    def two_views():
+        return pipe(x, g), pipe(x, g)
+
+    out = _timed("(a) SimCLR two views", two_views, 2 * SIMCLR_SHAPE[0])
+    v1, v2 = no_host_sync(two_views)
+    if v1.shape != (SIMCLR_SHAPE[0], 3, SIMCLR_CROP, SIMCLR_CROP) or \
+            not bool(torch.isfinite(v1).all() & torch.isfinite(v2).all()):
+        fail("augmentation (a): views of the wrong shape or not finite")
+    if torch.equal(v1, v2):
+        fail("augmentation (a): the two views are equal")
+    out["no_host_sync"] = True
+    return out
+
+
+def aug_detection(dev) -> dict:
+    """(b) the detection and segmentation batch through every data key,
+    then its inverse; the forward under no_host_sync; the inverse of the
+    matrix-only pipeline maps the keypoints back within AUG_KP_PX."""
+    import kornia_tpu_torch.augmentation as TA
+    inp = detection_inputs(dev)
+    pipe = detection_pipeline(TA)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def forward():
+        return pipe(*inp, generator=g)
+
+    def both():
+        return pipe.inverse(*forward())
+
+    out = _timed("(b) detection forward", forward, DET_SHAPE[0])
+    out["with_inverse"] = _timed("(b) detection forward + inverse", both,
+                                 DET_SHAPE[0])
+    img, mask, boxes, kp = no_host_sync(forward)
+    if img.shape != inp[0].shape or mask.shape != inp[1].shape or \
+            not bool(torch.isfinite(img).all() & torch.isfinite(boxes).all()):
+        fail("augmentation (b): outputs of the wrong shape or not finite")
+    # the inverse: elastic moves no point, so the whole pipeline's inverse
+    # maps keypoints back; the matrix-only pipeline's too
+    back = pipe.inverse(img, mask, boxes, kp)[3]
+    err = (back - inp[3]).abs().max().item()
+    matrix = detection_pipeline(TA, elastic=False)
+    k2 = matrix(inp[0], inp[3], data_keys=["input", "keypoints"],
+                generator=g)[1]
+    err2 = (matrix.inverse(k2, data_keys=["keypoints"]) - inp[3]).abs()
+    out["keypoint_roundtrip_px"] = max(err, err2.max().item())
+    out["no_host_sync"] = True
+    print(f"augmentation (b): keypoints back within "
+          f"{out['keypoint_roundtrip_px']:.2e} px")
+    if not out["keypoint_roundtrip_px"] <= AUG_KP_PX:
+        fail(f"augmentation (b): the inverse maps keypoints back to "
+             f"{out['keypoint_roundtrip_px']} px, over {AUG_KP_PX}")
+    return out
+
+
+def aug_auto(dev) -> dict:
+    """(c) RandAugment(2, 10), TrivialAugment and AutoAugment (imagenet,
+    cifar10) at 64 x 3 x 224 x 224."""
+    import kornia_tpu_torch.augmentation as TA
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x = torch.rand(AUTO_SHAPE, device=dev, generator=g)
+    pols = {"rand_augment": TA.RandAugment(2, 10),
+            "trivial_augment": TA.TrivialAugment(),
+            "auto_augment_imagenet": TA.AutoAugment("imagenet"),
+            "auto_augment_cifar10": TA.AutoAugment("cifar10")}
+    out = {}
+    for name, pol in pols.items():
+        out[name] = _timed(f"(c) {name}", lambda: pol(x, g), AUTO_SHAPE[0])
+        if not bool(torch.isfinite(pol(x, g)).all()):
+            fail(f"augmentation (c): {name} not finite")
+    return out
+
+
+def aug_video(dev) -> dict:
+    """(d) VideoSequential on Kinetics-shaped clips (each clip's frames
+    carry one matrix) and PatchSequential with a 4 x 4 grid."""
+    import kornia_tpu_torch.augmentation as TA
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    clip = torch.rand(CLIP_SHAPE, device=dev, generator=g)
+    vs = TA.VideoSequential(TA.ColorJiggle(0.2, 0.3, 0.2, 0.05, p=1),
+                            TA.RandomAffine(10.0, p=1),
+                            TA.RandomBoxBlur((3, 3)),
+                            TA.RandomHorizontalFlip(), data_format="BCTHW")
+    out = {"video": _timed("(d) VideoSequential", lambda: vs(clip, g),
+                           CLIP_SHAPE[0])}
+    B, _, T = CLIP_SHAPE[:3]
+    params = vs._clip_params(g, B, T, (3,) + CLIP_SHAPE[-2:])
+    M = vs.augs[1].transform_matrix(
+        torch.empty((B * T, 3) + CLIP_SHAPE[-2:], device=dev),
+        params[1]).reshape(B, T, 3, 3)
+    spread = (M - M[:, :1]).abs().max().item()
+    flips = params[3]["apply_mask"].reshape(B, T)
+    if spread != 0.0 or not bool((flips == flips[:, :1]).all()):
+        fail(f"augmentation (d): a clip's frames carry different matrices "
+             f"({spread}) or flips")
+    out["frame_matrix_spread"] = spread
+    x = torch.rand(PATCH_SHAPE, device=dev, generator=g)
+    ps = TA.PatchSequential(TA.ColorJiggle(0.1, 0.1, 0.1, 0.1, p=0.5),
+                            TA.RandomBoxBlur((3, 3)), TA.RandomSolarize(),
+                            grid_size=(4, 4))
+    recs = ps.forward_parameters(g, PATCH_SHAPE)
+    out["patch"] = _timed("(d) PatchSequential (replaying its records)",
+                          lambda: ps(x, params=recs), PATCH_SHAPE[0])
+    out["patch"]["records"] = len(recs)
+    return out
+
+
+def aug_volumes(dev) -> dict:
+    """(e) the volumetric ops at 4 x 1 x 64 x 128 x 128, each timed."""
+    import kornia_tpu_torch.augmentation as TA
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    v = torch.rand(VOL_SHAPE, device=dev, generator=g)
+    ops = {"affine3d": TA.RandomAffine3D(15.0, (0.1, 0.1, 0.1), (0.9, 1.1),
+                                         p=1.0),
+           "rotation3d": TA.RandomRotation3D(20.0, p=1.0),
+           "motion_blur3d": TA.RandomMotionBlur3D(5, p=1.0),
+           "crop3d": TA.RandomCrop3D(VOL_CROP),
+           "equalize3d": TA.RandomEqualize3D(p=1.0),
+           "depthical_flip3d": TA.RandomDepthicalFlip3D(p=1.0),
+           "perspective3d": TA.RandomPerspective3D(0.3, p=1.0)}
+    out = {n: _timed(f"(e) {n}", lambda: op(v, g), VOL_SHAPE[0])
+           for n, op in ops.items()}
+    if ops["crop3d"](v, g).shape != VOL_SHAPE[:2] + VOL_CROP:
+        fail("augmentation (e): RandomCrop3D's shape")
+    return out
+
+
+def gan_pipeline(A):
+    """(f)'s differentiable augmentation: box blur, colour jitter, affine
+    and JPEG, every op differentiable in the image."""
+    return A.ImageSequential(A.RandomBoxBlur((5, 5)), A.ColorJiggle(p=1.0),
+                             A.RandomAffine(10.0, p=1.0),
+                             A.RandomJPEG((50.0, 90.0), p=1.0))
+
+
+def aug_gan(dev) -> dict:
+    """(f) ADA at p = 0.6 with a backward of a sum to the images and an
+    update on seeded logits; the differentiable pipeline's backward (the
+    blur adjoint); Operation's magnitude gradients on the card against
+    the CPU port."""
+    import kornia_tpu_torch.augmentation as TA
+    from kornia_tpu_torch.augmentation.auto import (Operation, _AA_BINS,
+                                                    _AA_FNS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.rand(GAN_SHAPE, device=dev, generator=g)
+    ada = TA.AdaptiveDiscriminatorAugmentation()
+    ada.p = 0.6
+
+    def ada_step():
+        xr = x.clone().requires_grad_()
+        ada(xr, g).sum().backward()
+        return xr.grad
+
+    out = {"ada": _timed("(f) ADA forward + backward", ada_step,
+                         GAN_SHAPE[0])}
+    logits = torch.randn(GAN_SHAPE[0], device=dev, generator=g) + 0.5
+    out["ada"]["p_after_update"] = ada.update(logits)
+    pipe = gan_pipeline(TA)
+
+    def diff_step():
+        xr = x.clone().requires_grad_()
+        pipe(xr, g).square().sum().backward()
+        return xr.grad
+
+    out["pipeline"] = _timed("(f) differentiable pipeline + backward",
+                             diff_step, GAN_SHAPE[0])
+    if not bool(torch.isfinite(diff_step()).all()):
+        fail("augmentation (f): the pipeline's gradient is not finite")
+    # Operation: gradient of Σ op(x, m)² in each magnitude, card vs CPU
+    gx = torch.rand(AUG_XCHECK, generator=torch.Generator().manual_seed(5))
+    grads = {}
+    for name, fn in _AA_FNS.items():
+        lo, hi = _AA_BINS[name] or (0.0, 1.0)
+        op = Operation(name, fn, probability=1.0)
+        vals = []
+        for d in (dev, "cpu"):
+            m = torch.tensor(0.5 * (lo + hi), device=d, requires_grad=True)
+            y = op(gx.to(d), None, magnitude=m,
+                   draws={"gate": torch.ones(AUG_XCHECK[0], dtype=torch.bool,
+                                             device=d)})
+            if not y.requires_grad:  # the op takes no magnitude
+                vals.append(0.0)
+                continue
+            (gm,) = torch.autograd.grad(y.square().sum(), m,
+                                        allow_unused=True)
+            vals.append(0.0 if gm is None else gm.item())
+        scale = max(abs(vals[1]), 1e-30)
+        grads[name] = dict(card=vals[0], cpu=vals[1],
+                           rel=abs(vals[0] - vals[1]) / scale)
+        if not abs(vals[0] - vals[1]) <= GRAD_RTOL * max(abs(vals[1]), 1e-6):
+            fail(f"augmentation (f): Operation {name}'s magnitude gradient "
+                 f"card {vals[0]} vs CPU {vals[1]}")
+    out["operation_grads"] = grads
+    print(f"augmentation (f): Operation magnitude gradients card vs CPU "
+          f"within {max(r['rel'] for r in grads.values()):.2e} relative")
+    return out
+
+
+def aug_mix(dev) -> dict:
+    """(g) MixUp, CutMix, Mosaic, Jigsaw and transplantation with masks at
+    64 x 3 x 224 x 224 with labels."""
+    import kornia_tpu_torch.augmentation as TA
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.rand(MIX_SHAPE, device=dev, generator=g)
+    labels = torch.randint(0, 1000, (MIX_SHAPE[0],), device=dev, generator=g)
+    seg = torch.randint(0, 8, (MIX_SHAPE[0], MIX_SHAPE[2] // 32,
+                               MIX_SHAPE[3] // 32), device=dev,
+                        generator=g).repeat_interleave(32, 1) \
+        .repeat_interleave(32, 2)
+    ops = {"mixup": lambda: TA.RandomMixUpV2(p=1.0)(x, labels, g),
+           "cutmix": lambda: TA.RandomCutMixV2(p=1.0)(x, labels, g),
+           "mosaic": lambda: TA.RandomMosaic(MIX_SHAPE[-2:], p=1.0)(x, g),
+           "jigsaw": lambda: TA.RandomJigsaw((4, 4), p=1.0)(x, g),
+           "transplantation": lambda: TA.RandomTransplantation(p=1.0)(
+               x, seg, g)}
+    out = {n: _timed(f"(g) {n}", fn, MIX_SHAPE[0]) for n, fn in ops.items()}
+    _, mixed = ops["cutmix"]()
+    if mixed.shape != (MIX_SHAPE[0], 3) or not bool(
+            ((mixed[:, 2] >= 0) & (mixed[:, 2] <= 1)).all()):
+        fail("augmentation (g): CutMix's mixed labels")
+    return out
+
+
+def aug_dissolve(dev) -> dict:
+    """(h) RandomDissolving with the default configuration and with SD
+    1.5's published widths (weights seeded), at 4 x 3 x 256 x 256."""
+    import kornia_tpu_torch.augmentation as TA
+    from kornia_tpu_torch.models.diffusion import (DiffusionConfig,
+                                                   StableDiffusionDissolving)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.rand(DISSOLVE_SHAPE, device=dev, generator=g)
+    out = {}
+    for name, cfg in (("default", DiffusionConfig()),
+                      ("sd15_like", DiffusionConfig.sd15_like())):
+        t0 = time.perf_counter()
+        model = StableDiffusionDissolving(cfg, device=dev)
+        build_s = time.perf_counter() - t0
+        aug = TA.RandomDissolving(model=model, p=1.0)
+        with torch.no_grad():
+            out[name] = _timed(f"(h) RandomDissolving[{name}]",
+                               lambda: aug(x, g), DISSOLVE_SHAPE[0])
+            y = aug(x, g)
+        out[name]["build_s"] = build_s
+        out[name]["params"] = sum(p.numel() for p in model.model.parameters())
+        if y.shape != x.shape or not bool(((y >= 0) & (y <= 1)).all()):
+            fail(f"augmentation (h): {name} out of [0, 1] or misshapen")
+        del model, aug
+    return out
+
+
+def _xcheck_cases(TA):
+    """Every exported class (and container), the input it takes and the
+    card-vs-CPU tolerance: 'int' bit for bit, 'color' 1e-5, 'warp'
+    sample_atol of the source's size, 'jpeg' 1e-4 (the CPU tests'
+    limits)."""
+    I, V = "img", "vol"
+    c = {
+        "RandomBrightness": (TA.RandomBrightness(p=1.0), I, "color"),
+        "RandomContrast": (TA.RandomContrast(), I, "color"),
+        "RandomSaturation": (TA.RandomSaturation(p=1.0), I, "color"),
+        "RandomHue": (TA.RandomHue(p=1.0), I, "color"),
+        "RandomGamma": (TA.RandomGamma(p=1.0), I, "color"),
+        "ColorJiggle": (TA.ColorJiggle(0.4, 0.4, 0.4, 0.1, p=1.0), I,
+                        "color"),
+        "RandomGrayscale": (TA.RandomGrayscale(p=0.5), I, "color"),
+        "RandomGaussianBlur": (TA.RandomGaussianBlur((7, 7), p=1.0), I,
+                               "color"),
+        "RandomGaussianNoise": (TA.RandomGaussianNoise(std=0.1, p=1.0), I,
+                                "color"),
+        "RandomMotionBlur": (TA.RandomMotionBlur(p=1.0), I, "color"),
+        "RandomBoxBlur": (TA.RandomBoxBlur((5, 5), p=1.0), I, "color"),
+        "RandomMedianBlur": (TA.RandomMedianBlur(p=1.0), I, "int"),
+        "RandomSolarize": (TA.RandomSolarize(p=1.0), I, "color"),
+        "RandomPosterize": (TA.RandomPosterize(p=1.0), I, "int"),
+        "RandomSharpness": (TA.RandomSharpness(p=1.0), I, "color"),
+        "RandomEqualize": (TA.RandomEqualize(p=1.0), I, "int"),
+        "RandomCLAHE": (TA.RandomCLAHE(p=1.0), I, "int"),
+        "RandomAutoContrast": (TA.RandomAutoContrast(p=1.0), I, "color"),
+        "RandomInvert": (TA.RandomInvert(), I, "color"),
+        "RandomChannelShuffle": (TA.RandomChannelShuffle(p=1.0), I, "int"),
+        "RandomChannelDropout": (TA.RandomChannelDropout(p=1.0), I, "int"),
+        "RandomErasing": (TA.RandomErasing(p=1.0), I, "int"),
+        "RandomSaltAndPepper": (TA.RandomSaltAndPepper(p=1.0), I, "int"),
+        "RandomRGBShift": (TA.RandomRGBShift(p=1.0), I, "color"),
+        "RandomPlanckianJitter": (TA.RandomPlanckianJitter(p=1.0), I,
+                                  "color"),
+        "RandomLinearIllumination": (TA.RandomLinearIllumination(p=1.0), I,
+                                     "color"),
+        "RandomPlasmaBrightness": (TA.RandomPlasmaBrightness(p=1.0), I,
+                                   "color"),
+        "RandomPlasmaShadow": (TA.RandomPlasmaShadow(p=1.0), I, "color"),
+        "RandomPlasmaContrast": (TA.RandomPlasmaContrast(p=1.0), I, "color"),
+        "RandomJPEG": (TA.RandomJPEG(p=1.0), I, "jpeg"),
+        "Normalize": (TA.Normalize(list(IMAGENET_MEAN), list(IMAGENET_STD)),
+                      I, "color"),
+        "Denormalize": (TA.Denormalize(list(IMAGENET_MEAN),
+                                       list(IMAGENET_STD)), I, "color"),
+        "RandomSnow": (TA.RandomSnow((0.3, 0.6), (1.5, 2.5)), I, "color"),
+        "RandomRain": (TA.RandomRain((100, 200), (3, 10), p=1.0), I, "int"),
+        "RandomGaussianIllumination": (TA.RandomGaussianIllumination(p=1.0),
+                                       I, "color"),
+        "RandomLinearCornerIllumination": (
+            TA.RandomLinearCornerIllumination(p=1.0), I, "color"),
+        "Resize": (TA.Resize((48, 80)), I, "warp"),
+        "LongestMaxSize": (TA.LongestMaxSize(96), I, "warp"),
+        "SmallestMaxSize": (TA.SmallestMaxSize(40), I, "warp"),
+        "RandomHorizontalFlip": (TA.RandomHorizontalFlip(), I, "int"),
+        "RandomVerticalFlip": (TA.RandomVerticalFlip(p=1.0), I, "int"),
+        "RandomRotation": (TA.RandomRotation(30.0, p=1.0), I, "warp"),
+        "RandomRotation90": (TA.RandomRotation90(p=1.0), I, "int"),
+        "RandomAffine": (TA.RandomAffine(15.0, (0.1, 0.1), (0.8, 1.2), 5.0,
+                                         p=1.0), I, "warp"),
+        "RandomPerspective": (TA.RandomPerspective(0.4, p=1.0), I, "warp"),
+        "RandomShear": (TA.RandomShear(p=1.0), I, "warp"),
+        "RandomTranslate": (TA.RandomTranslate(p=1.0), I, "warp"),
+        "RandomCrop": (TA.RandomCrop((40, 48)), I, "warp"),
+        "RandomResizedCrop": (TA.RandomResizedCrop((48, 48)), I, "warp"),
+        "CenterCrop": (TA.CenterCrop((40, 48)), I, "int"),
+        "RandomElasticTransform": (TA.RandomElasticTransform(p=1.0), I,
+                                   "warp"),
+        "RandomThinPlateSpline": (TA.RandomThinPlateSpline(p=1.0), I,
+                                  "warp"),
+        "RandomFisheye": (TA.RandomFisheye(p=1.0), I, "warp"),
+        "PadTo": (TA.PadTo((72, 80)), I, "int"),
+        "RandomMosaic": (TA.RandomMosaic(p=1.0), I, "int"),
+        "RandomJigsaw": (TA.RandomJigsaw(p=1.0), I, "int"),
+        "RandomPatchMix": (TA.RandomPatchMix(p=1.0), I, "color"),
+        "RandomHorizontalFlip3D": (TA.RandomHorizontalFlip3D(p=1.0), V,
+                                   "int"),
+        "RandomVerticalFlip3D": (TA.RandomVerticalFlip3D(p=1.0), V, "int"),
+        "RandomDepthicalFlip3D": (TA.RandomDepthicalFlip3D(p=1.0), V, "int"),
+        "RandomRotation3D": (TA.RandomRotation3D(20.0, p=1.0), V, "warp"),
+        "RandomAffine3D": (TA.RandomAffine3D(15.0, (0.1, 0.1, 0.1),
+                                             (0.9, 1.1), p=1.0), V,
+                           "warp"),
+        "RandomCrop3D": (TA.RandomCrop3D((12, 24, 24)), V, "int"),
+        "CenterCrop3D": (TA.CenterCrop3D((12, 24, 24)), V, "int"),
+        "RandomEqualize3D": (TA.RandomEqualize3D(p=1.0), V, "int"),
+        "RandomMotionBlur3D": (TA.RandomMotionBlur3D(5, p=1.0), V, "color"),
+        "RandomPerspective3D": (TA.RandomPerspective3D(0.4, p=1.0), V,
+                                "warp"),
+    }
+    return c
+
+
+def _xcheck_limit(tol: str, size: int) -> float:
+    return {"int": 0.0, "color": IMAGE_ATOL, "jpeg": IMAGE_WIDE_ATOL,
+            "warp": sample_atol(size)}[tol]
+
+
+def aug_xcheck(dev) -> dict:
+    """Every class on the card and on the CPU port with the same params
+    (drawn by the port on the CPU), the containers, dispatchers, policies,
+    ADA, mixes and the dissolving model too; each op's gradient in (f)'s
+    pipeline card vs CPU. The chains (the SimCLR view, ADA's pipeline, the
+    policies' steps, (f)) are held op by op, each fed the CPU's input to
+    it, and the SimCLR view and (f)'s gradient end to end as well, at the
+    chain limits AUG_CHAIN_GAIN and AUG_CHAIN_GRAD_RTOL."""
+    import kornia_tpu_torch.augmentation as TA
+    from kornia_tpu_torch.convert import aug_params_from_numpy as carried
+    from kornia_tpu_torch.models.diffusion import StableDiffusionDissolving
+    gc = torch.Generator().manual_seed(SEED + 8)
+    xc = torch.rand(AUG_XCHECK, generator=gc)
+    vc = torch.rand(AUG_XCHECK_VOL, generator=gc)
+    rows = {}
+
+    def compare(name, card, cpu, limit):
+        rows[name] = card_vs_cpu(f"augmentation {name}", card, cpu, limit)
+
+    def op_by_op(what, chain, params, x_in, limit_of):
+        """Each op of `chain` card vs CPU on the CPU's input to it; the
+        CPU's output of the chain."""
+        for i, (op, q) in enumerate(zip(chain.augs, params)):
+            y = op(x_in, params=q)
+            compare(f"{what} op {i} {type(op).__name__}",
+                    op(x_in.to(dev), params=carried(q, dev)), y, limit_of(i))
+            x_in = y
+        return x_in
+
+    for name, (aug, kind, tol) in _xcheck_cases(TA).items():
+        x = xc if kind == "img" else vc
+        p = aug.generate_parameters(gc, tuple(x.shape))
+        cpu = aug(x, params=p)
+        card = aug(x.to(dev), params=carried(p, dev))
+        compare(name, card, cpu, _xcheck_limit(tol, x.shape[-1]))
+    # the detection pipeline, every key, and its inverse
+    inp = [t.cpu() for t in detection_inputs(dev, (8, 3, 64, 64))]
+    det = detection_pipeline(TA)
+    p = det.generate_parameters(gc, inp[0].shape)
+    cpu = det(*inp, params=p)
+    card = det(*[t.to(dev) for t in inp], params=carried(p, dev))
+    compare("AugmentationSequential", card, cpu, sample_atol(64))
+    compare("AugmentationSequential.inverse", det.inverse(*card),
+            det.inverse(*cpu, params=p, in_hw=(64, 64)), sample_atol(64))
+    # the dispatchers draw on the card's generator; the same draws,
+    # carried to the CPU, replay each pipeline there
+    pipes = [detection_pipeline(TA, elastic=False),
+             TA.AugmentationSequential(TA.RandomAffine(10.0, p=1.0),
+                                       TA.ColorJiggle(0.2, 0.2, 0.2, p=1.0),
+                                       data_keys=["input", "mask"])]
+    ins = [inp, [xc, inp[1]]]
+    for cls in (TA.ManyToManyAugmentationDispather,
+                TA.ManyToOneAugmentationDispather):
+        g = torch.Generator(device=dev).manual_seed(SEED + 10)
+        state = g.get_state()
+        outs = cls(*pipes)(*[[t.to(dev) for t in i] for i in ins],
+                           generator=g)
+        g.set_state(state)
+        for i, (pipe, i_cpu) in enumerate(zip(pipes, ins)):
+            if cls is TA.ManyToOneAugmentationDispather:
+                g.set_state(state)
+            p = pipe.generate_parameters(g, tuple(i_cpu[0].shape))
+            compare(f"{cls.__name__} pipeline {i}", outs[i],
+                    pipe(*i_cpu, params=carried(p, "cpu")), sample_atol(64))
+    # video and patch containers
+    clip = torch.rand(2, 3, 4, 32, 32, generator=gc)
+    vs = TA.VideoSequential(TA.ColorJiggle(0.2, 0.3, 0.2, 0.05, p=1),
+                            TA.RandomAffine(10.0, p=1),
+                            TA.RandomBoxBlur((3, 3)),
+                            TA.RandomHorizontalFlip(), data_format="BCTHW")
+    p = vs._clip_params(gc, 2, 4, (3, 32, 32))
+    compare("VideoSequential", vs(clip.to(dev), params=carried(p, dev)),
+            vs(clip, params=p), sample_atol(32))
+    ps = TA.PatchSequential(TA.ColorJiggle(0.1, 0.1, 0.1, 0.1, p=0.5),
+                            TA.RandomSolarize(), grid_size=(4, 4))
+    recs = ps.forward_parameters(gc, tuple(xc.shape))
+    compare("PatchSequential", ps(xc.to(dev), params=carried(recs, dev)),
+            ps(xc, params=recs), IMAGE_ATOL)
+    # the chains op by op, each fed the CPU's input on both devices: a
+    # warp's ulps would otherwise move a later threshold or bin (solarize,
+    # posterize) by a whole step. The SimCLR view whole as well: its
+    # draws put no pixel at solarize's threshold, so the warp's ulps pass
+    # through the jitter's gain and Normalize's 1 / std alone
+    view = simclr_pipeline(TA, 48)
+    p = view.generate_parameters(gc, AUG_XCHECK)
+    end = op_by_op(
+        "SimCLR view", view, p, xc,
+        lambda i: sample_atol(64) / (min(IMAGENET_STD) if i == len(p) - 1
+                                     else 1.0))
+    compare("SimCLR view end to end", view(xc.to(dev), params=carried(p, dev)),
+            end, AUG_CHAIN_GAIN * sample_atol(64) / min(IMAGENET_STD))
+    # ADA: its pipeline at p = 0.6 with injected params, then `update` on
+    # the same logits (its host read is the reference's own)
+    ga = torch.Generator().manual_seed(SEED + 11)
+    ada = [TA.AdaptiveDiscriminatorAugmentation() for _ in range(2)]
+    for a in ada:
+        a.p = 0.6
+    chain = ada[1]._pipeline()
+    op_by_op("ADA", chain, chain.generate_parameters(ga, AUG_XCHECK), xc,
+             lambda i: sample_atol(64))
+    logits = torch.randn(64, generator=ga)
+    p_card, p_cpu = ada[0].update(logits.to(dev)), ada[1].update(logits)
+    compare("ADA update", torch.tensor(p_card), torch.tensor(p_cpu), 0.0)
+    B = AUG_XCHECK[0]
+    draws = [{"op_idx": torch.arange(B, dtype=torch.int32) * 2 % 15,
+              "signs": torch.where(torch.arange(B) % 2 == 0, 1.0, -1.0)},
+             {"op_idx": (torch.arange(B, dtype=torch.int32) * 2 + 1) % 15,
+              "signs": torch.where(torch.arange(B) % 3 == 0, 1.0, -1.0)}]
+    x_in = xc
+    for i, d in enumerate(draws):
+        y = TA.RandAugment()(x_in, draws=[d])
+        compare(f"RandAugment step {i}",
+                TA.RandAugment()(x_in.to(dev), draws=carried([d], dev)), y,
+                sample_atol(64))
+        x_in = y
+    tdraw = dict(draws[0], mag01=torch.rand(B, generator=gc))
+    compare("TrivialAugment",
+            TA.TrivialAugment()(xc.to(dev), draws=carried(tdraw, dev)),
+            TA.TrivialAugment()(xc, draws=tdraw), sample_atol(64))
+    for pol in ("imagenet", "cifar10", "svhn"):
+        aa = TA.AutoAugment(pol)
+        sub = torch.randint(0, 25, (B,), generator=gc, dtype=torch.int32)
+        steps = [{"u": torch.rand(B, generator=gc),
+                  "gate": torch.rand(B, generator=gc) < 0.7}
+                 for _ in range(aa.n_steps)]
+        off = {"u": torch.zeros(B), "gate": torch.zeros(B, dtype=torch.bool)}
+        x_in = xc
+        for i in range(aa.n_steps):
+            # step i alone: every other step's gate shut
+            ad = {"sub_idx": sub, "steps": [steps[j] if j == i else off
+                                            for j in range(aa.n_steps)]}
+            y = aa(x_in, draws=ad)
+            compare(f"AutoAugment[{pol}] step {i}",
+                    aa(x_in.to(dev), draws=carried(ad, dev)), y,
+                    sample_atol(64))
+            x_in = y
+    # mixes with labels and masks
+    labels = torch.arange(B)
+    seg = torch.randint(0, 4, (B, 64, 64), generator=gc)
+    for name, aug, args in (
+            ("RandomMixUpV2", TA.RandomMixUpV2(p=1.0), (labels,)),
+            ("RandomCutMixV2", TA.RandomCutMixV2(p=1.0), (labels,)),
+            ("RandomTransplantation", TA.RandomTransplantation(p=1.0),
+             (seg,))):
+        p = aug.generate_parameters(gc, tuple(xc.shape))
+        compare(name, aug(xc.to(dev), *[a.to(dev) for a in args],
+                          params=carried(p, dev)),
+                aug(xc, *args, params=p),
+                IMAGE_ATOL if name == "RandomMixUpV2" else 0.0)
+    vseg = torch.randint(0, 3, (2,) + AUG_XCHECK_VOL[2:], generator=gc)
+    tp3 = TA.RandomTransplantation3D(p=1.0)
+    p = tp3.generate_parameters(gc, AUG_XCHECK_VOL)
+    compare("RandomTransplantation3D",
+            tp3(vc.to(dev), vseg.to(dev), params=carried(p, dev)),
+            tp3(vc, vseg, params=p), 0.0)
+    # the dissolving model: the same seeded weights on both devices
+    dis = [TA.RandomDissolving(model=StableDiffusionDissolving(device=d),
+                               p=1.0) for d in (dev, "cpu")]
+    p = dis[1].generate_parameters(gc, AUG_XCHECK)
+    with torch.no_grad():
+        compare("RandomDissolving", dis[0](xc.to(dev), params=carried(p, dev)),
+                dis[1](xc, params=p), IMAGE_ATOL)
+    # (f)'s differentiable pipeline: each op's gradient (of Σ w · op(x))
+    # card vs CPU on the CPU's input to it, and the whole chain's
+    pipe = gan_pipeline(TA)
+    p = pipe.generate_parameters(gc, AUG_XCHECK)
+    w = torch.rand(AUG_XCHECK, generator=gc)
+
+    def grad_of(fn, x, d):
+        xr = x.to(d).clone().requires_grad_()
+        (fn(xr, d) * w.to(d)).sum().backward()
+        return xr.grad
+
+    x_in = xc
+    for i, (op, q) in enumerate(zip(pipe.augs, p)):
+        name = f"(f) op {i} {type(op).__name__} gradient"
+        rows[name] = card_vs_cpu(
+            f"augmentation {name}",
+            *[grad_of(lambda a, d: op(a, params=carried(q, d)), x_in, d)
+              for d in (dev, "cpu")], "grad")
+        x_in = op(x_in, params=q)
+    g_card, g_cpu = [grad_of(lambda a, d: pipe(a, params=carried(p, d)), xc, d)
+                     for d in (dev, "cpu")]
+    scale = float(g_cpu.abs().max())
+    compare("(f) gradient end to end, of the largest", g_card.cpu() / scale,
+            g_cpu / scale, AUG_CHAIN_GRAD_RTOL)
+    bad = [n for n, r in rows.items() if not r["ok"]]
+    for n, r in rows.items():
+        if not r["ok"] or r["limit"] != "0.0" or not r["bitwise"]:
+            print(f"augmentation xcheck {n}: max diff {r['max_diff']:.3e} "
+                  f"(limit {r['limit']}, bitwise {r['bitwise']})"
+                  f"{'' if r['ok'] else '  FAILS'}")
+    print(f"augmentation xcheck: {len(rows)} classes and paths card vs CPU, "
+          f"{sum(r['bitwise'] for r in rows.values())} bit for bit")
+    if bad:
+        fail(f"augmentation: card and CPU disagree beyond the limits on "
+             f"{bad}")
+    return rows
+
+
+def augmentation_phase(K, dev) -> dict:
+    """Step 16: the augmentation layer (see the module's docstring)."""
+    t_phase = time.perf_counter()
+    parts, res = {}, {}
+    for name, fn in (("simclr", aug_simclr), ("detection", aug_detection),
+                     ("auto", aug_auto), ("video", aug_video),
+                     ("volumes", aug_volumes), ("gan", aug_gan),
+                     ("mix", aug_mix), ("dissolve", aug_dissolve),
+                     ("xcheck", aug_xcheck)):
+        t0 = time.perf_counter()
+        res[name] = fn(dev)
+        parts[name] = round(time.perf_counter() - t0, 1)
+    # the path: (b)'s forward and inverse, (d)'s clips and (f)'s
+    # differentiable step; every fused blur and band adjoint captured and
+    # held to its plain version on its ROUTES route
+    import kornia_tpu_torch.augmentation as TA
+    t_path = time.perf_counter()
+    det_in = detection_inputs(dev)
+    det = detection_pipeline(TA)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    clip = torch.rand(CLIP_SHAPE, device=dev, generator=g)
+    vs = TA.VideoSequential(TA.ColorJiggle(0.2, 0.3, 0.2, 0.05, p=1),
+                            TA.RandomAffine(10.0, p=1),
+                            TA.RandomBoxBlur((3, 3)),
+                            TA.RandomHorizontalFlip(), data_format="BCTHW")
+    x = torch.rand(GAN_SHAPE, device=dev, generator=g)
+    pipe = gan_pipeline(TA)
+    p_det = det.generate_parameters(g, DET_SHAPE)
+    p_vs = vs._clip_params(g, CLIP_SHAPE[0], CLIP_SHAPE[2],
+                           (3,) + CLIP_SHAPE[-2:])
+    p_gan = pipe.generate_parameters(g, GAN_SHAPE)
+
+    def path():
+        det.inverse(*det(*det_in, params=p_det))
+        vs(clip, params=p_vs)
+        xr = x.clone().requires_grad_()
+        pipe(xr, params=p_gan).square().sum().backward()
+
+    names = ("fused_separable_blur2d", "fused_separable_blur2d_adjoint")
+    launches = counted_run(K, path, "augmentation", names)
+    _, _, kern = device_profile(path, names)
+    calls = capture_launches(K, path, names)
+    per_path = path_kernel_times(K, kern, calls, launches, "augmentation")
+    checks = check_captured(K, calls, "augmentation")
+    results, counts = path_entries(K, calls, checks, launches,
+                                   "augmentation")
+    report(results)
+    parts["path"] = round(time.perf_counter() - t_path, 1)
+    out = dict(res, launches=launches, per_path=per_path, checks=checks,
+               parts=parts, seconds=time.perf_counter() - t_phase)
+    print(f"augmentation phase: {out['seconds']:.1f} s, parts {parts}")
+    print(json.dumps({"augmentation": out}))
+    return dict(kernels=results, counts=counts, **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -5423,10 +6170,12 @@ def main() -> int:
         image_ops = image_ops_phase(K, dev)
     with f32_precision():
         registration_eval = registration_eval_phase(K, dev)
+    with f32_precision():
+        augmentation = augmentation_phase(K, dev)
     # each kernel's launches are those of the path that runs it
     entries = [(name, r, ph["counts"]) for ph in (
         path, *phases.values(), planar, vo, learned, keynet_stereo,
-        tracking_io, image_ops, registration_eval)
+        tracking_io, image_ops, registration_eval, augmentation)
         for name, r in ph["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
@@ -5505,7 +6254,12 @@ def main() -> int:
                           / registration_eval["registration"]["error0"],
                       "msssim_step_ms": registration_eval["msssim"]["step_ms"],
                       "registration_eval_seconds":
-                          registration_eval["seconds"]}))
+                          registration_eval["seconds"],
+                      "augmentation_simclr_ms":
+                          augmentation["simclr"]["ms"],
+                      "augmentation_img_per_s":
+                          augmentation["simclr"]["per_s"],
+                      "augmentation_seconds": augmentation["seconds"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 __all__ = ["compute_dtype", "as_float", "float32_on", "solve_dtype",
-           "bf16_storage", "true_div"]
+           "bf16_storage", "true_div", "host_tensor"]
 
 #: dtype used for general image compute
 compute_dtype = torch.float32
@@ -39,6 +39,19 @@ def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     tensor (filled on the device, so no host copy) instead."""
     x = as_float(x)
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def host_tensor(values, device, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
+    """Host numbers (nested tuples or a numpy array) as a new tensor on
+    `device`. To a card they go through pinned memory by an asynchronous
+    copy: a copy from pageable memory would wait for the card to drain.
+    Not for use while a CUDA graph is captured: the graph would keep the
+    pinned buffer's address, which is reused once the copy is done."""
+    t = torch.tensor(np.asarray(values), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def solve_dtype() -> torch.dtype:

@@ -7,9 +7,25 @@ from typing import Optional
 
 import torch
 
-__all__ = ["create_meshgrid", "create_meshgrid3d",
+from .dtype import true_div
+
+__all__ = ["linspace", "create_meshgrid", "create_meshgrid3d",
            "normalize_pixel_coordinates", "denormalize_pixel_coordinates",
            "normalize_pixel_coordinates3d", "denormalize_pixel_coordinates3d"]
+
+
+def linspace(start: float, stop: float, num: int,
+             device: Optional[torch.device] = None) -> torch.Tensor:
+    """float32 ``jnp.linspace``: with s = i / (num - 1), start · (1 - s) +
+    stop · s, the last point exactly `stop`: rounded as the JAX package
+    rounds it (torch.linspace counts the upper half down from `stop`), for
+    the ops that floor it."""
+    if num == 1:
+        return torch.full((1,), float(start), device=device)
+    s = true_div(torch.arange(num - 1, dtype=torch.float32, device=device),
+                 num - 1)
+    out = float(start) * (1.0 - s) + float(stop) * s
+    return torch.cat([out, torch.full((1,), float(stop), device=device)])
 
 
 def create_meshgrid(height: int, width: int,

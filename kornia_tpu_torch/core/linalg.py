@@ -99,11 +99,13 @@ def _equilibrate(A: torch.Tensor, b: torch.Tensor):
 def solve_refined(A: torch.Tensor, b: torch.Tensor,
                   iters: int = 1) -> torch.Tensor:
     """f32 solve with row equilibration and `iters` steps of iterative
-    refinement. b: (..., n, k)."""
+    refinement. b: (..., n, k). A singular system is not checked (no
+    host read): its solution is not finite, as the reference's is."""
     As, bs = _equilibrate(A, b)
-    x = torch.linalg.solve(As, bs)
+    x = torch.linalg.solve_ex(As, bs, check_errors=False)[0]
     for _ in range(iters):
-        x = x + torch.linalg.solve(As, bs - As @ x)
+        x = x + torch.linalg.solve_ex(As, bs - As @ x,
+                                      check_errors=False)[0]
     return x
 
 

@@ -56,9 +56,9 @@ def rgb_to_grayscale(image: torch.Tensor,
     the ITU-R 601 weights (0.299, 0.587, 0.114) unless `rgb_weights`."""
     image = as_float(image)
     r, g, b = _split3(image)
-    w = torch.as_tensor([0.299, 0.587, 0.114] if rgb_weights is None
-                        else rgb_weights, dtype=image.dtype,
-                        device=image.device)
+    if rgb_weights is None:  # Python numbers: no copy to the device
+        return 0.299 * r + 0.587 * g + 0.114 * b
+    w = torch.as_tensor(rgb_weights, dtype=image.dtype, device=image.device)
     return w[0] * r + w[1] * g + w[2] * b
 
 
@@ -194,10 +194,10 @@ _SEPIA = [[0.393, 0.769, 0.189], [0.349, 0.686, 0.168],
 
 def _mat3_mix(image: torch.Tensor, m) -> torch.Tensor:
     """Each output channel as the reference sums it: m[i,0]·a + m[i,1]·b +
-    m[i,2]·c, elementwise (no matrix product, so no TF32)."""
-    m = torch.tensor(m, dtype=image.dtype, device=image.device)
+    m[i,2]·c, elementwise (no matrix product, so no TF32), the weights as
+    Python numbers (no copy to the device)."""
     a, b, c = _split3(image)
-    return torch.cat([m[i, 0] * a + m[i, 1] * b + m[i, 2] * c
+    return torch.cat([m[i][0] * a + m[i][1] * b + m[i][2] * c
                       for i in range(3)], dim=-3)
 
 

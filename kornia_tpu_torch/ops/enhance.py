@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.check import check
-from ..core.dtype import as_float, true_div
+from ..core.dtype import as_float, host_tensor, true_div
 from ..core.linalg import f32_matmul_precision
 
 __all__ = [
@@ -61,7 +61,11 @@ _TWO_PI = 2.0 * math.pi
 
 
 def _bcast_factor(factor, image: torch.Tensor) -> torch.Tensor:
-    """A scalar factor, or one per batch item shaped to broadcast."""
+    """A scalar factor, or one per batch item shaped to broadcast; a
+    Python number is filled on the device (no host copy)."""
+    if isinstance(factor, (int, float)):
+        return torch.full((), float(factor), dtype=image.dtype,
+                          device=image.device)
     f = torch.as_tensor(factor, dtype=image.dtype, device=image.device)
     if f.ndim == 0:
         return f
@@ -207,9 +211,8 @@ def sharpness(image: torch.Tensor, factor) -> torch.Tensor:
     from .filters import filter2d
     image = as_float(image)
     factor = _bcast_factor(factor, image)
-    kern = torch.tensor([[[1.0, 1.0, 1.0], [1.0, 5.0, 1.0],
-                          [1.0, 1.0, 1.0]]], dtype=image.dtype,
-                        device=image.device) / 13.0
+    kern = host_tensor((((1.0, 1.0, 1.0), (1.0, 5.0, 1.0), (1.0, 1.0, 1.0)),),
+                       image.device, image.dtype) / 13.0
     smooth = filter2d(image, kern, border_type="constant").clamp(0.0, 1.0)
     mask = torch.zeros(image.shape[-2:], dtype=image.dtype,
                        device=image.device)

@@ -118,6 +118,8 @@ def get_gaussian_kernel1d(kernel_size: int, sigma, force_even: bool = False,
     """(1, K) normalized Gaussian (one row per sigma). `force_even` is
     accepted and, as in the reference, changes nothing: K is used as
     given."""
+    if isinstance(sigma, (int, float)):  # a fill, not a host copy
+        sigma = torch.full((1, 1), float(sigma), dtype=dtype, device=device)
     sigma = torch.as_tensor(sigma, dtype=dtype, device=device).reshape(-1, 1)
     x = torch.arange(kernel_size, dtype=dtype, device=sigma.device) \
         - (kernel_size - 1) / 2
@@ -381,6 +383,8 @@ def get_gaussian_erf_kernel1d(kernel_size: int, sigma,
                               dtype: torch.dtype = torch.float32,
                               device: Device = "cuda") -> torch.Tensor:
     """(num_sigmas, K) Gaussian integrated over each pixel's bin (erf)."""
+    if isinstance(sigma, (int, float)):  # a fill, not a host copy
+        sigma = torch.full((1, 1), float(sigma), dtype=dtype, device=device)
     sigma = torch.as_tensor(sigma, dtype=dtype, device=device).reshape(-1, 1)
     x = torch.arange(kernel_size, dtype=dtype, device=sigma.device) \
         - (kernel_size - 1) / 2

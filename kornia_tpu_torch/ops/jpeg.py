@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.dtype import as_float
+from ..core.dtype import as_float, host_tensor
 from ..core.linalg import f32_matmul_precision
 
 __all__ = ["jpeg_codec_differentiable"]
@@ -135,9 +135,9 @@ def jpeg_codec_differentiable(image_rgb: torch.Tensor,
     H, W = H0 + h_pad, W0 + w_pad
     dev = x.device
     q = torch.as_tensor(jpeg_quality, device=dev).to(x.dtype).expand(B)
-    dct = torch.from_numpy(_DCT).to(dev)
-    qt_y = _scaled_qtable(torch.from_numpy(_QT_Y).to(dev), q)[:, None]
-    qt_c = _scaled_qtable(torch.from_numpy(_QT_C).to(dev), q)[:, None]
+    dct = host_tensor(_DCT, dev)
+    qt_y = _scaled_qtable(host_tensor(_QT_Y, dev), q)[:, None]
+    qt_c = _scaled_qtable(host_tensor(_QT_C, dev), q)[:, None]
 
     ycbcr = rgb_to_ycbcr(x) * 255.0
     cb_s = _down2_antialias(ycbcr[:, 1])

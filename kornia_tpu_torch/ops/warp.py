@@ -20,7 +20,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..core.check import check, check_shape
-from ..core.dtype import as_float, true_div
+from ..core.dtype import as_float, host_tensor, true_div
 from ..core.grid import create_meshgrid
 from ..core.linalg import f32_matmul_precision, inverse_3x3, solve_refined
 
@@ -197,10 +197,9 @@ def normal_transform_pixel(height: int, width: int,
                            dtype: torch.dtype = torch.float32,
                            device=None) -> torch.Tensor:
     """(1, 3, 3): pixel coordinates → [-1, 1]."""
-    return torch.tensor(
-        [[2.0 / max(width - 1, 1), 0.0, -1.0],
-         [0.0, 2.0 / max(height - 1, 1), -1.0],
-         [0.0, 0.0, 1.0]], dtype=dtype, device=device)[None]
+    return host_tensor(((2.0 / max(width - 1, 1), 0.0, -1.0),
+                        (0.0, 2.0 / max(height - 1, 1), -1.0),
+                        (0.0, 0.0, 1.0)), device or "cpu", dtype)[None]
 
 
 def normalize_homography(H_pix: torch.Tensor, dsize_src: Tuple[int, int],
@@ -272,9 +271,8 @@ def warp_perspective(image: torch.Tensor, M: torch.Tensor,
 
 def _affine_to_homography(A: torch.Tensor) -> torch.Tensor:
     """(B, 2, 3) → (B, 3, 3)."""
-    bottom = torch.tensor([[[0.0, 0.0, 1.0]]], dtype=A.dtype,
-                          device=A.device).expand(A.shape[0], 1, 3)
-    return torch.cat([A, bottom], dim=1)
+    bottom = host_tensor(((0.0, 0.0, 1.0),), A.device, A.dtype)
+    return torch.cat([A, bottom.expand(A.shape[0], 1, 3)], dim=1)
 
 
 def warp_affine(image: torch.Tensor, M: torch.Tensor, dsize: Tuple[int, int],
@@ -680,8 +678,8 @@ def affine(image: torch.Tensor, M: torch.Tensor, mode: str = "bilinear",
 
 def _center_of(image: torch.Tensor) -> torch.Tensor:
     H, W = image.shape[-2:]
-    return torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], dtype=torch.float32,
-                        device=image.device).expand(image.shape[0], 2)
+    return host_tensor(((W - 1) / 2.0, (H - 1) / 2.0),
+                       image.device).expand(image.shape[0], 2)
 
 
 def rotate(image: torch.Tensor, angle: torch.Tensor,

@@ -1422,3 +1422,150 @@ def test_cuda_registration_graph_replays_the_eager_steps(cuda_device):
         assert torch.equal(a, b)
     cpu, _ = reg.run_level(p0, src, dst)
     torch.testing.assert_close(outs[0][0].cpu(), cpu, atol=1e-4, rtol=0)
+
+
+# --- the augmentation layer (the slice of step 16) ----------------------------
+
+def _spy_blurs(fn):
+    """fn() with every call of the fused blur and its band adjoint
+    recorded: {name: [args, ...]} and the route counters' moves."""
+    calls = {"fused_separable_blur2d": [],
+             "fused_separable_blur2d_adjoint": []}
+    saved = {n: getattr(K, n) for n in calls}
+
+    def spy(name):
+        def call(*args):
+            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args))
+            return saved[name](*args)
+        return call
+
+    before = dict(K.launches)
+    try:
+        for n in calls:
+            setattr(K, n, spy(n))
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for n, f in saved.items():
+            setattr(K, n, f)
+    moved = {k: v - before.get(k, 0) for k, v in K.launches.items()
+             if v != before.get(k, 0)}
+    return calls, moved
+
+
+def _held_to_plain(name, args):
+    kern = getattr(K, name)
+    plain = getattr(K, name + "_plain")
+    torch.testing.assert_close(kern(*args), plain(*args), atol=ATOL, rtol=0)
+
+
+def test_cuda_box_blur_augmentation_is_the_fused_kernel(cuda_device):
+    """RandomBoxBlur((5, 5)) at step 16 (b)'s 512x512: one tiled launch of
+    the fused blur over every plane, equal to its plain version."""
+    import kornia_tpu_torch.augmentation as TA
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.rand((4, 3, 512, 512), device=cuda_device, generator=gen)
+    aug = TA.RandomBoxBlur((5, 5), p=1.0)
+    calls, moved = _spy_blurs(lambda: aug(x, gen))
+    (args,) = calls["fused_separable_blur2d"]
+    assert moved.get("fused_separable_blur2d:tiled") == 1
+    assert args[1].numel() == args[2].numel() == 5 and args[3] == "reflect"
+    _held_to_plain("fused_separable_blur2d", args)
+
+
+def test_cuda_elastic_augmentation_blur_is_the_fused_kernel(cuda_device):
+    """RandomElasticTransform's 63-tap smoothing of (B, 2, 512, 512)
+    noise: one tiled launch (constant border), equal to its plain
+    version, and the warp equal to the CPU port's on the same params."""
+    import kornia_tpu_torch.augmentation as TA
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.rand((2, 3, 512, 512), device=cuda_device, generator=gen)
+    aug = TA.RandomElasticTransform(p=1.0)
+    params = aug.generate_parameters(gen, x.shape)
+    calls, moved = _spy_blurs(lambda: aug(x, params=params))
+    (args,) = calls["fused_separable_blur2d"]
+    assert moved.get("fused_separable_blur2d:tiled") == 1
+    assert args[0].shape == (2, 2, 512, 512) and args[3] == "constant"
+    assert args[1].numel() == 63
+    _held_to_plain("fused_separable_blur2d", args)
+
+
+def test_cuda_augmentation_backward_launches_the_band_adjoint(cuda_device):
+    """Step 16 (f)'s differentiable pipeline: the backward of the box blur
+    and of JPEG's chroma blur are tiled band adjoints, each equal to its
+    plain version, and each op's image gradient is the CPU port's on the
+    same input (1e-4 of the largest; through the whole chain a warp's ulps
+    can move a later clamp or JPEG rounding, which the per-op comparison
+    leaves out)."""
+    import kornia_tpu_torch.augmentation as TA
+    gen = torch.Generator().manual_seed(8)
+    # 8 images: JPEG's one-plane chroma adjoints fill the card (2 blocks
+    # an SM), so every adjoint takes the tiled route
+    x = torch.rand((8, 3, 256, 256), generator=gen)
+    pipe = TA.ImageSequential(TA.RandomBoxBlur((5, 5)), TA.ColorJiggle(p=1.0),
+                              TA.RandomAffine(10.0, p=1.0),
+                              TA.RandomJPEG((50.0, 90.0), p=1.0))
+    params = pipe.generate_parameters(gen, x.shape)
+    grads = []
+
+    def step(d):
+        xr = x.to(d).clone().requires_grad_()
+        p = [{k: v.to(d) for k, v in q.items()} for q in params]
+        pipe(xr, params=p).square().sum().backward()
+        grads.append(xr.grad)
+
+    calls, moved = _spy_blurs(lambda: step(cuda_device))
+    adj = calls["fused_separable_blur2d_adjoint"]
+    assert len(adj) == 3  # the box blur's, and JPEG's for Cb and Cr
+    assert moved.get("fused_separable_blur2d_adjoint:tiled") == 3
+    for args in adj:
+        _held_to_plain("fused_separable_blur2d_adjoint", args)
+    w = torch.rand(x.shape, generator=gen)
+    x_in = x
+    for op, q in zip(pipe.augs, params):
+        g = []
+        for d in (cuda_device, "cpu"):
+            xr = x_in.to(d).clone().requires_grad_()
+            out = op(xr, params={k: v.to(d) for k, v in q.items()})
+            (out * w.to(d)).sum().backward()
+            g.append(xr.grad.cpu())
+        assert (g[0] - g[1]).abs().max() <= 1e-4 * g[1].abs().max(), op
+        x_in = op(x_in, params=q)
+
+
+def test_cuda_augmentation_forward_makes_no_host_sync(cuda_device):
+    """Step 16 (a) and (b): after one warm-up call, a forward of the
+    SimCLR view and of the detection pipeline, sampling included, makes
+    no synchronising CUDA call."""
+    import kornia_tpu_torch.augmentation as TA
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.rand((4, 3, 128, 128), device=cuda_device, generator=gen)
+    view = TA.ImageSequential(
+        TA.RandomResizedCrop((112, 112)), TA.RandomHorizontalFlip(),
+        TA.ColorJiggle(0.8, 0.8, 0.8, 0.2, p=0.8), TA.RandomGrayscale(p=0.2),
+        TA.RandomGaussianBlur((23, 23), (0.1, 2.0), p=0.5),
+        TA.RandomSolarize(p=0.2),
+        TA.Normalize([0.485, 0.456, 0.406], [0.229, 0.224, 0.225]))
+    det = TA.AugmentationSequential(
+        TA.RandomHorizontalFlip(), TA.RandomAffine(15.0, (0.1, 0.1),
+                                                   (0.8, 1.2), 5.0),
+        TA.RandomPerspective(0.3), TA.RandomElasticTransform(p=0.5),
+        TA.RandomBoxBlur((5, 5)), TA.RandomJPEG((50.0, 90.0)),
+        data_keys=["input", "mask", "bbox_xyxy", "keypoints"])
+    mask = (x[:, :1] > 0.5).float()
+    boxes = torch.rand((4, 3, 4), device=cuda_device, generator=gen) * 100
+    kp = torch.rand((4, 5, 2), device=cuda_device, generator=gen) * 127
+
+    def run():
+        view(x, gen)
+        det(x, mask, boxes, kp, generator=gen)
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -83,7 +83,7 @@ def test_the_twins_are_found():
     """The walk reaches every ported module with a twin, this slice's
     included."""
     ids = {p.id for p in _twins()}
-    assert len(ids) >= 640
+    assert len(ids) >= 755
     for name in ("ops.warp.resize", "ops.filters.spatial_gradient",
                  "feature.detector.ScaleSpaceDetector",
                  "geometry.ransac.ransac", "geometry.ransac.RANSAC",
@@ -144,5 +144,24 @@ def test_the_twins_are_found():
                  "metrics.metrics.confusion_matrix",
                  "contrib.ops.KMeans", "contrib.ops.kmeans",
                  "contrib.ops.distance_transform",
-                 "contrib.BoxMotTracker"):
+                 "contrib.BoxMotTracker",
+                 "augmentation.base.AugmentationBase2D",
+                 "augmentation.intensity.RandomPlanckianJitter",
+                 "augmentation.intensity.RandomDissolving",
+                 "augmentation.geometric.RandomElasticTransform",
+                 "augmentation.geometric.PadTo",
+                 "augmentation.container.AugmentationSequential",
+                 "augmentation.container.ManyToOneAugmentationDispather",
+                 "augmentation.mix.RandomTransplantation3D",
+                 "augmentation.volumetric.RandomPerspective3D",
+                 "augmentation.video.VideoSequential",
+                 "augmentation.video.PatchSequential",
+                 "augmentation.video.PatchParamItem",
+                 "augmentation.auto.AutoAugment",
+                 "augmentation.auto.Operation",
+                 "augmentation.presets.AdaptiveDiscriminatorAugmentation",
+                 "models.common.nchw_to_nhwc",
+                 "models.diffusion.StableDiffusionDissolving",
+                 "models.diffusion.UNet2dCondition",
+                 "models.diffusion.DDIMSchedule"):
         assert name in ids

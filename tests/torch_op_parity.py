@@ -26,6 +26,10 @@ SEED = 0
 # reference computes it
 EXACT_OPTIONS = {"xla_disable_hlo_passes":
                  "algsimp,fusion,cpu-instruction-fusion"}
+# LLVM's backend optimisation off: a fifth less compile time for the large
+# one-shot reference programs of the augmentation tests, whose tolerances
+# do not depend on how the machine code is scheduled
+FAST_OPTIONS = {"xla_backend_optimization_level": 0}
 
 
 def rand(*shape, lo=0.0, hi=1.0, seed=SEED):
@@ -117,26 +121,29 @@ def batch_references(cases: Dict[str, Case], jax_mod) -> Dict[str, Any]:
 _EXACT_PROGRAMS = {}
 
 
-def exact_jit(fn, *args, exact: bool = True):
+def exact_jit(fn, *args, exact: bool = True, options=None):
     """fn(*args) through one jitted program, compiled with EXACT_OPTIONS
     (unless `exact` is False), so that each op rounds as it does eagerly:
     one compile in the place of one an eager op. Array arguments are
     traced; fix the others in `fn`. The program is kept per code object,
     closure values, options and argument shapes, so a parametrised test
-    that calls the same function on other values compiles once."""
+    that calls the same function on other values compiles once. `options`:
+    more compiler options (FAST_OPTIONS)."""
     import jax
     args = tuple(jnp.asarray(a) for a in args)
     try:
         key = (fn.__code__, tuple(c.cell_contents for c in
                                   fn.__closure__ or ()),
-               tuple((a.shape, str(a.dtype)) for a in args), exact)
+               tuple((a.shape, str(a.dtype)) for a in args), exact,
+               tuple(sorted((options or {}).items())))
         hash(key)
     except (AttributeError, TypeError):
         key = None
     program = _EXACT_PROGRAMS.get(key) if key is not None else None
     if program is None:
         program = jax.jit(fn).lower(*args).compile(
-            compiler_options=EXACT_OPTIONS if exact else {})
+            compiler_options=dict(EXACT_OPTIONS if exact else {},
+                                  **(options or {})))
         if key is not None:
             _EXACT_PROGRAMS[key] = program
     return program(*args)
