@@ -237,10 +237,32 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    AUG_CHAIN_GRAD_RTOL set out beside them. Every fused blur and band
    adjoint of (b)'s forward and inverse, (d)'s clips and (f)'s step
    captured and held against its plain version on its ROUTES route. It
-   prints one JSON line of its own.
+   prints one JSON line of its own;
+17. descriptors_matchers: the patch descriptors and matchers on bench.py's
+   480x640 pair, each timed on the host clock around synchronised calls
+   (median of 5) with stages, the device's busy share, kernels a call and
+   peak memory. (a) ``SIFTFeature(num_features=1024)``'s LAFs; at them,
+   ``get_laf_descriptors`` (32² patches) with HardNet8, TFeat, SOSNet,
+   HyNet (published widths, seeded weights), MKDDescriptor without
+   whitening and with 'pcawt' on a seeded whitening model, and
+   SIFTDescriptor(32), each followed by ``match_smnn`` and the AdaLAM and
+   FGINN ``GeometryAwareDescriptorMatcher``; LAFAffineShapeEstimator(32) on
+   the LAFs and DenseSIFTDescriptor on both frames. (b) DISK (n = 2048,
+   window 5) on the pair as RGB, then ``LightGlue(LightGlueConfig("disk"))``
+   (9 layers, 256 wide, 4 heads) directly and through LightGlueMatcher.
+   (c) ``LightGlue("doghardnet")`` on (a)'s HardNet8 descriptors with the
+   LAFs' scales and orientations. Then the card against the CPU port on
+   the same inputs: descriptors of the same patches within 1e-4, SMNN's
+   matches 99% equal, AdaLAM's keep mask equal on the CPU's inputs to it,
+   DISK's heatmap within 1e-4 of max(1, its largest) and its valid
+   keypoints equal but at near ties (the top-n cut or the NMS window),
+   LightGlue's log assignment within 1e-3 of its largest and its matches
+   99% equal. Every patch_sample, fused blur and multi-level blur of (a)'s
+   detection and description captured and held against its plain version
+   on its ROUTES route. It prints one JSON line of its own.
 
 Each of steps 2, 4, 5, 6, 8, 9, 10 (its paths (a) and (b)), 11 (each of
-its paths), 13 (c), 14, 15 and 16 resets the launch counters just before it
+its paths), 13 (c), 14, 15, 16 and 17 resets the launch counters just before it
 drives its path and reads them just after; every kernel must have launched on its path. Every failure exits non-zero.
 The last lines are one JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
@@ -357,6 +379,9 @@ for _hw in [(678, 905), (565, 754), (480, 640), (400, 533), (339, 452),
 # large tile (csrc/banded_blur.cu::tiled_blur_fits): tiled at every shape.
 for _hw in [(256, 256), (128, 128), (64, 64), (1080, 1920)]:
     ROUTES[("fused_separable_blur2d", *_hw)] = "tiled"
+# step 17, the fused blur: MKD's 5x5 replicate blur of 1,024 32² patches
+# an image (N = 1024 in one launch): tiled
+ROUTES[("fused_separable_blur2d", 32, 32)] = "tiled"
 # ... and the band adjoint of JPEG's chroma blur (k = 3, reflect) in the
 # codec's backward, on 32 planes of 256x256: tiled
 ROUTES[("fused_separable_blur2d_adjoint", 256, 256)] = "tiled"
@@ -6123,6 +6148,388 @@ def augmentation_phase(K, dev) -> dict:
     return dict(kernels=results, counts=counts, **out)
 
 
+# --- step 17: patch descriptors and matchers ---------------------------------
+
+DM_NF = 1024             # SIFTFeature's LAFs an image
+DM_REPS = 5              # host-clock calls a stage, median
+DISK_N = 2048            # DISK keypoints an image
+DM_DESC_ATOL = 1e-4      # card vs CPU: descriptors of the same patches
+DM_AGREE = 0.99          # ... share of equal SMNN and LightGlue matches
+DISK_HEAT_RTOL = 1e-4    # ... DISK's heatmap, of max(1, its largest |entry|)
+LG_ASSIGN_RTOL = 1e-3    # ... LightGlue's log assignment, of its largest
+DM_KERNELS = ("patch_sample", "fused_separable_blur2d", "multi_level_blur")
+
+
+def dm_nets(device):
+    """(a)'s patch descriptors at their published widths on `device`
+    (seeded weights; the default seeds draw the same weights on every
+    device), and MKD's seeded whitening model."""
+    from kornia_tpu_torch.feature import descriptors as D
+    from kornia_tpu_torch.feature.extras import HardNet8
+    from kornia_tpu_torch.feature.mkd import MKDDescriptor
+    from kornia_tpu_torch.feature.siftdesc import SIFTDescriptor
+    rng = np.random.default_rng(SEED + 17)
+    q, _ = np.linalg.qr(rng.normal(size=(238, 238)))
+    pca = {"mean": rng.normal(0, 0.01, 238).astype(np.float32),
+           "eigvecs": q.astype(np.float32),
+           "eigvals": np.sort(rng.uniform(0.1, 2.0, 238))[::-1].astype(
+               np.float32).copy()}
+    return {"HardNet8": HardNet8(device=device),
+            "TFeat": D.TFeat(device=device), "SOSNet": D.SOSNet(device=device),
+            "HyNet": D.HyNet(device=device),
+            "MKD": MKDDescriptor(whitening=None),
+            "MKD_pcawt": MKDDescriptor(whitening="pcawt",
+                                       whitening_model={"pca": pca}),
+            "SIFT32": SIFTDescriptor(32)}
+
+
+def dm_inputs(dev):
+    """bench.py's 480x640 pair and SIFTFeature(1024)'s LAFs on it."""
+    from kornia_tpu_torch.feature.integrated import SIFTFeature
+    img0, img1, _ = bench_input(H, W, dev)
+    sift = SIFTFeature(num_features=DM_NF)
+    (l0, _, _, v0), (l1, _, _, v1) = sift(img0), sift(img1)
+    return sift, (img0, img1), (l0, l1), (v0, v1)
+
+
+def _stage_ms(fns: dict) -> dict:
+    return {k: median_ms(f, DM_REPS)[0] for k, f in fns.items()}
+
+
+def dm_describe(dev, imgs, lafs, valid) -> dict:
+    """(a) every descriptor at the LAFs of both images, then SMNN and the
+    AdaLAM and FGINN matchers; LAFAffineShapeEstimator and dense SIFT."""
+    from kornia_tpu_torch.feature import matching as M
+    from kornia_tpu_torch.feature.descriptors import LAFAffineShapeEstimator
+    from kornia_tpu_torch.feature.extras import (
+        GeometryAwareDescriptorMatcher, get_laf_descriptors)
+    from kornia_tpu_torch.feature.siftdesc import DenseSIFTDescriptor
+    out, descs = {}, {}
+    adalam = GeometryAwareDescriptorMatcher("adalam")
+    fginn = GeometryAwareDescriptorMatcher("fginn")
+    for name, net in dm_nets(dev).items():
+        def describe(net=net):
+            return [get_laf_descriptors(i, l_, net, 32)
+                    for i, l_ in zip(imgs, lafs)]
+        d0, d1 = describe()
+        descs[name] = (d0, d1)
+        stages = _stage_ms({
+            "describe x2": describe,
+            "smnn": lambda: M.match_smnn(d0[0], d1[0], 0.95, valid[0][0],
+                                         valid[1][0]),
+            "adalam": lambda: adalam(d0[0], d1[0], *lafs),
+            "fginn": lambda: fginn(d0[0], d1[0], *lafs)})
+
+        def pair(net=net):
+            a, b = describe(net)
+            M.match_smnn(a[0], b[0], 0.95, valid[0][0], valid[1][0])
+            adalam(a[0], b[0], *lafs)
+            fginn(a[0], b[0], *lafs)
+
+        pair_ms = median_ms(pair, DM_REPS)[0]
+        busy, n_k, _ = device_profile(pair)
+        m = M.match_smnn(d0[0], d1[0], 0.95, valid[0][0], valid[1][0])
+        ia = adalam(d0[0], d1[0], *lafs)[1]
+        out[name] = dict(
+            pair_ms=pair_ms, stage_ms=stages, busy_ms=busy,
+            busy_share=busy / pair_ms, kernels=n_k,
+            peak_bytes=peak_bytes(pair), dim=int(d0.shape[-1]),
+            smnn_matches=int(m[2].sum()),
+            adalam_matches=int((ia[:, 0] >= 0).sum()))
+        print(f"descriptors (a) {name}: {pair_ms:.2f} ms a pair, stages "
+              f"{ {k: round(v, 3) for k, v in stages.items()} }, busy "
+              f"{busy / pair_ms:.3f}, {n_k} kernels, SMNN "
+              f"{out[name]['smnn_matches']}, AdaLAM "
+              f"{out[name]['adalam_matches']} matches")
+    est = LAFAffineShapeEstimator(32)
+    est_ms = median_ms(lambda: est(lafs[0], imgs[0]), DM_REPS)[0]
+    dense = DenseSIFTDescriptor()
+    both = torch.cat(imgs)
+    dense_ms = median_ms(lambda: dense(both), DM_REPS)[0]
+    out["LAFAffineShapeEstimator"] = dict(ms=est_ms)
+    out["DenseSIFT"] = dict(ms=dense_ms, peak_bytes=peak_bytes(
+        lambda: dense(both)))
+    print(f"descriptors (a) LAFAffineShapeEstimator(32) on {DM_NF} LAFs "
+          f"{est_ms:.2f} ms; DenseSIFTDescriptor on 2x480x640 "
+          f"{dense_ms:.2f} ms, peak {out['DenseSIFT']['peak_bytes']} B")
+    return dict(rows=out, descs=descs)
+
+
+def dm_disk_lightglue(dev, imgs) -> dict:
+    """(b) DISK(n=2048, window 5) on the pair as RGB, then LightGlue("disk")
+    at its published widths directly and through LightGlueMatcher."""
+    from kornia_tpu_torch.feature.disk import DISK
+    from kornia_tpu_torch.feature.extras import LightGlueMatcher
+    from kornia_tpu_torch.feature.laf import laf_from_center_scale_ori
+    from kornia_tpu_torch.feature.lightglue import LightGlue, LightGlueConfig
+    rgb = torch.cat(imgs).expand(2, 3, H, W).contiguous()
+    disk = DISK(device=dev)
+    cfg = LightGlueConfig("disk")
+    lg = LightGlue(cfg, device=dev)
+    matcher = LightGlueMatcher("disk", params={"cfg": cfg}, device=dev)
+
+    def glue(f):
+        return lg({"image0": {"keypoints": f.keypoints[:1],
+                              "descriptors": f.descriptors[:1],
+                              "image_size": [float(W), float(H)]},
+                   "image1": {"keypoints": f.keypoints[1:],
+                              "descriptors": f.descriptors[1:],
+                              "image_size": [float(W), float(H)]}})
+
+    def lafs_of(f, i):
+        n = f.keypoints.shape[1]
+        return laf_from_center_scale_ori(
+            f.keypoints[i:i + 1], torch.ones((1, n, 1, 1), device=dev),
+            torch.zeros((1, n, 1), device=dev))
+
+    f = disk(rgb, DISK_N, 5)
+    stages = _stage_ms({
+        "disk x2": lambda: disk(rgb, DISK_N, 5),
+        "lightglue": lambda: glue(f),
+        "lightglue_matcher": lambda: matcher(
+            f.descriptors[0], f.descriptors[1], lafs_of(f, 0),
+            lafs_of(f, 1))})
+
+    def pair():
+        g = disk(rgb, DISK_N, 5)
+        return glue(g)
+
+    pair_ms = median_ms(pair, DM_REPS)[0]
+    busy, n_k, _ = device_profile(pair)
+    out = glue(f)
+    mm = matcher(f.descriptors[0], f.descriptors[1], lafs_of(f, 0),
+                 lafs_of(f, 1))
+    res = dict(pair_ms=pair_ms, stage_ms=stages, busy_ms=busy,
+               busy_share=busy / pair_ms, kernels=n_k,
+               peak_bytes=peak_bytes(pair),
+               keypoints=[int(v) for v in f.valid.sum(1)],
+               matches=int(out["valid"].sum()),
+               matcher_matches=int((mm[1][:, 0] >= 0).sum()))
+    print(f"descriptors (b) DISK + LightGlue('disk'): {pair_ms:.2f} ms a "
+          f"pair, stages { {k: round(v, 3) for k, v in stages.items()} }, "
+          f"busy {res['busy_share']:.3f}, {n_k} kernels, peak "
+          f"{res['peak_bytes']} B, keypoints {res['keypoints']}, matches "
+          f"{res['matches']} (LightGlueMatcher {res['matcher_matches']})")
+    return dict(res, disk=disk, lg=lg, rgb=rgb, f=f, out=out)
+
+
+def dm_doghardnet(dev, lafs, descs) -> dict:
+    """(c) LightGlue("doghardnet") on (a)'s HardNet8 descriptors, with the
+    LAFs' scales and orientations (radians), called directly as kornia's
+    DoG-HardNet recipe does."""
+    from kornia_tpu_torch.feature.laf import (get_laf_center,
+                                              get_laf_orientation,
+                                              get_laf_scale)
+    from kornia_tpu_torch.feature.lightglue import LightGlue, LightGlueConfig
+    lg = LightGlue(LightGlueConfig("doghardnet"), device=dev)
+
+    def data(lafs, descs):
+        return {f"image{i}": {
+            "keypoints": get_laf_center(l_), "descriptors": d,
+            "image_size": [float(W), float(H)],
+            "scales": get_laf_scale(l_)[..., 0, 0],
+            "oris": torch.deg2rad(get_laf_orientation(l_)[..., 0])}
+            for i, (l_, d) in enumerate(zip(lafs, descs))}
+
+    inp = data(lafs, descs)
+    ms = median_ms(lambda: lg(inp), DM_REPS)[0]
+    busy, n_k, _ = device_profile(lambda: lg(inp))
+    out = lg(inp)
+    res = dict(pair_ms=ms, busy_ms=busy, busy_share=busy / ms, kernels=n_k,
+               peak_bytes=peak_bytes(lambda: lg(inp)),
+               matches=int(out["valid"].sum()))
+    print(f"descriptors (c) LightGlue('doghardnet') on HardNet8: {ms:.2f} "
+          f"ms a pair, busy {res['busy_share']:.3f}, {n_k} kernels, "
+          f"{res['matches']} matches")
+    return dict(res, lg=lg, data=data, out=out)
+
+
+def _near_tie(heat: torch.Tensor, y: int, x: int, cut: float,
+              tol: float) -> bool:
+    """A DISK keypoint that one device keeps and the other drops: its score
+    within `tol` of the n-th score (the top-n cut) or of its 5x5 window's
+    largest other score (the NMS)."""
+    v = float(heat[y, x])
+    win = heat[max(y - 2, 0):y + 3, max(x - 2, 0):x + 3].flatten()
+    others = win[win != v]
+    return abs(v - cut) <= tol or (others.numel() > 0 and
+                                   abs(v - float(others.max())) <= tol)
+
+
+def dm_xcheck(dev, imgs, lafs, valid, a: dict, b: dict, c: dict) -> dict:
+    """The card against the CPU port on the same inputs: each descriptor of
+    the card's LAFs, SMNN's matches, AdaLAM's keep mask on the CPU's inputs
+    to it, DISK's heatmap and keypoints, LightGlue's log assignment and
+    matches (b and c, on the CPU's DISK features and (a)'s CPU HardNet8
+    descriptors)."""
+    from kornia_tpu_torch.feature import matching as M
+    from kornia_tpu_torch.feature.adalam import adalam_filter
+    from kornia_tpu_torch.feature.disk import DISK
+    from kornia_tpu_torch.feature.extras import get_laf_descriptors
+    from kornia_tpu_torch.feature.laf import get_laf_center
+    from kornia_tpu_torch.feature.lightglue import LightGlue
+    ci = [i.cpu() for i in imgs]
+    cl = [l_.cpu() for l_ in lafs]
+    cv = [v.cpu() for v in valid]
+    out, cpu_descs = {}, {}
+    for name, net in dm_nets("cpu").items():
+        cd = [get_laf_descriptors(i, l_, net, 32) for i, l_ in zip(ci, cl)]
+        cpu_descs[name] = cd
+        gd = a["descs"][name]
+        err = max(float((g.cpu() - c_).abs().max()) for g, c_ in zip(gd, cd))
+        mg = M.match_smnn(gd[0][0], gd[1][0], 0.95, valid[0][0], valid[1][0])
+        mc = M.match_smnn(cd[0][0], cd[1][0], 0.95, cv[0][0], cv[1][0])
+        either = mg[2].cpu() | mc[2]
+        agree = float(((mg[1].cpu() == mc[1]).all(-1) & (mg[2].cpu() == mc[2])
+                       )[either].float().mean()) if either.any() else 1.0
+        k0 = get_laf_center(cl[0])[0][mc[1][:, 0].clamp_min(0)]
+        k1 = get_laf_center(cl[1])[0][mc[1][:, 1].clamp_min(0)]
+        keep_c = adalam_filter(k0, k1, mc[2])
+        keep_g = adalam_filter(k0.to(dev), k1.to(dev), mc[2].to(dev))
+        adalam_equal = bool(torch.equal(keep_g.cpu(), keep_c))
+        out[name] = dict(desc_err=err, smnn_agree=agree,
+                         adalam_equal=adalam_equal,
+                         adalam_kept=int(keep_c.sum()))
+        print(f"descriptors xcheck {name}: descriptors {err:.2e} apart, SMNN "
+              f"matches equal {agree:.4f}, AdaLAM keep masks equal "
+              f"{adalam_equal} ({int(keep_c.sum())} kept)")
+        if not err <= DM_DESC_ATOL:
+            fail(f"descriptors xcheck {name}: descriptors {err} apart")
+        if not agree >= DM_AGREE:
+            fail(f"descriptors xcheck {name}: SMNN matches agree {agree}")
+        if not adalam_equal:
+            fail(f"descriptors xcheck {name}: AdaLAM keeps other matches")
+    # DISK
+    disk_c = DISK(device="cpu")
+    rgb_c = b["rgb"].cpu()
+    pad = (0, (-W) % 16, 0, (-H) % 16)
+    heat_g = b["disk"].heatmap_and_dense_descriptors(
+        torch.nn.functional.pad(b["rgb"], pad))[0][..., :H, :W].cpu()
+    heat_c = disk_c.heatmap_and_dense_descriptors(
+        torch.nn.functional.pad(rgb_c, pad))[0][..., :H, :W]
+    scale = max(1.0, float(heat_c.abs().max()))
+    heat_err = float((heat_g - heat_c).abs().max()) / scale
+    fc = disk_c(rgb_c, DISK_N, 5)
+    fg = b["f"]
+    tol = DISK_HEAT_RTOL * scale
+    untied = 0
+    for i in range(2):
+        sg = {tuple(p) for p in fg.keypoints[i][fg.valid[i]].cpu().long()
+              .tolist()}
+        sc = {tuple(p) for p in fc.keypoints[i][fc.valid[i]].long().tolist()}
+        cut = float(fc.detection_scores[i][fc.valid[i]].min()) \
+            if fc.valid[i].any() else 0.0
+        for x, y in sg ^ sc:
+            untied += not _near_tie(heat_c[i, 0], y, x, cut, tol)
+    print(f"descriptors xcheck DISK: heatmap {heat_err:.2e} of max(1, its "
+          f"largest), valid keypoints {fg.valid.sum().item()} card, "
+          f"{fc.valid.sum().item()} CPU, {untied} differing not at a near "
+          f"tie")
+    if not heat_err <= DISK_HEAT_RTOL:
+        fail(f"descriptors xcheck DISK: heatmaps {heat_err} apart")
+    if untied:
+        fail(f"descriptors xcheck DISK: {untied} keypoints differ away from "
+             f"a near tie")
+    out["DISK"] = dict(heat_err=heat_err, untied=untied)
+    # LightGlue on the CPU's inputs to it
+    lg_c = LightGlue(b["lg"].cfg, device="cpu")
+    dog_c = LightGlue(c["lg"].cfg, device="cpu")
+    f_in = {k: {kk: (vv.to(dev) if torch.is_tensor(vv) else vv)
+                for kk, vv in v.items()}
+            for k, v in {"image0": {"keypoints": fc.keypoints[:1],
+                                    "descriptors": fc.descriptors[:1],
+                                    "image_size": [float(W), float(H)]},
+                         "image1": {"keypoints": fc.keypoints[1:],
+                                    "descriptors": fc.descriptors[1:],
+                                    "image_size": [float(W), float(H)]}
+                         }.items()}
+    d_cpu = c["data"](cl, cpu_descs["HardNet8"])
+    d_card = {k: {kk: (vv.to(dev) if torch.is_tensor(vv) else vv)
+                  for kk, vv in v.items()} for k, v in d_cpu.items()}
+    for name, card_net, cpu_net, cin, gin in (
+            ("LightGlue disk", b["lg"], lg_c,
+             {k: {kk: (vv.cpu() if torch.is_tensor(vv) else vv)
+                  for kk, vv in v.items()} for k, v in f_in.items()}, f_in),
+            ("LightGlue doghardnet", c["lg"], dog_c, d_cpu, d_card)):
+        og, oc = card_net(gin), cpu_net(cin)
+        la_c = oc["log_assignment"]
+        rel = float((og["log_assignment"].cpu() - la_c).abs().max()
+                    / la_c.abs().max())
+        m_g, m_c = og["matches0"].cpu(), oc["matches0"]
+        either = (m_g >= 0) | (m_c >= 0)
+        agree = float((m_g == m_c)[either].float().mean()) \
+            if either.any() else 1.0
+        out[name] = dict(assign_rel=rel, match_agree=agree,
+                         matches=int((m_c >= 0).sum()))
+        print(f"descriptors xcheck {name}: log assignment {rel:.2e} of its "
+              f"largest, matches equal {agree:.4f} ({int((m_c >= 0).sum())} "
+              f"on the CPU)")
+        if not rel <= LG_ASSIGN_RTOL:
+            fail(f"descriptors xcheck {name}: log assignments {rel} apart")
+        if not agree >= DM_AGREE:
+            fail(f"descriptors xcheck {name}: matches agree {agree}")
+    return out
+
+
+def descriptors_matchers_phase(K, dev) -> dict:
+    """Step 17: patch descriptors and matchers (see the module's
+    docstring)."""
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    sift, imgs, lafs, valid = dm_inputs(dev)
+    a = dm_describe(dev, imgs, lafs, valid)
+    parts["a"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    b = dm_disk_lightglue(dev, imgs)
+    parts["b"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    c = dm_doghardnet(dev, lafs, a["descs"]["HardNet8"])
+    parts["c"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    xcheck = dm_xcheck(dev, imgs, lafs, valid, a, b, c)
+    parts["xcheck"] = round(time.perf_counter() - t0, 1)
+    # the path: SIFTFeature's LAFs of both images, every descriptor at them
+    # and the shape estimator; every patch_sample, fused blur and
+    # multi-level blur captured and held to its plain version on its
+    # ROUTES route
+    from kornia_tpu_torch.feature.descriptors import LAFAffineShapeEstimator
+    from kornia_tpu_torch.feature.extras import get_laf_descriptors
+    t_path = time.perf_counter()
+    nets = dm_nets(dev)
+    est = LAFAffineShapeEstimator(32)
+
+    def path():
+        for img in imgs:
+            l_ = sift(img)[0]
+            for net in nets.values():
+                get_laf_descriptors(img, l_, net, 32)
+            est(l_, img)
+
+    launches = counted_run(K, path, "descriptors", DM_KERNELS)
+    _, _, kern = device_profile(path, DM_KERNELS)
+    calls = capture_launches(K, path, DM_KERNELS)
+    per_path = path_kernel_times(K, kern, calls, launches, "descriptors")
+    checks = check_captured(K, calls, "descriptors")
+    results, counts = path_entries(K, calls, checks, launches,
+                                   "descriptors")
+    report(results)
+    parts["path"] = round(time.perf_counter() - t_path, 1)
+    out = dict(describe=a["rows"],
+               disk_lightglue={k: v for k, v in b.items() if k in (
+                   "pair_ms", "stage_ms", "busy_ms", "busy_share", "kernels",
+                   "peak_bytes", "keypoints", "matches", "matcher_matches")},
+               doghardnet={k: v for k, v in c.items() if k in (
+                   "pair_ms", "busy_ms", "busy_share", "kernels",
+                   "peak_bytes", "matches")},
+               xcheck=xcheck, launches=launches, per_path=per_path,
+               checks=checks, parts=parts,
+               seconds=time.perf_counter() - t_phase)
+    print(f"descriptors phase: {out['seconds']:.1f} s, parts {parts}")
+    print(json.dumps({"descriptors_matchers": out}))
+    return dict(kernels=results, counts=counts, **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -6172,10 +6579,13 @@ def main() -> int:
         registration_eval = registration_eval_phase(K, dev)
     with f32_precision():
         augmentation = augmentation_phase(K, dev)
+    with f32_precision():
+        descriptors = descriptors_matchers_phase(K, dev)
     # each kernel's launches are those of the path that runs it
     entries = [(name, r, ph["counts"]) for ph in (
         path, *phases.values(), planar, vo, learned, keynet_stereo,
-        tracking_io, image_ops, registration_eval, augmentation)
+        tracking_io, image_ops, registration_eval, augmentation,
+        descriptors)
         for name, r in ph["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
@@ -6259,7 +6669,17 @@ def main() -> int:
                           augmentation["simclr"]["ms"],
                       "augmentation_img_per_s":
                           augmentation["simclr"]["per_s"],
-                      "augmentation_seconds": augmentation["seconds"]}))
+                      "augmentation_seconds": augmentation["seconds"],
+                      "descriptors_pair_ms": {
+                          k: v["pair_ms"] for k, v in
+                          descriptors["describe"].items() if "pair_ms" in v},
+                      "disk_lightglue_pair_ms":
+                          descriptors["disk_lightglue"]["pair_ms"],
+                      "disk_lightglue_matches":
+                          descriptors["disk_lightglue"]["matches"],
+                      "doghardnet_lightglue_ms":
+                          descriptors["doghardnet"]["pair_ms"],
+                      "descriptors_seconds": descriptors["seconds"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,10 +20,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
-from ..core.dtype import as_float, host_tensor
+from ..core.dtype import as_float, device_table, host_tensor  # noqa: F401
 
 __all__ = ["AugmentationBase2D", "IntensityAugmentationBase2D",
            "GeometricAugmentationBase2D", "apply_batch_mask"]
@@ -35,24 +34,6 @@ def default_generator(device, seed: int = 0) -> torch.Generator:
     """The generator a call draws from when it is given none: seeded with
     the reference's key number (``PRNGKey(0)`` → 0) on `device`."""
     return torch.Generator(device=device).manual_seed(seed)
-
-
-def device_table(owner: Any, name: Any, values, device,
-                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """`values`, a table that `owner` holds on the host, on `device`:
-    copied there at first use and kept on `owner`, one copy per device,
-    copied again if the host values change (a public attribute such as
-    ``Normalize.mean`` may be set). It is built outside inference mode, so
-    a table first used there still serves a later backward. Callers index
-    it or compute from it; they never hand the table itself out."""
-    values = np.asarray(values)
-    stamp = (values.dtype.str, values.shape, values.tobytes())
-    tables = owner.__dict__.setdefault("_device_tables", {})
-    key = (name, torch.device(device), dtype)
-    if key not in tables or tables[key][0] != stamp:
-        with torch.inference_mode(False):
-            tables[key] = (stamp, host_tensor(values, device, dtype))
-    return tables[key][1]
 
 
 def eye_batch(B: int, device, n: int = 3,

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..core.dtype import as_float, host_tensor
+from ..ops.filters import pad_border
 from ..ops.warp import (
     get_affine_matrix2d,
     get_perspective_transform,
@@ -503,12 +504,7 @@ class PadTo(GeometricAugmentationBase2D):
         pw = max(self.size[1] - W, 0)
         if self.pad_mode == "constant":
             return TF.pad(x, (0, pw, 0, ph), value=self.pad_value)
-        mode = {"replicate": "replicate", "reflect": "reflect",
-                "circular": "circular"}[self.pad_mode]
-        lead = x.shape[:-2]
-        flat = x.reshape(-1, 1, H, W)
-        out = TF.pad(flat, (0, pw, 0, ph), mode=mode)
-        return out.reshape(*lead, H + ph, W + pw)
+        return pad_border(x, ((0, ph), (0, pw)), self.pad_mode)
 
     forward = __call__
 

@@ -24,8 +24,10 @@ container's as the list of its ops' dicts, ``PatchSequential``'s as its
 that the port replays the draws of the JAX package.
 
 The learned nets cross as their parameter dicts (``*_from_numpy``): HardNet,
-OriNet, AffNet and KeyNet store OIHW conv weights, as torch does; LoFTR
-stores its convs HWIO, which become OIHW. The dissolving diffusion model
+HardNet8, OriNet, AffNet, KeyNet, TFeat, SOSNet, HyNet and LightGlue store
+OIHW conv weights and torch-layout linears, as torch does; LoFTR and DISK
+store their convs HWIO, which become OIHW. An MKD whitening model crosses
+as its arrays (``mkd_whitening_from_numpy``). The dissolving diffusion model
 crosses as its flax parameter tree (``diffusion_from_numpy``): convs HWIO
 → OIHW, transposed convs to torch's (in, out, kH, kW) with the taps
 flipped, dense kernels transposed.
@@ -41,8 +43,11 @@ import torch
 from .augmentation.video import PatchParamItem
 from .contrib.ops import KMeans
 from .feature.affnet import AffNet, OriNet
-from .feature.descriptors import KeyNet
+from .feature.descriptors import HyNet, KeyNet, SOSNet, TFeat
+from .feature.disk import DISK
+from .feature.extras import HardNet8
 from .feature.hardnet import HardNet
+from .feature.lightglue import LightGlue, LightGlueConfig
 from .feature.loftr import LoFTR, LoFTRConfig
 from .geometry.liegroup import Quaternion, Se3, So3
 from .geometry.registration import AdamState
@@ -153,6 +158,58 @@ def keynet_from_numpy(params: Mapping[str, Any], num_filters: int = 8,
     return KeyNet({k: np.asarray(v) for k, v in params.items()},
                   num_filters=num_filters, num_levels=num_levels,
                   kernel_size=kernel_size, device=device)
+
+
+def hardnet8_from_numpy(params: Mapping[str, Any],
+                        device: Device = "cuda") -> HardNet8:
+    """The JAX HardNet8's param dict (flat names, OIHW, PCA buffers) →
+    HardNet8."""
+    return HardNet8({k: np.asarray(v) for k, v in params.items()}, device)
+
+
+def tfeat_from_numpy(params: Mapping[str, Any],
+                     device: Device = "cuda") -> TFeat:
+    """The JAX TFeat's param dict (checkpoint names) → TFeat."""
+    return TFeat({k: np.asarray(v) for k, v in params.items()},
+                 device=device)
+
+
+def sosnet_from_numpy(params: Mapping[str, Any],
+                      device: Device = "cuda") -> SOSNet:
+    """The JAX SOSNet's param dict (checkpoint names) → SOSNet."""
+    return SOSNet({k: np.asarray(v) for k, v in params.items()},
+                  device=device)
+
+
+def hynet_from_numpy(params: Mapping[str, Any], eps_l2_norm: float = 1e-10,
+                     device: Device = "cuda") -> HyNet:
+    """The JAX HyNet's param dict (checkpoint names) → HyNet."""
+    return HyNet({k: np.asarray(v) for k, v in params.items()},
+                 eps_l2_norm=eps_l2_norm, device=device)
+
+
+def mkd_whitening_from_numpy(model: Mapping[str, Any]) -> dict:
+    """A JAX MKD whitening model (dict[algo] of 'mean', 'eigvecs',
+    'eigvals', or one more level keyed by training set) → the same dict
+    of float32 numpy arrays, which ``MKDDescriptor(whitening_model=...)``
+    takes."""
+    return {k: (mkd_whitening_from_numpy(v) if isinstance(v, Mapping)
+                else np.asarray(v, np.float32)) for k, v in model.items()}
+
+
+def lightglue_from_numpy(params: Mapping[str, Any],
+                         cfg: Optional[LightGlueConfig] = None,
+                         device: Device = "cuda") -> LightGlue:
+    """The JAX LightGlue's param dict (checkpoint names) → LightGlue."""
+    return LightGlue(cfg, {k: np.asarray(v) for k, v in params.items()},
+                     device=device)
+
+
+def disk_from_numpy(params: Mapping[str, Any],
+                    device: Device = "cuda") -> DISK:
+    """The JAX DISK's param dict (HWIO convolutions) → DISK (OIHW inside)."""
+    return DISK(params={k: np.asarray(v) for k, v in params.items()},
+                device=device)
 
 
 def loftr_from_numpy(params: Mapping[str, Any],

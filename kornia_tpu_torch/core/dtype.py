@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 __all__ = ["compute_dtype", "as_float", "float32_on", "solve_dtype",
-           "bf16_storage", "true_div", "host_tensor"]
+           "bf16_storage", "true_div", "host_tensor", "device_table"]
 
 #: dtype used for general image compute
 compute_dtype = torch.float32
@@ -64,3 +64,21 @@ def solve_dtype() -> torch.dtype:
 def bf16_storage(x: torch.Tensor) -> torch.Tensor:
     """Cast to bfloat16 for storage in device memory."""
     return x.to(torch.bfloat16)
+
+
+def device_table(owner: Any, name: Any, values, device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`values`, a table that `owner` holds on the host, on `device`:
+    copied there at first use and kept on `owner`, one copy per device,
+    copied again if the host values change (a public attribute such as
+    ``Normalize.mean`` may be set). It is built outside inference mode, so
+    a table first used there still serves a later backward. Callers index
+    it or compute from it; they never hand the table itself out."""
+    values = np.asarray(values)
+    stamp = (values.dtype.str, values.shape, values.tobytes())
+    tables = owner.__dict__.setdefault("_device_tables", {})
+    key = (name, torch.device(device), dtype)
+    if key not in tables or tables[key][0] != stamp:
+        with torch.inference_mode(False):
+            tables[key] = (stamp, host_tensor(values, device, dtype))
+    return tables[key][1]

@@ -21,6 +21,7 @@ import torch
 from ..core.check import check
 from ..core.dtype import as_float, host_tensor, true_div
 from ..core.linalg import f32_matmul_precision
+from .filters import pad_border
 
 __all__ = [
     "add_weighted",
@@ -268,8 +269,7 @@ def _clahe_tiles(img: torch.Tensor, grid_size: Tuple[int, int]):
     th, tw = -(-H // gh), -(-W // gw)
     th += th % 2
     tw += tw % 2
-    img_p = torch.nn.functional.pad(img, (0, tw * gw - W, 0, th * gh - H),
-                                    mode="reflect")
+    img_p = pad_border(img, ((0, th * gh - H), (0, tw * gw - W)), "reflect")
     tiles = img_p.reshape(B, C, gh, th, gw, tw).permute(0, 1, 2, 4, 3, 5)
     return th, tw, img_p, tiles.reshape(B * C * gh * gw, th * tw)
 
@@ -481,7 +481,14 @@ def zca_mean(x: torch.Tensor, dim: int = 0, unbiased: bool = True,
     N = flat.shape[0]
     mean = flat.mean(dim=0, keepdim=True)
     xc = flat - mean
-    cov = xc.T @ xc / (N - 1 if unbiased else N)
+    denom = N - 1 if unbiased else N
+    if denom == 0:
+        # one sample, unbiased: a 0/0 covariance, whose SVD the reference
+        # returns as NaN (torch.linalg.svd raises on it)
+        nan = torch.full((flat.shape[1],) * 2, float("nan"),
+                         dtype=flat.dtype, device=flat.device)
+        return (nan, mean, nan.clone()) if return_inverse else (nan, mean)
+    cov = xc.T @ xc / denom
     U, S, _ = torch.linalg.svd(cov)
     T = (U * (1.0 / torch.sqrt(S + eps))[None, :]) @ U.T
     if return_inverse:

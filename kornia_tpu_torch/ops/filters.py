@@ -71,8 +71,6 @@ __all__ = [
     "get_gaussian_kernel3d_t", "gaussian_blur2d_t",
 ]
 
-_PAD_MODES = {"reflect": "reflect", "replicate": "replicate",
-              "circular": "circular", "constant": "constant"}
 _BANDED_BORDERS = ("reflect", "replicate", "circular", "constant")
 
 Device = Optional[Union[str, torch.device]]
@@ -82,11 +80,33 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+def pad_border(x: torch.Tensor, pads, border_type: str,
+               value: float = 0.0) -> torch.Tensor:
+    """Pad the last ``len(pads)`` dims of `x` by ``pads`` ((before, after)
+    for each, outermost first) under `border_type`. Reflect, replicate and
+    circular borders gather along each axis by numpy's (and ``jnp.pad``'s)
+    rule, which reflects or wraps as often as it takes, so a pad wider
+    than the axis still reads inside it (``F.pad`` raises there);
+    'constant' fills with `value`."""
+    if border_type == "constant":
+        flat = [p for before_after in reversed(pads) for p in before_after]
+        return F.pad(x, flat, value=value)
+    first = x.ndim - len(pads)
+    for d, (before, after) in enumerate(pads, start=first):
+        if before == 0 and after == 0:
+            continue
+        size = x.shape[d]
+        pos = torch.arange(-before, size + after, device=x.device)
+        idx, _ = kernels.border_source(pos, size, border_type)
+        x = x.index_select(d, idx)
+    return x
+
+
 def _pad2d(x: torch.Tensor, pad: Tuple[int, int, int, int],
            border_type: str) -> torch.Tensor:
     """pad = (top, bottom, left, right)."""
     t, b, l, r = pad
-    return F.pad(x, (l, r, t, b), mode=_PAD_MODES[border_type])
+    return pad_border(x, ((t, b), (l, r)), border_type)
 
 
 # -----------------------------------------------------------------------------
@@ -604,8 +624,8 @@ def filter3d(x: torch.Tensor, kernel: torch.Tensor,
     if normalized:
         kernel = kernel / kernel.abs().sum(dim=(-3, -2, -1), keepdim=True)
     kd, kh, kw = kernel.shape[-3:]
-    x = F.pad(x, (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2,
-                  kd // 2, (kd - 1) // 2), mode=_PAD_MODES[border_type])
+    x = pad_border(x, ((kd // 2, (kd - 1) // 2), (kh // 2, (kh - 1) // 2),
+                       (kw // 2, (kw - 1) // 2)), border_type)
     w = kernel.reshape(-1, kd, kh, kw)[:1].expand(C, kd, kh, kw)[:, None]
     return F.conv3d(x, w, groups=C)
 
@@ -795,7 +815,16 @@ def max_blur_pool2d(x: torch.Tensor, kernel_size: int = 3, stride: int = 2,
     max_pool_size - 1), then ``blur_pool2d``. `ceil_mode` changes nothing
     at stride 1, as in the reference."""
     del ceil_mode
-    x = F.max_pool2d(as_float(x), max_pool_size, stride=1)
+    x = as_float(x)
+    B, C, H, W = x.shape
+    if min(H, W) < max_pool_size:
+        # an empty map, shaped as blur_pool2d's padding and stride shape it
+        # (the reference returns (..., 0, w); F.max_pool2d raises)
+        pad = (kernel_size - 1) // 2
+        hw = [max((max(n - max_pool_size + 1, 0) + 2 * pad - kernel_size)
+                  // stride + 1, 0) for n in (H, W)]
+        return x.new_empty((B, C, *hw))
+    x = F.max_pool2d(x, max_pool_size, stride=1)
     return blur_pool2d(x, kernel_size, stride)
 
 

@@ -226,6 +226,14 @@ def _fold_index(k: int, size: int, border_type: str, device,
     pad = k // 2 if anchor is None else anchor
     taps = (torch.arange(size, device=device)[None, :]
             + torch.arange(k, device=device)[:, None] - pad)  # (K, size)
+    return border_source(taps, size, border_type)
+
+
+def border_source(taps: torch.Tensor, size: int, border_type: str):
+    """The source index of each integer position `taps` along an axis of
+    `size` under the border rule, and whether the rule keeps it (False
+    only outside the axis under 'constant'). Returns (idx int64 in
+    [0, size), valid bool), both of the shape of `taps`."""
     if border_type == "reflect":
         # reflected as often as it takes (numpy's and jnp.pad's rule), so a
         # kernel wider than the image still reads inside it

@@ -1,1 +1,3 @@
 """Tracking: the planar homography tracker and ByteTrack."""
+from .planar_tracker import HomographyTracker
+from .bytetrack import BoxTracker, ByteTracker, TrackState

@@ -1569,3 +1569,185 @@ def test_cuda_augmentation_forward_makes_no_host_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# --- borders wider than the image, and degenerate inputs --------------------
+
+def _pad_cases():
+    from kornia_tpu_torch import augmentation as TA
+    from kornia_tpu_torch.ops import enhance as t_enh
+    g = torch.Generator().manual_seed(20)
+    small = torch.rand((1, 2, 3, 4), generator=g)
+    return {
+        "filter2d_reflect_7x7": (lambda x, k: t_filters.filter2d(
+            x, k, "reflect"), (small, torch.rand((1, 7, 7), generator=g))),
+        "filter2d_circular_11x11": (lambda x, k: t_filters.filter2d(
+            x, k, "circular"), (small, torch.rand((1, 11, 11), generator=g))),
+        "laplacian_7": (lambda x: t_filters.laplacian(x, 7), (small,)),
+        "bilateral_blur_7x7": (lambda x: t_filters.bilateral_blur(
+            x, (7, 7), 0.1, (1.5, 1.5)), (small,)),
+        "filter3d_reflect": (lambda v, k: t_filters.filter3d(v, k, "reflect"),
+                             (torch.rand((1, 1, 2, 3, 4), generator=g),
+                              torch.rand((1, 5, 5, 5), generator=g))),
+        **{f"clahe_{h}x{w}": (t_enh.equalize_clahe,
+                              (torch.rand((1, 2, h, w), generator=g),))
+           for h, w in ((8, 8), (8, 9), (1, 5))},
+        "random_clahe_1x5": (lambda x: TA.RandomCLAHE(p=1.0).apply(x, {}),
+                             (torch.rand((1, 2, 1, 5), generator=g),)),
+        **{f"pad_to_{m}": (lambda x, m=m: TA.PadTo((10, 12), pad_mode=m)(x),
+                           (small,)) for m in ("reflect", "circular")},
+        "max_blur_pool2d_one_row": (t_filters.max_blur_pool2d,
+                                    (torch.rand((1, 2, 1, 5), generator=g),)),
+        "zca_whiten_one_sample": (t_enh.zca_whiten,
+                                  (torch.rand((1, 3), generator=g),)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_pad_cases()))
+def test_cuda_wide_borders_and_degenerate_inputs_match_cpu(cuda_device,
+                                                           name):
+    fn, args = _pad_cases()[name]
+    cpu = fn(*args)
+    card = fn(*[a.to(cuda_device) for a in args])
+    assert card.device.type == "cuda" and card.shape == cpu.shape
+    torch.testing.assert_close(card.cpu(), cpu, atol=ATOL, rtol=1e-6,
+                               equal_nan=True)
+
+
+# --- patch descriptors and matchers -----------------------------------------
+
+def _desc_nets(device):
+    from kornia_tpu_torch.feature import descriptors as D
+    from kornia_tpu_torch.feature.extras import HardNet8
+    from kornia_tpu_torch.feature.mkd import MKDDescriptor, SimpleKD
+    from kornia_tpu_torch.feature.siftdesc import SIFTDescriptor
+    rng = np.random.default_rng(3)
+    q, _ = np.linalg.qr(rng.normal(size=(175, 175)))
+    model = {"pca": {"mean": np.zeros(175, np.float32),
+                     "eigvecs": q.astype(np.float32),
+                     "eigvals": np.linspace(2.0, 0.1, 175).astype(
+                         np.float32)}}
+    return {"HardNet8": HardNet8(device=device),
+            "TFeat": D.TFeat(device=device), "SOSNet": D.SOSNet(device=device),
+            "HyNet": D.HyNet(device=device),
+            "MKDGradientDescriptor": D.MKDGradientDescriptor(),
+            "MKD": MKDDescriptor(), "SimpleKD_pcawt": SimpleKD(
+                whitening_model=model),
+            "SIFT32": SIFTDescriptor(32)}
+
+
+@pytest.mark.parametrize("name", ["HardNet8", "TFeat", "SOSNet", "HyNet",
+                                  "MKDGradientDescriptor", "MKD",
+                                  "SimpleKD_pcawt", "SIFT32"])
+def test_cuda_patch_descriptor_matches_cpu(cuda_device, name):
+    g = torch.Generator().manual_seed(21)
+    x = torch.rand((64, 1, 32, 32), generator=g)
+    cpu = _desc_nets("cpu")[name](x)
+    card = _desc_nets(cuda_device)[name](x.to(cuda_device))
+    torch.testing.assert_close(card.cpu(), cpu, atol=1e-4, rtol=0)
+
+
+def _lafs(n, h, w, g):
+    ang = torch.rand(n, generator=g) * 6.28
+    s = 3.0 + 8.0 * torch.rand(n, generator=g)
+    c, sn = torch.cos(ang) * s, torch.sin(ang) * s
+    A = torch.stack([torch.stack([c, sn], -1), torch.stack([-sn, c], -1)], -2)
+    ctr = torch.stack([12 + (w - 24) * torch.rand(n, generator=g),
+                       12 + (h - 24) * torch.rand(n, generator=g)], -1)
+    return torch.cat([A, ctr[..., None]], -1)[None]
+
+
+def test_cuda_laf_descriptors_shape_estimator_dense_sift(cuda_device):
+    """get_laf_descriptors (patch_sample and the atlas blur on the card),
+    LAFAffineShapeEstimator and DenseSIFTDescriptor, card vs CPU."""
+    from kornia_tpu_torch.feature.descriptors import LAFAffineShapeEstimator
+    from kornia_tpu_torch.feature.extras import HardNet8, get_laf_descriptors
+    from kornia_tpu_torch.feature.siftdesc import DenseSIFTDescriptor
+    g = torch.Generator().manual_seed(22)
+    img = t_filters.gaussian_blur2d(torch.rand((1, 3, 96, 128), generator=g),
+                                    5, 1.2)
+    lafs = _lafs(40, 96, 128, g)
+    K.reset_launches()
+    out = [get_laf_descriptors(img.to(d), lafs.to(d), HardNet8(device=d))
+           for d in (cuda_device, "cpu")]
+    assert K.launches["patch_sample"] >= 1
+    torch.testing.assert_close(out[0].cpu(), out[1], atol=1e-4, rtol=0)
+    est = LAFAffineShapeEstimator(32)
+    a, b = est(lafs.to(cuda_device), img.to(cuda_device)).cpu(), est(lafs,
+                                                                      img)
+    torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                               rtol=0)
+    grey = img[:, :1]
+    dense = DenseSIFTDescriptor()
+    torch.testing.assert_close(dense(grey.to(cuda_device)).cpu(),
+                               dense(grey), atol=1e-4, rtol=0)
+
+
+def test_cuda_adalam_and_geometry_aware_matchers(cuda_device):
+    from kornia_tpu_torch.feature.adalam import adalam_filter
+    from kornia_tpu_torch.feature.extras import GeometryAwareDescriptorMatcher
+    g = torch.Generator().manual_seed(23)
+    kp0 = torch.rand((200, 2), generator=g) * 300
+    kp1 = kp0 * 1.05 + 4.0
+    kp1[::5] = torch.rand((40, 2), generator=g) * 300
+    valid = torch.rand(200, generator=g) > 0.05
+    keep = [adalam_filter(kp0.to(d), kp1.to(d), valid.to(d)).cpu()
+            for d in (cuda_device, "cpu")]
+    assert torch.equal(keep[0], keep[1]) and 0 < int(keep[1].sum()) < 200
+    d0 = torch.nn.functional.normalize(torch.randn((200, 64), generator=g),
+                                       dim=-1)
+    d1 = torch.nn.functional.normalize(
+        d0 + 0.2 * torch.randn((200, 64), generator=g), dim=-1)
+    eye = torch.eye(2).expand(200, 2, 2) * 4
+    l0 = torch.cat([eye, kp0[..., None]], -1)[None]
+    l1 = torch.cat([eye, kp1[..., None]], -1)[None]
+    for mode in ("adalam", "fginn"):
+        m = GeometryAwareDescriptorMatcher(mode)
+        dg, ig = m(*(t.to(cuda_device) for t in (d0, d1, l0, l1)))
+        dc, ic = m(d0, d1, l0, l1)
+        assert torch.equal(ig.cpu(), ic), mode
+        torch.testing.assert_close(dg.cpu(), dc, atol=1e-5, rtol=0)
+
+
+def test_cuda_lightglue_matches_cpu(cuda_device):
+    """The 'doghardnet' preset (input projection, scales and orientations)
+    at two layers, card vs CPU, the same seeded weights."""
+    from kornia_tpu_torch.feature.lightglue import LightGlue, LightGlueConfig
+    cfg = LightGlueConfig("doghardnet", n_layers=2)
+    g = torch.Generator().manual_seed(24)
+    data = {f"image{i}": {
+        "keypoints": torch.rand((1, 300, 2), generator=g) * 400,
+        "descriptors": torch.nn.functional.normalize(
+            torch.randn((1, 300, 128), generator=g), dim=-1),
+        "image_size": [400.0, 400.0],
+        "scales": 1 + 5 * torch.rand((1, 300), generator=g),
+        "oris": torch.rand((1, 300), generator=g) * 6.28} for i in (0, 1)}
+    cpu = LightGlue(cfg, device="cpu")(data)
+    card = LightGlue(cfg, device=cuda_device)(
+        {k: {kk: vv.to(cuda_device) if torch.is_tensor(vv) else vv
+             for kk, vv in v.items()} for k, v in data.items()})
+    la = cpu["log_assignment"]
+    torch.testing.assert_close(card["log_assignment"].cpu(), la,
+                               atol=1e-3 * float(la.abs().max()), rtol=0)
+    agree = (card["matches0"].cpu() == cpu["matches0"]).float().mean()
+    assert float(agree) >= 0.99
+
+
+def test_cuda_disk_matches_cpu(cuda_device):
+    from kornia_tpu_torch.feature.disk import DISK
+    g = torch.Generator().manual_seed(25)
+    x = t_filters.gaussian_blur2d(torch.rand((1, 3, 64, 80), generator=g),
+                                  5, 1.5)
+    hc, dc = DISK(device="cpu").heatmap_and_dense_descriptors(x)
+    hg, dg = DISK(device=cuda_device).heatmap_and_dense_descriptors(
+        x.to(cuda_device))
+    torch.testing.assert_close(hg.cpu(), hc, atol=1e-4 * max(
+        1.0, float(hc.abs().max())), rtol=0)
+    torch.testing.assert_close(dg.cpu(), dc, atol=1e-4 * max(
+        1.0, float(dc.abs().max())), rtol=0)
+    fc = DISK(device="cpu")(x, 64)
+    fg = DISK(device=cuda_device)(x.to(cuda_device), 64)
+    assert torch.equal(fg.valid.cpu(), fc.valid)
+    v = fc.valid
+    sg = {tuple(p) for p in fg.keypoints.cpu()[v].tolist()}
+    assert sg == {tuple(p) for p in fc.keypoints[v].tolist()}

@@ -3,13 +3,19 @@ geometry.{solvers, homography, conversions, epipolar, ransac}) against the
 JAX package on the CPU.
 
 RANSAC is held to the reference with the reference's own random draws:
-the test replays the ``jax.random.split`` / ``gumbel`` chain of
-``kornia_tpu/geometry/ransac.py`` and injects it into the port. The
-5-point solver's candidates are held in tests/test_torch_sfm.py, whose
-``incremental_sfm`` reference compiles the same program. The small
+the ``jax.random.split`` / ``gumbel`` chain of
+``kornia_tpu/geometry/ransac.py``, injected into the port. Its JAX result
+and those draws are read from their record
+(``tests/golden/port_references/ransac.npz``, written by
+``tests/write_port_references.py`` from ``ransac_jax_reference``; the
+``slow`` test ``tests/test_torch_port_references.py`` holds the record to
+the JAX package). The 5-point solver's candidates are held in
+tests/test_torch_sfm.py. The small
 helpers' references run as one program each (``exact_jit``: each op
 rounds as it does eagerly).
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +36,7 @@ from kornia_tpu_torch.geometry.conversions import \
     normalize_points_with_intrinsics as t_norm_k
 from kornia_tpu_torch.geometry.homography import normalize_points as t_norm
 from kornia_tpu_torch.geometry.ransac import ransac as t_ransac
+from tests import port_references
 from tests.torch_op_parity import exact_jit
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -204,21 +211,48 @@ def _replay_gumbel(key, T, S, N):
     return torch.from_numpy(np.stack(draws))
 
 
-def test_ransac_with_reference_noise():
-    """n = 300 > 192 takes the two-stage (prescore) path of the main path;
-    tests/test_torch_twoview.py covers the single-stage one (n = 128)."""
-    n = 300
+_RANSAC_N, _RANSAC_T, _RANSAC_S, _RANSAC_TH = 300, 4, 64, 1.5e-3
+
+
+def _ransac_inputs():
+    n = _RANSAC_N
     x1, x2, R, t = _scene(n, 7, outliers=0.3, noise=2e-4)
     mask = np.ones(n, bool)
     mask[-7:] = False
+    return x1, x2, mask
+
+
+def ransac_jax_reference():
+    """The JAX RANSAC on the test's inputs with PRNGKey(3): (the inputs'
+    digest, its result and the Gumbel noise of its rounds), as
+    tests/write_port_references.py records them."""
+    x1, x2, mask = _ransac_inputs()
     key = jax.random.PRNGKey(3)
-    T, S, th = 4, 64, 1.5e-3
     ref = j_ransac(jnp.asarray(x1), jnp.asarray(x2), key, "essential",
-                   inl_th=th, batch_size=S, max_iterations=T,
-                   mask=jnp.asarray(mask))
+                   inl_th=_RANSAC_TH, batch_size=_RANSAC_S,
+                   max_iterations=_RANSAC_T, mask=jnp.asarray(mask))
+    gumbel = _replay_gumbel(key, _RANSAC_T, _RANSAC_S, _RANSAC_N).numpy()
+    return (port_references.inputs((x1, x2, mask)),
+            {"model": _np(ref.model), "inliers": _np(ref.inliers),
+             "score": _np(ref.score), "inlier_count": _np(ref.inlier_count),
+             "gumbel": gumbel})
+
+
+def test_ransac_with_reference_noise():
+    """n = 300 > 192 takes the two-stage (prescore) path of the main path;
+    tests/test_torch_twoview.py covers the single-stage one (n = 128).
+    Against the recorded JAX result and its Gumbel noise
+    (tests/port_references.py; the JAX RANSAC's compile took about 45 s a
+    run)."""
+    n = _RANSAC_N
+    x1, x2, mask = _ransac_inputs()
+    T, S, th = _RANSAC_T, _RANSAC_S, _RANSAC_TH
+    rec = port_references.load("ransac",
+                               port_references.inputs((x1, x2, mask)))
+    ref = SimpleNamespace(**rec)
     out = t_ransac(_t(x1), _t(x2), model_type="essential", inl_th=th,
                    batch_size=S, max_iterations=T, mask=_t(mask),
-                   gumbel=_replay_gumbel(key, T, S, n))
+                   gumbel=torch.from_numpy(rec["gumbel"]))
     np.testing.assert_array_equal(out.inliers.numpy(), _np(ref.inliers))
     assert int(out.inlier_count) == int(ref.inlier_count) > 0.6 * n
     assert _same_up_to_sign(out.model.numpy(), _np(ref.model), 1e-4)

@@ -18,6 +18,7 @@ tests/golden/models_golden.json at tests/test_golden_models.py's tolerance.
 import json
 import math
 import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +44,7 @@ from kornia_tpu_torch.feature import loftr as t_loftr
 from kornia_tpu_torch.feature import orientation as t_ori
 from kornia_tpu_torch.ops import color as t_color
 from kornia_tpu_torch.slam.twoview import two_view_pose
+from tests import port_references
 from tests.golden_builders import _img, probe
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -115,6 +117,10 @@ def _randomised(params, seed):
 
 @pytest.fixture(scope="module")
 def params():
+    return make_params()
+
+
+def make_params():
     """Weights made with numpy-seeded draws in the reference's layout (the
     JAX initialisations cost seconds of eager dispatch each)."""
     gen = torch.Generator().manual_seed(5)
@@ -429,7 +435,9 @@ def _config2(pkg, hardnet):
                             pkg.LAFOrienter(19))
 
 
-def test_config2_two_view_pose_matches_reference(params):
+def _config2_inputs(params):
+    """The pair, K, the reference's RANSAC noise of PRNGKey(1), and the
+    inputs' digest (HardNet's parameters included)."""
     h, w = 128, 160
     img0 = gaussian_filter(np.random.default_rng(0).random((h, w)),
                            1.0).astype(np.float32)
@@ -439,14 +447,36 @@ def test_config2_two_view_pose_matches_reference(params):
     K = np.array([[0.8 * w, 0, w / 2], [0, 0.8 * w, h / 2], [0, 0, 1]],
                  np.float32)
     key = jax.random.PRNGKey(1)
+    gumbel = _replay_gumbel(key)
+    hn = params["hardnet"]
+    dig = port_references.inputs(
+        (img0, img1, K, *[hn[k] for k in sorted(hn)]), (gumbel,))
+    return img0, img1, K, key, gumbel, dig
+
+
+def config2_jax_reference(params):
+    """The JAX config-2 pipeline on the test's inputs: (the inputs'
+    digest, its result's fields), as tests/write_port_references.py
+    records them."""
+    img0, img1, K, key, _, dig = _config2_inputs(params)
     j_feat = _config2(j_int, j_hn.HardNet(params["hardnet"]))
     ref = _np(jax.jit(lambda a, b, k, kk: j_two_view_pose(
         a, b, k, kk, num_features=NF2, feature=j_feat))(
             jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(K), key))
+    fields = ("R", "t", "E", "inliers", "keypoints0", "keypoints1",
+              "num_inliers")
+    return dig, {f: np.asarray(getattr(ref, f)) for f in fields}
+
+
+def test_config2_two_view_pose_matches_reference(params):
+    """Against the recorded JAX result (tests/port_references.py; the
+    pipeline's compile took about 65 s a run)."""
+    img0, img1, K, _, gumbel, dig = _config2_inputs(params)
+    ref = SimpleNamespace(**port_references.load("config2", dig))
     t_feat = _config2(t_int, convert.hardnet_from_numpy(params["hardnet"],
                                                         "cpu"))
     out = two_view_pose(img0, img1, K, num_features=NF2, feature=t_feat,
-                        device="cpu", gumbel=_replay_gumbel(key))
+                        device="cpu", gumbel=gumbel)
     assert int(ref.num_inliers) >= 20
     np.testing.assert_array_equal(out.inliers.numpy(), ref.inliers)
     inl = ref.inliers

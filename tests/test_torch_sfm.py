@@ -21,10 +21,12 @@ relative.
 
 The JAX 5-point solver compiles for about 35 s; ``incremental_sfm`` runs
 it on one minimal sample, so the solver's candidates are also held here,
-sample by sample through the same compiled program
-(``_J_RUN_5POINT``): one compile serves both tests (from
-tests/test_torch_geometry.py, where the solver compiled a second time at
-a batch of 24).
+sample by sample through the same compiled program (``_J_RUN_5POINT``).
+Both JAX results are read from their records
+(``tests/golden/port_references/{five_point,sfm}.npz``, written by
+``tests/write_port_references.py`` from ``five_point_jax_reference`` and
+``sfm_jax_reference``; the ``slow`` test
+``tests/test_torch_port_references.py`` holds them to the JAX package).
 """
 
 import jax
@@ -46,6 +48,7 @@ from kornia_tpu_torch.geometry.epipolar import (projection_from_KRt,
 from kornia_tpu_torch.geometry.scene import generate_scene as t_scene
 from kornia_tpu_torch.metrics import metrics as t_met
 from kornia_tpu_torch.slam import sfm as t_sfm
+from tests import port_references
 from tests.test_torch_geometry import _same_up_to_sign, _scene
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -171,19 +174,37 @@ def _centres(R, t):
     return np.einsum("vji,vj->vi", R, -t)
 
 
-@pytest.fixture(scope="module")
-def minimal_samples():
+def _minimal_inputs():
     x1, x2, R, t = _scene(5 * 24, 4, noise=0.0)
     p1 = x1.reshape(24, 5, 2)
     p2 = x2.reshape(24, 5, 2)
     E_true = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]],
                        [-t[1], t[0], 0]]) @ R
     E_true /= np.linalg.norm(E_true)
-    # sample by sample through the program incremental_sfm's test shares
+    return p1, p2, E_true
+
+
+def five_point_jax_reference():
+    """The JAX 5-point candidates of the test's samples, sample by sample
+    through the program incremental_sfm's reference runs: (the inputs'
+    digest, the candidates), as tests/write_port_references.py records
+    them."""
+    p1, p2, _ = _minimal_inputs()
     ref = np.concatenate([np.asarray(_J_RUN_5POINT(
         jnp.asarray(p1[b:b + 1]), jnp.asarray(p2[b:b + 1])))
         for b in range(24)])
-    return p1, p2, E_true, ref
+    return port_references.inputs((p1, p2)), {"candidates": ref}
+
+
+@pytest.fixture(scope="module")
+def minimal_samples():
+    """The samples and the recorded JAX candidates
+    (tests/port_references.py; the solver's compile took about 35 s a
+    run)."""
+    p1, p2, E_true = _minimal_inputs()
+    ref = port_references.load("five_point",
+                               port_references.inputs((p1, p2)))
+    return p1, p2, E_true, ref["candidates"]
 
 
 def test_five_point_candidates_match_reference(minimal_samples):
@@ -212,12 +233,9 @@ def test_five_point_candidates_match_reference(minimal_samples):
     assert (alive_o == alive_r).mean() > 0.95
 
 
-@pytest.fixture(scope="module")
-def sfm_run():
-    """tests/test_sfm.py::test_reconstructs_synthetic_scene through both
-    packages. The JAX reference runs its geometry helpers under jit (the
-    eager path dispatches the 5-point solver and the triangulations op by
-    op); its own algorithm is unchanged."""
+def _sfm_inputs():
+    """tests/test_sfm.py::test_reconstructs_synthetic_scene's scene and
+    noisy observations (the JAX scene generator's draws)."""
     key = jax.random.PRNGKey(0)
     V, N = 4, 48
     s = j_scene(key, num_views=V, num_points=N, rotation_scale=0.15,
@@ -225,6 +243,18 @@ def sfm_run():
     obs = np.asarray(s["points2d"] + 0.3 * jax.random.normal(
         jax.random.fold_in(key, 1), s["points2d"].shape))
     vis = np.ones(obs.shape[:2], bool)
+    K = np.asarray(s["K"][0])
+    C_gt = _centres(np.asarray(s["R"]), np.asarray(s["t"])[..., 0])
+    return obs, vis, K, C_gt
+
+
+def sfm_jax_reference():
+    """The JAX incremental_sfm on the test's inputs, its geometry helpers
+    under jit (the eager path dispatches the 5-point solver and the
+    triangulations op by op; its own algorithm is unchanged): (the inputs'
+    digest, its result), as tests/write_port_references.py records
+    them."""
+    obs, vis, K, _ = _sfm_inputs()
     mp = pytest.MonkeyPatch()
     for name in ("triangulate_points", "motion_from_essential_choose_solution",
                  "solve_pnp_dlt", "sampson_epipolar_distance"):
@@ -232,23 +262,38 @@ def sfm_run():
     mp.setattr(j_sfm_mod, "run_5point", _J_RUN_5POINT)
     try:
         res_j = j_sfm_mod.incremental_sfm(jnp.asarray(obs), jnp.asarray(vis),
-                                          s["K"][0], ba_iters=10)
+                                          jnp.asarray(K), ba_iters=10)
     finally:
         mp.undo()
-    res_t = t_sfm.incremental_sfm(obs, vis, _t(s["K"][0]), ba_iters=10,
+    return (port_references.inputs((vis,), (obs, K)),
+            {"R": np.asarray(res_j.poses.r.matrix()),
+             "t": np.asarray(res_j.poses.t),
+             "points": np.asarray(res_j.points),
+             "point_valid": np.asarray(res_j.point_valid),
+             "final_rms": np.float64(res_j.final_rms)})
+
+
+@pytest.fixture(scope="module")
+def sfm_run():
+    """tests/test_sfm.py::test_reconstructs_synthetic_scene through the
+    port, against the recorded JAX run (tests/port_references.py; it took
+    about 50 s a run, most of it compiles)."""
+    obs, vis, K, C_gt = _sfm_inputs()
+    res_j = port_references.load("sfm",
+                                 port_references.inputs((vis,), (obs, K)))
+    res_t = t_sfm.incremental_sfm(obs, vis, _t(K), ba_iters=10,
                                   device="cpu")
-    C_gt = _centres(np.asarray(s["R"]), np.asarray(s["t"])[..., 0])
     return res_j, res_t, C_gt
 
 
 def test_incremental_sfm_matches(sfm_run):
     res_j, res_t, C_gt = sfm_run
-    np.testing.assert_array_equal(res_t.point_valid, res_j.point_valid)
-    assert res_t.final_rms == pytest.approx(res_j.final_rms, abs=1e-4)
+    np.testing.assert_array_equal(res_t.point_valid, res_j["point_valid"])
+    assert res_t.final_rms == pytest.approx(float(res_j["final_rms"]),
+                                            abs=1e-4)
     assert res_t.final_rms < 0.8
     C_t = _centres(res_t.poses.r.matrix().numpy(), res_t.poses.t.numpy())
-    C_j = _centres(np.asarray(res_j.poses.r.matrix()),
-                   np.asarray(res_j.poses.t))
+    C_j = _centres(res_j["R"], res_j["t"])
     ate_t = float(t_met.ate_rmse(_t(C_t), _t(C_gt), with_scale=True))
     ate_j = float(j_met.ate_rmse(jnp.asarray(C_j), jnp.asarray(C_gt),
                                  with_scale=True))

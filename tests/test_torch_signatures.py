@@ -83,8 +83,16 @@ def test_the_twins_are_found():
     """The walk reaches every ported module with a twin, this slice's
     included."""
     ids = {p.id for p in _twins()}
-    assert len(ids) >= 755
+    assert len(ids) >= 804
     for name in ("ops.warp.resize", "ops.filters.spatial_gradient",
+                 "feature.descriptors.TFeat", "feature.descriptors.HyNet",
+                 "feature.descriptors.LAFAffineShapeEstimator",
+                 "feature.siftdesc.DenseSIFTDescriptor",
+                 "feature.mkd.MKDDescriptor", "feature.mkd.Whitening",
+                 "feature.adalam.adalam_filter",
+                 "feature.lightglue.LightGlue", "feature.disk.DISK",
+                 "feature.extras.HardNet8", "feature.extras.LightGlueMatcher",
+                 "feature.extras.get_laf_descriptors",
                  "feature.detector.ScaleSpaceDetector",
                  "geometry.ransac.ransac", "geometry.ransac.RANSAC",
                  "tracking.planar_tracker.HomographyTracker",

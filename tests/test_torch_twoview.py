@@ -2,7 +2,11 @@
 package's, end to end on the CPU, with the reference's RANSAC noise
 injected; plus the port's import guard and its state conversion.
 
-The JAX pipeline compiles once for the module (about a minute on the CPU).
+The JAX pipeline's result is read from its record
+(``tests/golden/port_references/twoview.npz``, written by
+``tests/write_port_references.py`` from ``jax_reference`` below and held to
+the JAX package by the ``slow`` test
+``tests/test_torch_port_references.py``): its compile took about a minute.
 """
 
 import math
@@ -11,6 +15,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +27,7 @@ from scipy.ndimage import gaussian_filter
 from kornia_tpu.slam.twoview import two_view_pose as jax_two_view_pose
 from kornia_tpu_torch.convert import state_from_numpy
 from kornia_tpu_torch.slam.twoview import two_view_pose
+from tests import port_references
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
@@ -54,15 +60,35 @@ def _angle(a, b):
     return math.acos(max(-1.0, min(1.0, c)))
 
 
-@pytest.fixture(scope="module")
-def both():
+def _inputs():
+    """The pair, K, and the reference's RANSAC noise of PRNGKey(1)."""
     img0, img1, K = _pair()
     key = jax.random.PRNGKey(1)
+    gumbel = _replay_gumbel(key)
+    return img0, img1, K, key, gumbel
+
+
+def jax_reference():
+    """The JAX pipeline on the test's inputs: (the inputs' digest, its
+    result's fields), as tests/write_port_references.py records them."""
+    img0, img1, K, key, gumbel = _inputs()
     ref = jax_two_view_pose(jnp.asarray(img0), jnp.asarray(img1),
                             jnp.asarray(K), key, num_features=NF)
-    ref = jax.tree_util.tree_map(np.asarray, ref)
+    fields = ("R", "t", "E", "inliers", "keypoints0", "keypoints1",
+              "num_inliers")
+    return (port_references.inputs((img0, img1, K), (gumbel,)),
+            {f: np.asarray(getattr(ref, f)) for f in fields})
+
+
+@pytest.fixture(scope="module")
+def both():
+    """The recorded JAX result (tests/port_references.py; its compile
+    took about 75 s a run) and the port's on the same inputs and noise."""
+    img0, img1, K, _, gumbel = _inputs()
+    ref = SimpleNamespace(**port_references.load(
+        "twoview", port_references.inputs((img0, img1, K), (gumbel,))))
     out = two_view_pose(img0, img1, K, num_features=NF, device="cpu",
-                        gumbel=_replay_gumbel(key))
+                        gumbel=gumbel)
     return ref, out
 
 

@@ -5,10 +5,15 @@ One rendered sequence serves every reference leg: the reference's room
 (``make_room_scene(tex_size=128)``) rendered by the reference along the first 8 poses of ``walk_trajectory(12)`` at
 120x160, ``VisualOdometry(num_features=128, ransac_iters=8,
 ransac_batch=128, incremental_ba=False, global_ba_passes=2)``. The JAX
-pair step compiles once and serves the teacher-forced steps and both of
-its runs; its global BA compiles once and serves the window-BA leg, whose
-synthetic tracks are built at the same shapes. The reference's per-frame
-RANSAC and PnP noise (``vo.py:180``, ``:350``) is replayed into the port.
+pair step serves the teacher-forced steps and the refined run; its global
+BA serves the window-BA leg, whose synthetic tracks are built at the same
+shapes. The reference's per-frame RANSAC and PnP noise (``vo.py:180``,
+``:350``) is replayed into the port. These JAX legs (the fixture ``ref``)
+are read from their record (``tests/golden/port_references/vo.npz``,
+written by ``tests/write_port_references.py`` from ``jax_reference``; the
+``slow`` test ``tests/test_torch_port_references.py`` holds it to the JAX
+package); the frames and the noise are still made by the JAX package here,
+and their digest must be the record's.
 
 Tolerances, stated per leg:
 - teacher-forced pair steps (JAX features and state into both): the
@@ -24,6 +29,8 @@ Tolerances, stated per leg:
   relative, the gate's `ok` equal.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +43,7 @@ from kornia_tpu_torch.geometry.liegroup import Se3, So3
 from kornia_tpu_torch.metrics.metrics import ate_rmse
 from kornia_tpu_torch.slam import vo as t_vo
 from kornia_tpu_torch.slam.ba import BAProblem, BAState, bundle_adjust
+from tests import port_references
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 H, W, NF, RI, RB = 120, 160, 128, 8, 128
@@ -95,6 +103,10 @@ def _ate(est, gt):
 
 @pytest.fixture(scope="module")
 def seq():
+    return _seq()
+
+
+def _seq():
     traj = jr.walk_trajectory(12)[:N_FRAMES]
     # the reference's make_room_scene(tex_size=128) at its default key,
     # its textures from one vmapped compile (bit-equal to its own loop)
@@ -141,13 +153,98 @@ def _reference(seq, draws):
 
 @pytest.fixture(scope="module")
 def draws():
+    return _draws()
+
+
+def _draws():
     keys, d = _replay(N_FRAMES)
     return dict(keys=keys, draws=d)
 
 
+def _window_case(C, noise):
+    """test_window_ba_matches_the_reference's synthetic tracks for C
+    keyframes at `noise` px, the port's VO, and the window's inputs."""
+    gt, kps, nexts, inls, rng = _line_tracks(C, NF, 6, contaminate=True,
+                                             Km=K)
+    kps = [k + rng.normal(0, noise, k.shape).astype(np.float32)
+           for k in kps]
+    poses = [g.copy() for g in gt]
+    for i in range(1, C):
+        poses[i][:3, 3] += rng.normal(0, 0.03, 3)
+    tv = t_vo.VisualOdometry(K, num_features=NF, device="cpu")
+    shapes, built, Rt = _window_inputs(tv, poses, kps, nexts, inls, C)
+    return tv, shapes, built, Rt
+
+
+def _inputs_digest(seq, draws, windows):
+    """The key of the rendered frames and the replayed noise (made by the
+    JAX package) and of the window-BA inputs (numpy)."""
+    made = [np.asarray(f) for f in seq["frames"]]
+    made += [d.numpy() for step in draws["draws"] for d in step]
+    built = []
+    for _, shapes, b, Rt in windows:
+        built += [np.asarray(shapes), *Rt, *b]
+    return port_references.inputs(built, made)
+
+
+def jax_reference():
+    """The JAX side of this module's reference legs (the fixture `ref`
+    and the window BA at both noise levels) on the test's inputs: (the
+    inputs' digest, the record), as tests/write_port_references.py
+    records them."""
+    sq, dr = _seq(), _draws()
+    r = _reference(sq, dr)
+    C = len(r["kf_refined"])
+    windows = [_window_case(C, noise) for noise in WINDOW_NOISE]
+    record = dict(
+        steps=[dict(inputs=s["inputs"], out=s["out"]) for s in r["steps"]],
+        inl_th=np.float64(r["inl_th"]),
+        poses=[np.asarray(p) for p in r["refined"].poses],
+        num_inliers=np.asarray(r["refined"].num_inliers),
+        kf_refined=np.asarray(r["kf_refined"]),
+        frame_cache=[{"kp": np.asarray(f["kp"]),
+                      "valid": np.asarray(f["valid"])}
+                     for f in r["vo"].frame_cache],
+        window=[])
+    for _, shapes, built, Rt in windows:
+        (obs_cam, obs_trk, obs_uv, obs_valid, fc, fuv, lc, luv, trk_valid,
+         _) = built
+        fn = r["vo"]._ba_window_fn(C, shapes[0], shapes[1], 1)
+        Mj, Xj, okj, cj = fn(
+            jnp.asarray(Rt[0]), jnp.asarray(Rt[1]),
+            jnp.asarray(obs_cam, jnp.int32), jnp.asarray(obs_trk, jnp.int32),
+            jnp.asarray(obs_uv), jnp.asarray(obs_valid),
+            jnp.asarray(fc, jnp.int32), jnp.asarray(fuv),
+            jnp.asarray(lc, jnp.int32), jnp.asarray(luv),
+            jnp.asarray(trk_valid), jnp.asarray(K))
+        record["window"].append(dict(M=_np(Mj), X=_np(Xj), ok=_np(okj),
+                                     cost=_np(cj)))
+    return _inputs_digest(sq, dr, windows), record
+
+
+WINDOW_NOISE = (0.0, 0.5)
+
+
 @pytest.fixture(scope="module")
 def ref(seq, draws):
-    return _reference(seq, draws)
+    """The JAX reference legs, read from their record
+    (tests/port_references.py; the JAX pair step, its run and the global
+    BA compiled for about 90 s a run). The record was written from the
+    same frames, noise and window-BA inputs (digest checked)."""
+    rec = port_references.load("vo")
+    C = len(rec["kf_refined"])
+    windows = [_window_case(C, noise) for noise in WINDOW_NOISE]
+    port_references.load("vo", _inputs_digest(seq, draws, windows))
+    steps = [dict(inputs=list(s["inputs"]), out=list(s["out"]),
+                  draws=draws["draws"][i])
+             for i, s in enumerate(rec["steps"])]
+    refined = SimpleNamespace(poses=list(rec["poses"]),
+                              num_inliers=rec["num_inliers"].tolist())
+    vo = SimpleNamespace(frame_cache=list(rec["frame_cache"]))
+    return dict(steps=steps, inl_th=float(rec["inl_th"]), refined=refined,
+                kf_refined=rec["kf_refined"].tolist(), vo=vo,
+                window=dict(zip(WINDOW_NOISE, zip(windows,
+                                                  rec["window"]))))
 
 
 @pytest.fixture(scope="module")
@@ -401,25 +498,8 @@ def test_window_ba_matches_the_reference(ref, noise):
     rotations 1e-3, and the polish's final cost 1e-2 relative (its re-gate
     at 2 px-equivalent can take one observation either side)."""
     C = len(ref["kf_refined"])
-    gt, kps, nexts, inls, rng = _line_tracks(C, NF, 6, contaminate=True,
-                                             Km=K)
-    kps = [k + rng.normal(0, noise, k.shape).astype(np.float32)
-           for k in kps]
-    poses = [g.copy() for g in gt]
-    for i in range(1, C):
-        poses[i][:3, 3] += rng.normal(0, 0.03, 3)
-    tv = t_vo.VisualOdometry(K, num_features=NF, device="cpu")
-    shapes, built, Rt = _window_inputs(tv, poses, kps, nexts, inls, C)
-    fn = ref["vo"]._ba_window_fn(C, shapes[0], shapes[1], 1)
-    (obs_cam, obs_trk, obs_uv, obs_valid, fc, fuv, lc, luv, trk_valid,
-     _) = built
-    Mj, Xj, okj, cj = fn(
-        jnp.asarray(Rt[0]), jnp.asarray(Rt[1]),
-        jnp.asarray(obs_cam, jnp.int32), jnp.asarray(obs_trk, jnp.int32),
-        jnp.asarray(obs_uv), jnp.asarray(obs_valid),
-        jnp.asarray(fc, jnp.int32), jnp.asarray(fuv),
-        jnp.asarray(lc, jnp.int32), jnp.asarray(luv),
-        jnp.asarray(trk_valid), jnp.asarray(K))
+    (tv, shapes, built, Rt), rec = ref["window"][noise]
+    Mj, okj, cj = rec["M"], rec["ok"], rec["cost"]
     Mt, Xt, okt, ct = _run_port_window(tv, shapes, built, Rt, C, 1)
     ct, cj = ct.numpy(), np.asarray(cj)
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))

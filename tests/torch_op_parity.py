@@ -71,12 +71,14 @@ def leaves(out):
     return [np.asarray(out)]
 
 
-def batch_references(cases: Dict[str, Case], jax_mod) -> Dict[str, Any]:
+def batch_references(cases: Dict[str, Case], jax_mod,
+                     options=None) -> Dict[str, Any]:
     """The JAX outputs of every case of a module from ONE compile: a
     program that takes each distinct input array once and returns every
     case's output (one XLA compile in the place of one a case, or of one
     a primitive eagerly; a second with EXACT_OPTIONS for the exact
-    cases)."""
+    cases). `options`: the compiler options of the other program
+    (FAST_OPTIONS)."""
     import jax
     arrays, slots = [], {}
 
@@ -114,7 +116,8 @@ def batch_references(cases: Dict[str, Case], jax_mod) -> Dict[str, Any]:
     out = {}
     for exact, plans in groups.items():
         out.update(jax.jit(program(plans)).lower(*arrays).compile(
-            compiler_options=EXACT_OPTIONS if exact else {})(*arrays))
+            compiler_options=EXACT_OPTIONS if exact else (options or {}))(
+                *arrays))
     return out
 
 
