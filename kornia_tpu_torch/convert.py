@@ -31,6 +31,13 @@ as its arrays (``mkd_whitening_from_numpy``). The dissolving diffusion model
 crosses as its flax parameter tree (``diffusion_from_numpy``): convs HWIO
 → OIHW, transposed convs to torch's (in, out, kH, kW) with the taps
 flipped, dense kernels transposed.
+
+XFeat crosses as its param dict (checkpoint names, HWIO convolutions, as
+DISK). ALIKED, DINOv2, DeDoDe (the detector, descriptors B and G), SOLD2
+and DeFMO cross as their flax variables (``params`` and ``batch_stats``):
+each port module's parameter table (``feature/_nets.py``) names, for every
+checkpoint entry, the flax path it comes from (HWIO → OIHW, dense kernels
+transposed).
 """
 
 from __future__ import annotations
@@ -42,13 +49,26 @@ import torch
 
 from .augmentation.video import PatchParamItem
 from .contrib.ops import KMeans
+from .feature import _nets
 from .feature.affnet import AffNet, OriNet
+from .feature.aliked import ALIKED
+from .feature.aliked import _param_rows as _aliked_rows
+from .feature.dedode import (DeDoDe, _descriptor_b_rows, _descriptor_g_rows,
+                             _detector_rows)
+from .feature.defmo import DeFMO
+from .feature.defmo import _param_rows as _defmo_rows
+from .feature.dinov2 import VIT_LARGE_CFG, DinoV2ViT, _vit
+from .feature.dinov2 import _param_rows as _dinov2_rows
 from .feature.descriptors import HyNet, KeyNet, SOSNet, TFeat
 from .feature.disk import DISK
 from .feature.extras import HardNet8
 from .feature.hardnet import HardNet
 from .feature.lightglue import LightGlue, LightGlueConfig
 from .feature.loftr import LoFTR, LoFTRConfig
+from .feature.sold2 import SOLD2
+from .feature.sold2 import _param_rows as _sold2_rows
+from .feature.xfeat import XFeat
+from .feature.xfeat import _param_rows as _xfeat_rows
 from .geometry.liegroup import Quaternion, Se3, So3
 from .geometry.registration import AdamState
 from .models.diffusion import DiffusionConfig, StableDiffusionDissolving
@@ -63,7 +83,9 @@ __all__ = ["registration_state_from_numpy", "kmeans_from_numpy",
            "plane_scene_from_numpy", "hardnet_from_numpy",
            "orinet_from_numpy", "affnet_from_numpy", "keynet_from_numpy",
            "loftr_from_numpy", "track_state_from_numpy",
-           "aug_params_from_numpy", "diffusion_from_numpy"]
+           "aug_params_from_numpy", "diffusion_from_numpy",
+           "xfeat_from_numpy", "aliked_from_numpy", "dinov2_from_numpy",
+           "dedode_from_numpy", "sold2_from_numpy", "defmo_from_numpy"]
 
 Device = Union[str, torch.device]
 
@@ -210,6 +232,77 @@ def disk_from_numpy(params: Mapping[str, Any],
     """The JAX DISK's param dict (HWIO convolutions) → DISK (OIHW inside)."""
     return DISK(params={k: np.asarray(v) for k, v in params.items()},
                 device=device)
+
+
+def xfeat_from_numpy(params: Mapping[str, Any], device: Device = "cuda",
+                     **kw) -> XFeat:
+    """The JAX XFeat's param dict (HWIO convolutions) → XFeat; `kw`:
+    XFeat's other arguments (top_k, detection_threshold)."""
+    return XFeat(params=_nets.from_flax(_xfeat_rows(), params),
+                 device=device, **kw)
+
+
+def aliked_from_numpy(variables: Mapping[str, Any],
+                      model_name: str = "aliked-n16",
+                      device: Device = "cuda", **kw) -> ALIKED:
+    """The JAX ALIKED's flax variables → ALIKED; `kw`: its other
+    arguments (num_keypoints, detection_threshold, nms_radius)."""
+    return ALIKED(model_name, params=_nets.from_flax(
+        _aliked_rows(model_name), variables), device=device, **kw)
+
+
+def _dinov2_state(variables: Mapping[str, Any], cfg: Mapping,
+                  fp=()) -> dict:
+    c = dict(VIT_LARGE_CFG, **cfg)
+    return _nets.from_flax(_dinov2_rows(
+        c["patch_size"], c["embed_dim"], c["depth"], c["mlp_ratio"],
+        c["pos_grid"], fp), variables)
+
+
+def dinov2_from_numpy(variables: Mapping[str, Any],
+                      cfg: Optional[Mapping] = None,
+                      device: Device = "cuda") -> DinoV2ViT:
+    """A JAX DinoV2ViT's flax variables (of `cfg`, VIT_LARGE_CFG's keys)
+    → DinoV2ViT."""
+    cfg = dict(cfg or {})
+    return _vit(cfg, _dinov2_state(variables, cfg), device=device)
+
+
+def dedode_from_numpy(params_det: Mapping[str, Any],
+                      params_desc: Mapping[str, Any],
+                      descriptor: str = "B", desc_dim: int = 256,
+                      vit_cfg: Optional[Mapping] = None,
+                      device: Device = "cuda", **kw) -> DeDoDe:
+    """The JAX DeDoDe's flax variables of its detector and its descriptor
+    (B, or G with its "dinov2" subtree) → DeDoDe; `kw`: num_keypoints."""
+    det = _nets.from_flax(_detector_rows(), params_det)
+    if descriptor == "G":
+        cfg = dict(VIT_LARGE_CFG, **(vit_cfg or {}))
+        desc = _nets.from_flax(_descriptor_g_rows(desc_dim,
+                                                  cfg["embed_dim"]),
+                               params_desc)
+        desc.update({f"dinov2.{k}": v for k, v in _dinov2_state(
+            params_desc, cfg, ("dinov2",)).items()})
+    else:
+        desc = _nets.from_flax(_descriptor_b_rows(desc_dim), params_desc)
+    return DeDoDe(desc_dim, descriptor=descriptor, params_det=det,
+                  params_desc=desc, vit_cfg=vit_cfg, device=device, **kw)
+
+
+def sold2_from_numpy(variables: Mapping[str, Any], device: Device = "cuda",
+                     cls=SOLD2, **kw) -> SOLD2:
+    """The JAX SOLD2Net's flax variables → SOLD2 (or `cls`, e.g.
+    SOLD2_detector); `kw`: its other arguments."""
+    return cls(params=_nets.from_flax(_sold2_rows(), variables),
+               device=device, **kw)
+
+
+def defmo_from_numpy(variables: Mapping[str, Any], tsr_steps: int = 24,
+                     device: Device = "cuda") -> DeFMO:
+    """The JAX DeFMO's flax variables → DeFMO."""
+    return DeFMO(tsr_steps, params=_nets.from_flax(_defmo_rows(),
+                                                   variables),
+                 device=device)
 
 
 def loftr_from_numpy(params: Mapping[str, Any],

@@ -1,10 +1,13 @@
-"""Local features: detectors, LAFs, descriptors, matchers (counterpart of
-``kornia_tpu/feature``; the XFeat, SOLD2, DeDoDe, ALIKED and DeFMO families
-are still to port)."""
+"""Local features: detectors, LAFs, descriptors, matchers and the learned
+families (counterpart of ``kornia_tpu/feature``)."""
 from . import (
     adalam,
+    aliked,
+    dedode,
+    defmo,
     descriptors,
     detector,
+    dinov2,
     disk,
     extras,
     hardnet,
@@ -17,6 +20,8 @@ from . import (
     orientation,
     responses,
     siftdesc,
+    sold2,
+    xfeat,
 )
 from .descriptors import (
     DiscreteSteerer,
@@ -59,6 +64,11 @@ from .disk import DISK, DISKFeatures
 from .lightglue import LightGlue, LightGlueConfig
 from .loftr import LoFTR, LoFTRConfig
 from .orientation import LAFOrienter, PassLAF, patch_dominant_gradient_orientation
+from .xfeat import XFeat
+from .sold2 import SOLD2, SOLD2_detector, SOLD2Net
+from .dedode import DeDoDe, DeDoDeDescriptor, DeDoDeDetector
+from .aliked import ALIKED, ALIKEDNet, SDDH, dkd_detect
+from .defmo import DeFMO, EncoderDeFMO, RenderingDeFMO
 from .responses import (
     dog_response,
     dog_response_single,
@@ -77,6 +87,7 @@ from .mkd import (  # noqa: F401
     Whitening,
 )
 from .extras import (  # noqa: F401
+    ALIKEDFeatures,
     BlobDoG,
     BlobDoGSingle,
     BlobHessian,
@@ -85,10 +96,12 @@ from .extras import (  # noqa: F401
     FilterResponseNorm2d,
     GeometryAwareDescriptorMatcher,
     HardNet8,
+    InterpolateSparse2d,
     KORNIA_CHECK_LAF,
     LightGlueMatcher,
     PatchDominantGradientOrientation,
     TLU,
+    XFeatModel,
     get_laf_descriptors,
     match_adalam,
 )

@@ -1,12 +1,14 @@
 """The rest of the feature API (counterpart of
-``kornia_tpu/feature/extras.py``, without the ALIKED and XFeat families,
-which wait for their modules): HardNet8, the FRN and TLU layers, the
-response-module wrappers, patch orientation as a module, descriptors at
-LAFs, and the LAF-aware matchers (AdaLAM, FGINN, LightGlue).
+``kornia_tpu/feature/extras.py``): HardNet8, the FRN and TLU layers, the
+response-module wrappers, ALIKED's output container, XFeat's sparse
+interpolation and backbone as modules, patch orientation as a module,
+descriptors at LAFs, and the LAF-aware matchers (AdaLAM, FGINN,
+LightGlue).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
@@ -31,6 +33,7 @@ __all__ = [
     "HardNet8", "hardnet8_init_params", "load_hardnet8_torch_weights",
     "FilterResponseNorm2d", "TLU",
     "CornerHarris", "CornerGFTT", "BlobHessian", "BlobDoG", "BlobDoGSingle",
+    "ALIKEDFeatures", "InterpolateSparse2d", "XFeatModel",
     "PatchDominantGradientOrientation",
     "get_laf_descriptors", "GeometryAwareDescriptorMatcher", "match_adalam",
     "LightGlueMatcher", "KORNIA_CHECK_LAF",
@@ -169,6 +172,54 @@ CornerGFTT = _fn_module(_resp.gftt_response, "CornerGFTT")
 BlobHessian = _fn_module(_resp.hessian_response, "BlobHessian")
 BlobDoG = _fn_module(_resp.dog_response, "BlobDoG")
 BlobDoGSingle = _fn_module(_resp.dog_response_single, "BlobDoGSingle")
+
+
+@dataclasses.dataclass
+class ALIKEDFeatures:
+    """One image's ALIKED output."""
+
+    keypoints: torch.Tensor
+    descriptors: torch.Tensor
+    keypoint_scores: torch.Tensor
+
+
+class InterpolateSparse2d:
+    """Bilinear or bicubic samples of a feature map at sparse pixel
+    positions, normalised as XFeat normalises them (``xfeat.py::
+    _interpolate_sparse2d``): x (B, C, h, w), pos (B, N, 2) → (B, N, C)."""
+
+    def __init__(self, mode: str = "bicubic", align_corners: bool = False):
+        self.mode = mode
+        self.align_corners = align_corners
+
+    def __call__(self, x: torch.Tensor, pos: torch.Tensor, H: int,
+                 W: int) -> torch.Tensor:
+        from .xfeat import _interpolate_sparse2d
+        return _interpolate_sparse2d(x, pos, H, W, self.mode)
+
+    forward = __call__
+
+
+class XFeatModel(nn.Module):
+    """XFeat's backbone as a module: (B, C, H, W) → (feats (B, 64, H/8,
+    W/8), keypoint logits, heatmap). `params`: the checkpoint's names and
+    layout (XFeat's); without it the weights come from `generator`, or one
+    seeded with 0 (the reference's key)."""
+
+    def __init__(self, params: Optional[Mapping] = None,
+                 generator: Optional[torch.Generator] = None,
+                 device: Device = "cuda"):
+        super().__init__()
+        from .xfeat import _with_params
+        _with_params(self, params, generator, device)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.named_parameters())
+
+    def forward(self, images: torch.Tensor):
+        from .xfeat import xfeat_model
+        return xfeat_model(self.params, as_float(images))
 
 
 class PatchDominantGradientOrientation:

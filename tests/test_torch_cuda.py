@@ -1751,3 +1751,159 @@ def test_cuda_disk_matches_cpu(cuda_device):
     v = fc.valid
     sg = {tuple(p) for p in fg.keypoints.cpu()[v].tolist()}
     assert sg == {tuple(p) for p in fc.keypoints[v].tolist()}
+
+
+# --- the learned families: XFeat, ALIKED, DeDoDe with DINOv2, SOLD2, DeFMO --
+
+def _smooth_rand(seed, shape):
+    g = torch.Generator().manual_seed(seed)
+    return t_filters.gaussian_blur2d(torch.rand(shape, generator=g), 5, 1.5)
+
+
+def _close(card, cpu, rtol=1e-4):
+    """card within rtol of max(1, the largest |cpu|)."""
+    torch.testing.assert_close(card.detach().cpu(), cpu, rtol=0,
+                               atol=rtol * max(1.0, float(cpu.abs().max())))
+
+
+def test_cuda_xfeat_matches_cpu(cuda_device):
+    from kornia_tpu_torch.feature.xfeat import XFeat, xfeat_model
+    x0 = _smooth_rand(30, (1, 1, 64, 96))
+    x1 = torch.roll(x0, 3, -1)
+    xc, xg = XFeat(top_k=256, device="cpu"), XFeat(top_k=256,
+                                                   device=cuda_device)
+    for g, c in zip(xfeat_model(xg.params, x0.to(cuda_device)),
+                    xfeat_model(xc.params, x0)):
+        _close(g, c)
+    fc = xc.detectAndCompute(x0)
+    fg = xg.detectAndCompute(x0.to(cuda_device))
+    assert torch.equal(fg["valid"].cpu(), fc["valid"])
+    v = fc["valid"]
+    kc, kg = fc["keypoints"][v], fg["keypoints"].cpu()[v]
+    sc = fc["scores"][v]
+    _close(fg["scores"].cpu()[v], sc, 1e-5)
+    # the same keypoints in the same slots, but two slots whose scores are
+    # a near tie may swap (the devices sum in other orders)
+    assert sorted(map(tuple, kg.tolist())) == sorted(map(tuple, kc.tolist()))
+    slot = {tuple(k): i for i, k in enumerate(kc.tolist())}
+    for i in (kc != kg).any(-1).nonzero()[:, 0].tolist():
+        j = slot[tuple(kg[i].tolist())]
+        assert abs(float(sc[i] - sc[j])) <= 1e-5 * float(sc.abs().max())
+
+    def pairs(m):
+        k0, k1, ok = (t.cpu() for t in m)
+        return sorted(map(tuple, torch.cat([k0, k1], -1)[ok].tolist()))
+
+    mc = xc.match_xfeat(x0, x1)
+    mg = xg.match_xfeat(x0.to(cuda_device), x1.to(cuda_device))
+    assert pairs(mg) == pairs(mc)
+    assert pairs(mc)
+
+
+def test_cuda_aliked_matches_cpu(cuda_device):
+    from kornia_tpu_torch.feature.aliked import ALIKED, _net_forward
+    x = _smooth_rand(31, (1, 3, 64, 64))
+    ac = ALIKED("aliked-t16", num_keypoints=64, device="cpu")
+    ag = ALIKED("aliked-t16", num_keypoints=64, device=cuda_device)
+    assert ag.params["desc_head.agg_weights"].device == cuda_device
+    for g, c in zip(_net_forward(ag.params, x.to(cuda_device)),
+                    _net_forward(ac.params, x)):
+        _close(g, c)
+    kc, sc, dc, vc = ac(x)
+    kg, sg, dg, vg = ag(x.to(cuda_device))
+    assert torch.equal(vg.cpu(), vc)
+    torch.testing.assert_close(kg.cpu()[vc], kc[vc], atol=1e-3, rtol=0)
+    torch.testing.assert_close(dg.cpu()[vc], dc[vc], atol=1e-4, rtol=0)
+
+
+def test_cuda_dedode_matches_cpu(cuda_device):
+    """Detector L and descriptor B at 64x64, G on a DINOv2 of 2 layers at
+    56x56 (1e-3: attention sums in another order on the card)."""
+    from kornia_tpu_torch.feature.dedode import DeDoDe
+    x = _smooth_rand(32, (1, 3, 64, 64))
+    bc = DeDoDe(num_keypoints=128, device="cpu")
+    bg = DeDoDe(num_keypoints=128, device=cuda_device)
+    xc, xg = bc._prep(x), bg._prep(x.to(cuda_device))
+    _close(bg.detector(xg), bc.detector(xc))
+    _close(bg.descriptor(xg), bc.descriptor(xc))
+    kc, _, _ = bc(x)
+    kg, _, _ = bg(x.to(cuda_device))
+    same = torch.isclose(kg.cpu(), kc, rtol=0, atol=1e-4).all(-1)
+    assert float(same.float().mean()) >= 0.99
+    vit = dict(embed_dim=64, depth=2, num_heads=2, pos_grid=5)
+    xs = x[..., :56, :56].contiguous()
+    gc = DeDoDe(descriptor="G", vit_cfg=vit, device="cpu")
+    gg = DeDoDe(descriptor="G", vit_cfg=vit, device=cuda_device)
+    _close(gg.describe(xs.to(cuda_device)), gc.describe(xs), 1e-3)
+
+
+def test_cuda_dedode_density_is_the_fused_kernel(cuda_device):
+    """sample_keypoints' 51-tap coverage density launches the fused blur
+    (constant border), which matches its plain version on the pair's
+    480x640 score maps."""
+    from kornia_tpu_torch.core.grid import linspace
+    from kornia_tpu_torch.feature.dedode import sample_keypoints
+    g = torch.Generator().manual_seed(33)
+    logits = torch.randn((2, 480 * 640), generator=g)
+    score = torch.softmax(logits, -1).reshape(2, 480, 640)
+    before = K.launches["fused_separable_blur2d"]
+    kg, sg = sample_keypoints(score.to(cuda_device), 2048)
+    torch.cuda.synchronize()
+    assert K.launches["fused_separable_blur2d"] == before + 1
+    kc, sc = sample_keypoints(score, 2048)
+    same = torch.isclose(kg.cpu(), kc, rtol=0, atol=1e-6).all(-1)
+    assert float(same.float().mean()) >= 0.99
+    w = torch.exp(-linspace(-2.0, 2.0, 51, cuda_device) ** 2)
+    x = torch.rand((2, 1, 480, 640), generator=g).to(cuda_device)
+    out = K.fused_separable_blur2d(x, w, w, "constant")
+    ref = K.fused_separable_blur2d_plain(x, w, w, "constant")
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+def test_cuda_sold2_matches_cpu(cuda_device):
+    from kornia_tpu_torch.feature import sold2 as S
+    x = _smooth_rand(34, (1, 1, 64, 64))
+    sc, sg = S.SOLD2(device="cpu"), S.SOLD2(device=cuda_device)
+    oc, og = sc.net(x), sg.net(x.to(cuda_device))
+    for k in oc:
+        _close(og[k], oc[k])
+    heat = torch.zeros((64, 80))
+    heat[20, 10:51] = 1.0
+    heat[10:41, 40] = 1.0
+    heat = (t_filters.gaussian_blur2d(heat[None, None], 5, 0.7)[0, 0] * 2.5
+            ).clamp(0, 1)
+    junc = torch.tensor([[20.0, 10.0], [20.0, 50.0], [10.0, 40.0],
+                         [40.0, 40.0], [20.0, 30.0], [5.0, 5.0]])
+    valid = torch.ones(6, dtype=torch.bool)
+    for sampling in ("local_max", "bilinear"):
+        for mode in ("global", "local"):
+            ac, scc = S.detect_line_segments(junc, valid, heat,
+                                             sampling=sampling,
+                                             heatmap_refine_mode=mode)
+            ag, scg = S.detect_line_segments(
+                junc.to(cuda_device), valid.to(cuda_device),
+                heat.to(cuda_device), sampling=sampling,
+                heatmap_refine_mode=mode)
+            assert torch.equal(ag.cpu(), ac), (sampling, mode)
+            torch.testing.assert_close(scg.cpu(), scc, atol=1e-5, rtol=0)
+    segs, mask = S.adjacency_to_segments(junc, ac, scc, 8)
+    rc = S.refine_segments_perturb(segs, mask, heat)
+    rg = S.refine_segments_perturb(segs.to(cuda_device),
+                                   mask.to(cuda_device),
+                                   heat.to(cuda_device))
+    torch.testing.assert_close(rg.cpu(), rc, atol=1e-3, rtol=0)
+    d = torch.nn.functional.normalize(torch.randn((6, 5, 16), generator=(
+        torch.Generator().manual_seed(35))), dim=-1)
+    v = torch.ones(6, dtype=torch.bool)
+    assert torch.equal(S.match_lines_nw(d.to(cuda_device), d.flip(1).to(
+        cuda_device), v.to(cuda_device), v.to(cuda_device)).cpu(),
+        S.match_lines_nw(d, d.flip(1), v, v))
+
+
+def test_cuda_defmo_matches_cpu(cuda_device):
+    from kornia_tpu_torch.feature.defmo import DeFMO
+    x = torch.rand((1, 6, 32, 48), generator=torch.Generator().manual_seed(
+        36))
+    _close(DeFMO(4, device=cuda_device)(x.to(cuda_device)),
+           DeFMO(4, device="cpu")(x))

@@ -41,15 +41,6 @@ STILL_TO_PORT = {
         "batch_keys", "export_mixin", "key_iter", "rng", "split_key",
         "unwrap", "wrap", "wrapper",
     },
-    "feature": {
-        # feature/{xfeat,sold2,dedode,aliked,defmo}.py and extras.py's
-        # wrappers of them
-        "ALIKED", "ALIKEDFeatures", "ALIKEDNet", "DeDoDe",
-        "DeDoDeDescriptor", "DeDoDeDetector", "DeFMO", "EncoderDeFMO",
-        "InterpolateSparse2d", "RenderingDeFMO", "SDDH", "SOLD2",
-        "SOLD2Net", "SOLD2_detector", "XFeat", "XFeatModel", "aliked",
-        "dedode", "defmo", "dkd_detect", "sold2", "xfeat",
-    },
     "models": {
         # every model family but the diffusion model and common.py
         "ConvNormAct", "DETRPostProcessor", "DecoderConfig", "DecoderLM",

@@ -83,7 +83,7 @@ def test_the_twins_are_found():
     """The walk reaches every ported module with a twin, this slice's
     included."""
     ids = {p.id for p in _twins()}
-    assert len(ids) >= 804
+    assert len(ids) >= 840
     for name in ("ops.warp.resize", "ops.filters.spatial_gradient",
                  "feature.descriptors.TFeat", "feature.descriptors.HyNet",
                  "feature.descriptors.LAFAffineShapeEstimator",
@@ -171,5 +171,15 @@ def test_the_twins_are_found():
                  "models.common.nchw_to_nhwc",
                  "models.diffusion.StableDiffusionDissolving",
                  "models.diffusion.UNet2dCondition",
-                 "models.diffusion.DDIMSchedule"):
+                 "models.diffusion.DDIMSchedule",
+                 "feature.xfeat.XFeat", "feature.xfeat.xfeat_model",
+                 "feature.aliked.ALIKED", "feature.aliked.SDDH",
+                 "feature.aliked.dkd_detect", "feature.dinov2.DinoV2ViT",
+                 "feature.dedode.DeDoDe", "feature.dedode.DeDoDeDescriptorG",
+                 "feature.dedode.sample_keypoints", "feature.sold2.SOLD2",
+                 "feature.sold2.detect_line_segments",
+                 "feature.sold2.refine_segments_perturb",
+                 "feature.defmo.DeFMO", "feature.defmo.RenderingDeFMO",
+                 "feature.extras.XFeatModel",
+                 "feature.extras.InterpolateSparse2d"):
         assert name in ids

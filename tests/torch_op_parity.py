@@ -202,3 +202,212 @@ def check_grad(jax_fn, torch_fn, x: np.ndarray, rtol: float = 1e-4):
     assert np.isfinite(gt).all()
     assert float(np.abs(gt - gj).max()) <= rtol * scale, \
         (float(np.abs(gt - gj).max()), scale)
+
+
+def flax_variables(rows, seed: int) -> Dict[str, Any]:
+    """Flax variables ({"params": ..., "batch_stats": ...}) for a port
+    module's parameter table (``kornia_tpu_torch/feature/_nets.py``),
+    drawn with numpy in the torch layout and written at each row's flax
+    path in flax's layout: weights normal with variance 1 / fan-in, batch
+    norm scales near 1, biases and running means small, running variances
+    near 1. A wrong path or shape fails the JAX module's apply."""
+    rng = np.random.default_rng(seed)
+    tree: Dict[str, Any] = {}
+    for name, shape, path, kind in rows:
+        leaf = name.rsplit(".", 1)[-1]
+        if kind == "token":
+            v = rng.normal(0, 0.02, shape)
+        elif kind == "vec":
+            if leaf == "running_var":
+                v = rng.uniform(0.5, 1.5, shape)
+            elif leaf in ("weight", "gamma"):
+                v = rng.uniform(0.8, 1.2, shape)
+            else:
+                v = rng.normal(0, 0.05, shape)
+        else:
+            v = rng.normal(0, 1 / np.sqrt(np.prod(shape[1:])), shape)
+        v = v.astype(np.float32)
+        if kind == "conv":
+            v = v.transpose(2, 3, 1, 0)
+        elif kind == "dense":
+            v = v.T
+        elif kind == "dense1x1":
+            v = v[:, :, 0, 0].T
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(v)
+    return tree
+
+
+def compile_parallel(programs, options=None):
+    """Compile jitted programs side by side: each entry of `programs` is
+    (fn, args) or (fn, args, options), args arrays or
+    ``jax.ShapeDtypeStruct`` trees (a program that consumes another's
+    output is lowered from that output's shapes). They are traced one
+    after the other and compiled in threads (XLA's compiler releases the
+    GIL), so a module's references cost about its costliest compile; the
+    caller runs the executables in order. `options`: the compiler options
+    of the entries without their own (FAST_OPTIONS)."""
+    import jax
+    from concurrent.futures import ThreadPoolExecutor
+    lowered = [(jax.jit(p[0]).lower(*p[1]), p[2] if len(p) > 2 else options)
+               for p in programs]
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        return list(pool.map(lambda lo: lo[0].compile(lo[1] or {}),
+                             lowered))
+
+
+def _threefry2x32(key, x0, x1):
+    """JAX's threefry2x32 block on one pair of uint32 words, in numpy."""
+    def rotl(x, r):
+        return np.uint32((x << np.uint32(r)) | (x >> np.uint32(32 - r)))
+
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = [k0, k1, np.uint32(k0 ^ k1 ^ np.uint32(0x1BD11BDA))]
+    rot = [(13, 15, 26, 6), (17, 29, 16, 24)]
+    with np.errstate(over="ignore"):
+        x = [np.uint32(np.uint32(x0) + ks[0]),
+             np.uint32(np.uint32(x1) + ks[1])]
+        for i in range(5):
+            for r in rot[i % 2]:
+                x[0] = np.uint32(x[0] + x[1])
+                x[1] = np.uint32(x[0] ^ rotl(x[1], r))
+            x[0] = np.uint32(x[0] + ks[(i + 1) % 3])
+            x[1] = np.uint32(x[1] + ks[(i + 2) % 3] + np.uint32(i + 1))
+    return np.array(x, np.uint32)
+
+
+def _check_flax_internals() -> None:
+    """flax_init_program patches flax.core.scope's Scope.param,
+    Scope.variable, random.fold_in and jnp, and computes the fold-ins with
+    _threefry2x32: fail loudly, not with other values, where a flax or JAX
+    release changed any of them."""
+    import inspect
+
+    import jax
+    from flax.core import scope as flax_scope
+
+    def names(fn):
+        return list(inspect.signature(fn).parameters)
+
+    assert names(flax_scope.Scope.param) == [
+        "self", "name", "init_fn", "init_args", "unbox", "init_kwargs"]
+    assert names(flax_scope.Scope.variable)[:5] == [
+        "self", "col", "name", "init_fn", "init_args"]
+    assert flax_scope.random is jax.random
+    assert "random.fold_in(rng, jnp.uint32(hash_int))" in inspect.getsource(
+        flax_scope._fold_in_static)
+    key = jax.random.PRNGKey(7)
+    np.testing.assert_array_equal(
+        _threefry2x32(np.asarray(key), 0, 123456789),
+        np.asarray(jax.random.fold_in(key, np.uint32(123456789))))
+
+
+class _FoldedKey:
+    """A stand-in for the key ``jax.random.fold_in(root, data)``."""
+
+    def __init__(self, data):
+        self.data = int(data)
+
+
+def flax_init_program(init, key):
+    """A flax init, `init(key)`, as a program that compiles in a fraction
+    of the time: (fn, args, finish, avals); fn(*args) is compiled (with
+    FAST_OPTIONS) and run, ``finish(fn(*args))`` gives the init's
+    variables, and `avals` their shapes (for lowering a program that
+    takes them).
+
+    A jitted init compiles one threefry fold-in and one draw a parameter
+    (SOLD2Net's about 400: 10 s). Here the init is only traced
+    (``jax.eval_shape``) with flax's fold-ins and initializer calls
+    recorded; each parameter's key, ``fold_in(key, hash of its path)``, is
+    computed in numpy (``_threefry2x32``), and fn draws the parameters that
+    share an initializer and its arguments by one ``jax.vmap`` over their
+    keys, which gives each key the values of its own draw. The other
+    collections (batch statistics) come from their constant initializers.
+    Compiled with XLA's default options the values are the init's bit for
+    bit; FAST_OPTIONS' LLVM O0 rounds the truncated normal's erfinv a few
+    ulps apart, far inside the golden tests' 1e-4."""
+    import jax
+    from flax.core import scope as flax_scope
+
+    _check_flax_internals()
+    params, others = [], []
+    orig_param, orig_variable = (flax_scope.Scope.param,
+                                 flax_scope.Scope.variable)
+    orig_fold, orig_jnp = flax_scope.random.fold_in, flax_scope.jnp
+
+    def param(self, name, init_fn, *init_args, unbox=True, **init_kwargs):
+        def record(rng, *args, **kwargs):
+            params.append(((*self.path, name), init_fn, args,
+                           tuple(sorted(kwargs.items())), rng))
+            shape = args[0] if args and isinstance(args[0], tuple) else \
+                jax.eval_shape(lambda: init_fn(jax.random.PRNGKey(0), *args,
+                                               **kwargs)).shape
+            return jnp.zeros(shape)
+        return orig_param(self, name, record, *init_args, unbox=unbox,
+                          **init_kwargs)
+
+    def variable(self, col, name, init_fn=None, *init_args, **kwargs):
+        if init_fn is not None and col != "params":
+            others.append((col, (*self.path, name), init_fn, init_args))
+        return orig_variable(self, col, name, init_fn, *init_args, **kwargs)
+
+    class _Jnp:
+        """flax's ``jnp.uint32(hash)`` as a host number."""
+        uint32 = np.uint32
+
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+    flax_scope.Scope.param = param
+    flax_scope.Scope.variable = variable
+    flax_scope.random.fold_in = lambda rng, data: _FoldedKey(data)
+    flax_scope.jnp = _Jnp()
+    try:
+        # a fresh function: eval_shape keeps the trace in jit's cache, and
+        # this trace, with its recorded draws, must serve no later call
+        jax.eval_shape(lambda k: init(k), key)
+    finally:
+        flax_scope.Scope.param = orig_param
+        flax_scope.Scope.variable = orig_variable
+        flax_scope.random.fold_in = orig_fold
+        flax_scope.jnp = orig_jnp
+    root = np.asarray(key)
+    keys = [jnp.asarray(_threefry2x32(root, 0, r.data)
+                        if isinstance(r, _FoldedKey) else root)
+            for *_, r in params]
+    groups = {}
+    for i, (_, fn, args, kwargs, _) in enumerate(params):
+        groups.setdefault((id(fn), repr(args), repr(kwargs)), []).append(i)
+
+    def draw(keys):
+        out = {}
+        for idx in groups.values():
+            _, fn, args, kwargs, _ = params[idx[0]]
+            vals = jax.vmap(lambda k: fn(k, *args, **dict(kwargs)))(
+                jnp.stack([keys[i] for i in idx]))
+            out.update({i: vals[j] for j, i in enumerate(idx)})
+        return [out[i] for i in range(len(params))]
+
+    def build(leaves, other):
+        variables: Dict[str, Any] = {}
+
+        def put(col, path, v):
+            node = variables.setdefault(col, {})
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = v
+
+        for (path, *_), v in zip(params, leaves):
+            put("params", path, v)
+        for (col, path, _, _), v in zip(others, other):
+            put(col, path, v)
+        return variables
+
+    other = [np.asarray(fn(*args)) for _, _, fn, args in others]
+    shapes = jax.eval_shape(draw, keys)
+    return (draw, [keys], lambda drawn: build(drawn, other),
+            build(shapes, [jax.ShapeDtypeStruct(v.shape, v.dtype)
+                           for v in other]))
