@@ -289,11 +289,45 @@ It builds the port's CUDA kernels from ``kornia_tpu_torch/csrc`` with nvcc
    fused blur of (c)'s detections (DeDoDe's 51-tap coverage density)
    captured and held against its plain version on its ROUTES route, and
    timed against its one library call, F.conv2d with the 51x51 outer
-   product and zero padding. It prints one JSON line of its own.
+   product and zero padding. It prints one JSON line of its own;
+19. detect_dense: the detection and dense-prediction models at published
+   widths with seeded weights, under f32_precision; each part timed on the
+   host clock around synchronised calls (median of 5) by stage, with the
+   device's busy share and kernels in one profiled call and peak memory.
+   (a) ``contrib.BoxMotTracker(detector=RTDETR(RTDETRConfig()).detect)``
+   (r18vd at 640, 300 queries, 3 decoder layers, 80 classes) over 30
+   seeded frames at MOT17-02's geometry (1x3x1080x1920) whose boxes are
+   ``mot_stream``'s targets, ms a frame split into detect and track;
+   (b) the same frames through ``BoxTracker()`` with no detector
+   (``ObjectDetector()`` at 320: 1,600 cells into the NMS); (c)
+   ``RTDETR(RTDETRConfig("hgnetv2_l")).detect`` on one frame and on 8;
+   (d) ``FaceDetector()`` on 1x3x480x640, model, decode and NMS timed
+   apart, the NMS's kernels counted; (e) ``EdgeDetector()`` on
+   1x3x480x640; (f) ``SuperResolution()`` (SmallSR x2) on 1x3x480x640 and
+   ``RRDBNetBuilder.build("RealESRGAN_x4plus")`` on 1x3x256x256; (g)
+   ``DepthAnything`` vits and vitb on 1x3x518x518. YuNet's and RRDBNet's
+   seeded weights are rescaled so that their outputs are O(1) (the draws
+   leave them near 1e-9 and 1e-5; ``tests/torch_unit_scale.py``). Then the
+   card against the CPU port with the same weights: net outputs within
+   1e-4 of their own largest |value| (RT-DETR's encoder class maxima, and
+   its logits and boxes on a frame, the CPU's decoder run from the card's
+   selected queries; the NMS and face inputs, computed from the nets'
+   outputs; edge maps, SR images at 480x640 and RRDBNet at 64x64 with its
+   full depth, depth maps at 266x266 with the parameters drawn at 518 so
+   that the bicubic position-table resize runs); RT-DETR's query set equal
+   but at near ties; the post-processor's rows (but two swapped at an
+   ulp-level score tie), the NMS keep sets and the face rows of the CPU
+   port on the card's inputs to them equal to the card's; the track ids
+   of (a) and (b) over the 30 frames equal to those of the CPU tracker fed
+   the card's detections. The step
+   launches none of the port's hand-written kernels: every launch counter
+   is read around one call of each part and must stay 0. It prints one
+   JSON line of its own.
 
 Each of steps 2, 4, 5, 6, 8, 9, 10 (its paths (a) and (b)), 11 (each of
-its paths), 13 (c), 14, 15, 16, 17 and 18 resets the launch counters just before it
-drives its path and reads them just after; every kernel must have launched on its path. Every failure exits non-zero.
+its paths), 13 (c), 14, 15, 16, 17, 18 and 19 resets the launch counters just
+before it drives its path and reads them just after; every kernel must have
+launched on its path (step 19's path launches none, and must not). Every failure exits non-zero.
 The last lines are one JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 before printing any result.
@@ -7177,6 +7211,529 @@ def learned_families_phase(K, dev) -> dict:
     return dict(kernels=results, counts=counts, **out)
 
 
+# --- step 19: detection and dense prediction -------------------------------------
+
+DD_REPS = 5              # host-clock calls a part, median
+DD_FRAMES = 30           # (a), (b): frames at MOT17-02's geometry
+DD_HG_BATCH = 8          # (c)'s batch
+DD_HW = (480, 640)       # faces, edges, SmallSR
+RRDB_HW, RRDB_XCHECK_HW = (256, 256), (64, 64)
+DEPTH_HW, DEPTH_XCHECK_HW = (518, 518), (266, 266)
+DD_NET_RTOL = 1e-4       # card vs CPU net outputs, of their largest |value|
+DD_TIE_RTOL = 1e-4       # a score this close to the cut (of the largest) ties
+DD_ROW_ATOL = 1e-5       # the CPU's post-processing of the card's inputs
+
+
+def dd_frames(dev, n: int = DD_FRAMES):
+    """n frames (1, 3, 1080, 1920) on the card: a smooth seeded background
+    with mot_stream's first n frames of targets painted on it, a colour
+    and a stripe texture a target; and those frames' ground truth."""
+    import torch.nn.functional as F
+    _, gt = mot_stream()
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    base = F.interpolate(torch.rand((1, 3, MOT_H // 16, MOT_W // 16),
+                                    device=dev, generator=g),
+                         size=(MOT_H, MOT_W), mode="bilinear",
+                         align_corners=False) * 0.5 + 0.25
+    palette = torch.rand((256, 3, 1, 1), device=dev, generator=g)
+    yy = torch.arange(MOT_H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(MOT_W, device=dev, dtype=torch.float32)[None]
+    stripe = 0.85 + 0.15 * torch.sin(yy / 4.0) * torch.cos(xx / 6.0)
+    frames = []
+    for gids, boxes in gt[:n]:
+        f = base.clone()
+        for i, (x0, y0, x1, y1) in zip(gids, np.round(boxes).astype(int)):
+            f[0, :, y0:y1, x0:x1] = palette[i % 256] * stripe[y0:y1, x0:x1]
+        frames.append(f)
+    torch.cuda.synchronize()
+    return frames, gt[:n]
+
+
+def _dd_part(name: str, stages: dict, call, extra: dict) -> dict:
+    """A part's numbers, as step 18's _part: each stage's median ms, the
+    whole call's, busy share and kernels of one profiled call, peak
+    bytes."""
+    stage_ms = {k: median_ms(f, DD_REPS)[0] for k, f in stages.items()}
+    ms = median_ms(call, DD_REPS)[0]
+    busy, n_k, _ = device_profile(call)
+    res = dict(ms=ms, stage_ms=stage_ms, busy_ms=busy, busy_share=busy / ms,
+               kernels=n_k, peak_bytes=peak_bytes(call), **extra)
+    print(f"detect dense {name}: {ms:.2f} ms a call, stages "
+          f"{ {k: round(v, 3) for k, v in stage_ms.items()} }, busy "
+          f"{res['busy_share']:.3f}, {n_k} kernels, peak "
+          f"{res['peak_bytes']} B, {extra}")
+    return res
+
+
+def _dd_gate(what: str, value: float, limit: float) -> None:
+    if not value <= limit:
+        fail(f"detect dense xcheck {what}: {value} > {limit}")
+
+
+def _dd_net(out: dict, key: str, card, cpu, what: str) -> None:
+    """The card against the CPU at the output's own scale: out[key] =
+    max |card - cpu| / max |cpu|, out[key + "_scale"] = max |cpu|, gated
+    at DD_NET_RTOL."""
+    card, cpu = card.detach().cpu(), cpu.detach().cpu()
+    scale = float(cpu.abs().max())
+    if not scale > 0:
+        fail(f"detect dense xcheck {what}: an all-zero reference")
+    out[key] = float((card - cpu).abs().max()) / scale
+    out[key + "_scale"] = scale
+    _dd_gate(what, out[key], DD_NET_RTOL)
+
+
+def face_inputs(fd, out: dict, hw) -> tuple:
+    """FaceDetector's NMS inputs from YuNet's outputs `out` on an image of
+    `hw`: the decoded boxes (B, N, 14) in pixels and the scores (B, N),
+    zero at or below the confidence threshold."""
+    from kornia_tpu_torch.models.yunet import VARIANCE, decode, prior_boxes
+    H, W = hw
+    dev = out["loc"].device
+    boxes = decode(out["loc"], prior_boxes((H, W), device=dev), VARIANCE)
+    boxes = boxes * torch.tensor([W, H] * 7, dtype=boxes.dtype, device=dev)
+    scores = torch.sqrt(out["conf"][..., 1]
+                        * out["iou"][..., 0].clamp(0.0, 1.0))
+    return boxes, torch.where(scores > fd.confidence_threshold, scores, 0.0)
+
+
+def object_inputs(od, frame) -> tuple:
+    """ObjectDetector's NMS inputs from its head's outputs on `frame`:
+    the boxes (B, N, 4) in the frame's pixels, the best score and class
+    of each cell (B, N)."""
+    from kornia_tpu_torch.ops.warp import resize
+    B, _, H, W = frame.shape
+    S = od.input_size
+    cls, reg = od.module(resize(frame, (S, S)))
+    Hc, Wc = cls.shape[-2:]
+    stride = S / Hc
+    score, best = torch.sigmoid(cls).permute(0, 2, 3, 1).reshape(
+        B, -1, od.num_classes).max(-1)
+    dev = frame.device
+    ys, xs = torch.meshgrid(torch.arange(Hc, dtype=torch.float32, device=dev),
+                            torch.arange(Wc, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    cx = ((xs + 0.5) * stride).reshape(-1)
+    cy = ((ys + 0.5) * stride).reshape(-1)
+    reg = reg.permute(0, 2, 3, 1).reshape(B, -1, 4) * stride
+    sx, sy = W / S, H / S
+    boxes = torch.stack([(cx - reg[..., 0]) * sx, (cy - reg[..., 1]) * sy,
+                         (cx + reg[..., 2]) * sx, (cy + reg[..., 3]) * sy], -1)
+    return boxes, score, best
+
+
+def _tracked(tracker, frames) -> tuple:
+    """The frames through ``tracker.update`` (its detector's output
+    recorded): (detections a frame, ids a frame, valid a frame), on the
+    CPU."""
+    bt = tracker._tracker if hasattr(tracker, "_tracker") else tracker
+    det, rec = bt.detector, []
+
+    def recording(img):
+        out = det(img)
+        rec.append(out[0].cpu())
+        return out
+
+    bt.detector = recording
+    bt.reset()
+    ids, valid = [], []
+    try:
+        for f in frames:
+            _, tid, _, _, v = tracker.update(f)
+            ids.append(tid.cpu())
+            valid.append(v.cpu())
+    finally:
+        bt.detector = det
+    return rec, ids, valid
+
+
+def _frame_split(tracker, frames) -> dict:
+    """Whole frames through ``tracker.update`` and, on a second pass, the
+    detector and the tracker's update timed apart: median ms a frame of
+    each (host clock, synchronised)."""
+    bt = tracker._tracker if hasattr(tracker, "_tracker") else tracker
+    whole, det_ms, trk_ms = [], [], []
+    for timed in (True, False):
+        bt.reset()
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if timed:
+                tracker.update(f)
+                torch.cuda.synchronize()
+                whole.append((time.perf_counter() - t0) * 1e3)
+                continue
+            d = bt.detector(f)[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bt.state = bt.tracker.update(bt.state, d)
+            bt.tracker.current_tracks(bt.state)
+            torch.cuda.synchronize()
+            det_ms.append((t1 - t0) * 1e3)
+            trk_ms.append((time.perf_counter() - t1) * 1e3)
+    return dict(frame_ms=statistics.median(whole),
+                detect_ms=statistics.median(det_ms),
+                track_ms=statistics.median(trk_ms))
+
+
+def _track_part(name: str, tracker, frames) -> dict:
+    """(a), (b): ms a frame split into detect and track, one profiled
+    frame, peak bytes; the recorded detections and ids for the gates."""
+    split = _frame_split(tracker, frames)
+    busy, n_k, _ = device_profile(lambda: tracker.update(frames[0]))
+    dets, ids, valid = _tracked(tracker, frames)
+    res = dict(ms=split["frame_ms"], stage_ms={
+        "detect": split["detect_ms"], "track": split["track_ms"]},
+        busy_ms=busy, busy_share=busy / split["frame_ms"], kernels=n_k,
+        peak_bytes=peak_bytes(lambda: tracker.update(frames[0])),
+        tracks=int(valid[-1].sum()),
+        detections=[int((d[:, 1] > 0).sum()) for d in dets[:3]])
+    print(f"detect dense {name}: {res['ms']:.2f} ms a frame (detect "
+          f"{split['detect_ms']:.2f}, track {split['track_ms']:.2f}), busy "
+          f"{res['busy_share']:.3f}, {n_k} kernels a frame, peak "
+          f"{res['peak_bytes']} B, {res['tracks']} tracks at the end")
+    return dict(res, dets=dets, ids=ids, valid=valid)
+
+
+def dd_rtdetr_track(dev, frames) -> dict:
+    """(a) BoxMotTracker around RT-DETR r18vd's detect."""
+    from kornia_tpu_torch.contrib import BoxMotTracker
+    from kornia_tpu_torch.models.rt_detr import RTDETR, RTDETRConfig
+    model = RTDETR(RTDETRConfig(), device=dev)
+    tracker = BoxMotTracker(detector=model.detect, device=dev)
+    return dict(_track_part("(a) RT-DETR + ByteTrack", tracker, frames),
+                model=model, tracker=tracker)
+
+
+def dd_default_track(frames) -> dict:
+    """(b) BoxTracker() with no detector: ObjectDetector() at 320."""
+    from kornia_tpu_torch.tracking.bytetrack import BoxTracker
+    tracker = BoxTracker()
+    return dict(_track_part("(b) BoxTracker()", tracker, frames),
+                tracker=tracker)
+
+
+def dd_hgnet(dev, frames) -> dict:
+    """(c) RT-DETR with HGNetv2-L on one frame and on a batch of 8."""
+    from kornia_tpu_torch.models.rt_detr import RTDETR, RTDETRConfig
+    model = RTDETR(RTDETRConfig(model_type="hgnetv2_l"), device=dev)
+    batch = torch.cat(frames[:DD_HG_BATCH])
+    res = _dd_part("(c) RT-DETR HGNetv2-L", {
+        "detect batch 8": lambda: model.detect(batch)},
+        lambda: model.detect(frames[0]), dict(batch=DD_HG_BATCH))
+    return dict(res, model=model)
+
+
+def dd_inputs(frames):
+    """A seeded 480x640 RGB image: the first frame resized."""
+    from kornia_tpu_torch.ops.warp import resize
+    return resize(frames[0], DD_HW)
+
+
+def dd_faces(dev, img) -> dict:
+    """(d) FaceDetector() at its defaults, its seeded YuNet rescaled
+    (tests/torch_unit_scale.py): model, decode and the 5,000-candidate
+    NMS timed apart; the NMS's kernels counted."""
+    from kornia_tpu_torch.contrib.detection import FaceDetector
+    from kornia_tpu_torch.geometry.bbox import nms
+    from tests.torch_unit_scale import yunet_unit_scale
+    fd = FaceDetector(params=yunet_unit_scale(FaceDetector().model.params))
+    out = fd.model(img)
+    boxes, scores = face_inputs(fd, out, DD_HW)
+    s_k, idx = torch.sort(scores[0], descending=True, stable=True)
+    b_k = boxes[0][idx[:fd.top_k], :4]
+    s_k = s_k[:fd.top_k]
+    nms_ms = median_ms(lambda: nms(b_k, s_k, fd.nms_threshold), DD_REPS)[0]
+    nms_busy, nms_kernels, _ = device_profile(
+        lambda: nms(b_k, s_k, fd.nms_threshold))
+    faces = fd(img)
+    res = _dd_part("(d) FaceDetector()", {
+        "model": lambda: fd.model(img),
+        "decode": lambda: face_inputs(fd, out, DD_HW),
+        "top-k, NMS, compaction": lambda: fd.postprocess_one(boxes[0],
+                                                             scores[0])},
+        lambda: fd(img), dict(
+            candidates=int(min(fd.top_k, scores.shape[1])),
+            above_threshold=int((scores[0] > 0).sum()),
+            faces=int((faces[0].score > 0).sum()), nms_ms=nms_ms,
+            nms_busy_ms=nms_busy, nms_kernels=nms_kernels,
+            nms_kernels_a_step=nms_kernels / b_k.shape[0]))
+    return dict(res, fd=fd, out=out, boxes=boxes, scores=scores,
+                rows=faces[0].data)
+
+
+def dd_edges(img) -> dict:
+    """(e) EdgeDetector() on 480x640."""
+    from kornia_tpu_torch.contrib.detection import EdgeDetector
+    ed = EdgeDetector()
+    res = _dd_part("(e) EdgeDetector()", {}, lambda: ed(img), {})
+    return dict(res, ed=ed, edges=ed(img))
+
+
+def dd_super_resolution(dev, img) -> dict:
+    """(f) SuperResolution() (SmallSR x2) on 480x640 and Real-ESRGAN x4plus
+    (its seeded weights rescaled, tests/torch_unit_scale.py) on 256x256 →
+    1024x1024."""
+    from kornia_tpu_torch.contrib import SuperResolution
+    from kornia_tpu_torch.models.rrdbnet import RRDBNetBuilder
+    from tests.torch_unit_scale import rrdbnet_unit_scale
+    sr = SuperResolution()
+    small = sr(img)
+    esr = RRDBNetBuilder.build("RealESRGAN_x4plus", rrdbnet_unit_scale(
+        RRDBNetBuilder.build("RealESRGAN_x4plus", device=dev).model.params),
+        device=dev)
+    x = img[..., :RRDB_HW[0], :RRDB_HW[1]].contiguous()
+    big = esr(x)
+    res = _dd_part("(f) SmallSR x2, RealESRGAN_x4plus", {
+        "SmallSR 480x640": lambda: sr(img),
+        "RealESRGAN_x4plus 256x256": lambda: esr(x)},
+        lambda: (sr(img), esr(x)),
+        dict(small_shape=list(small.shape), big_shape=list(big.shape)))
+    return dict(res, sr=sr, esr=esr, small=small)
+
+
+def dd_depth(dev, img) -> dict:
+    """(g) Depth Anything ViT-S and ViT-B at 518x518 (parameters drawn at
+    the first call, on that grid)."""
+    from kornia_tpu_torch.models.depth_anything import (DepthAnything,
+                                                        DepthAnythingConfig)
+    from kornia_tpu_torch.ops.warp import resize
+    x = resize(img, DEPTH_HW)
+    nets = {"vits": DepthAnything(DepthAnythingConfig.vits()),
+            "vitb": DepthAnything(DepthAnythingConfig.vitb())}
+    shapes = {k: list(m(x).shape) for k, m in nets.items()}
+    res = _dd_part("(g) DepthAnything", {
+        k: (lambda m=m: m(x)) for k, m in nets.items()},
+        lambda: [m(x) for m in nets.values()], dict(shapes=shapes))
+    return dict(res, nets=nets)
+
+
+def _rtdetr_xcheck(model, frame, what: str) -> dict:
+    """A frame through ``model`` on the card and through its CPU twin (the
+    same weights), the CPU's decoder run from the card's selected queries:
+    the encoder's class maxima, logits and boxes; the CPU's own query set
+    equal but at near ties; the CPU post-processor's rows on the card's
+    outputs."""
+    from kornia_tpu_torch.models import rt_detr as R
+    from kornia_tpu_torch.ops.warp import resize
+    cpu = R.RTDETR(model.cfg, {k: v.cpu() for k, v in model.params.items()},
+                   device="cpu")
+    x = resize(frame, (model.cfg.input_size, model.cfg.input_size))
+    lg, bg, sg, qg = R._forward(model.params, model.cfg, x)
+    lc, bc, sc, qc = R._forward(cpu.params, cpu.cfg, x.cpu(), qg.cpu())
+    qg = qg.cpu()
+    out = dict(queries=qc.shape[-1])
+    _dd_net(out, "enc_scores_rel", sg, sc, f"{what} encoder class maxima")
+    _dd_net(out, "logits_rel", lg, lc, f"{what} logits")
+    _dd_net(out, "boxes_rel", bg, bc, f"{what} boxes")
+    cut = float(sc[0, qc[0, -1]])
+    tol = DD_TIE_RTOL * float(sc.abs().max())
+    untied = sum(abs(float(sc[0, i]) - cut) > tol
+                 for i in set(qg[0].tolist()) ^ set(qc[0].tolist()))
+    _dd_gate(f"{what} query set (untied differences)", untied, 0)
+    H, W = frame.shape[-2:]
+    rows_g = model.post(lg, bg, [(H, W)]).cpu()
+    rows_c = model.post(lg.cpu(), bg.cpu(), [(H, W)])
+    row_err = float((rows_g[..., 1] - rows_c[..., 1]).abs().max())
+    _dd_gate(f"{what} post-processor scores (CPU on the card's outputs)",
+             row_err, DD_ROW_ATOL)
+    tol_row = DD_ROW_ATOL * max(1.0, float(rows_c.abs().max()))
+    _dd_gate(f"{what} post-processor rows that differ at no score tie",
+             _rows_untied(rows_g, rows_c, tol_row, DD_ROW_ATOL), 0)
+    return dict(out, query_set_equal=bool(torch.equal(qg, qc)),
+                untied=untied, post_scores_err=row_err,
+                post_rows_swapped_at_ties=int(
+                    ((rows_g - rows_c).abs().amax(-1) > tol_row).sum()))
+
+
+def _rows_untied(rows_g, rows_c, tol_row: float, tol_tie: float) -> int:
+    """Rows (B, K, 6) of the card and of the CPU on the card's inputs that
+    differ by more than tol_row where the row's score has no other within
+    tol_tie in its image: the two devices' sigmoids differ by an ulp, which
+    may swap two tied scores in the top-k's order, and nothing else may
+    differ."""
+    n = 0
+    diff = (rows_g - rows_c).abs().amax(-1) > tol_row
+    for b, i in diff.nonzero().tolist():
+        s = rows_c[b, :, 1]
+        n += int(((s - s[i]).abs() <= tol_tie).sum() < 2)
+    return n
+
+
+def _ids_xcheck(run: dict, tracker, what: str) -> dict:
+    """The CPU tracker fed the card's detections: ids and validity equal
+    to the card's in every frame."""
+    from kornia_tpu_torch.tracking.bytetrack import ByteTracker
+    bt = tracker._tracker if hasattr(tracker, "_tracker") else tracker
+    t = bt.tracker
+    cpu = ByteTracker(t.capacity, t.high, t.low, t.new, t.match_thresh,
+                      t.second_match_thresh, t.buffer, device="cpu")
+    state = cpu.init_state()
+    bad = 0
+    for d, ids, valid in zip(run["dets"], run["ids"], run["valid"]):
+        state = cpu.update(state, d)
+        _, tid, _, _, v = cpu.current_tracks(state)
+        bad += int(not (torch.equal(v, valid) and torch.equal(tid[v],
+                                                              ids[valid])))
+    _dd_gate(f"{what} frames whose ids differ", bad, 0)
+    return dict(frames=len(run["dets"]), frames_differ=bad,
+                tracks_last=int(run["valid"][-1].sum()))
+
+
+def _nms_xcheck(od, frame, what: str) -> dict:
+    """ObjectDetector on the card and its CPU twin: the NMS inputs
+    (object_inputs) within DD_NET_RTOL of their own scale; the CPU NMS on
+    the card's inputs keeps the card's set, and the detector's rows are
+    those the card's keep set gives."""
+    from kornia_tpu_torch.contrib import detection as D
+    from kornia_tpu_torch.geometry.bbox import nms
+    bg, sg, cg = object_inputs(od, frame)     # draws a lazy head first
+    cpu = D.ObjectDetector(input_size=od.input_size, device="cpu")
+    cpu.module.load_params({k: v.cpu() for k, v in
+                            od.module.named_parameters()})
+    bc, sc, _ = object_inputs(cpu, frame.cpu())
+    out = {}
+    _dd_net(out, "boxes_rel", bg, bc, f"{what} NMS boxes")
+    _dd_net(out, "scores_rel", sg, sc, f"{what} NMS scores")
+    K = min(od.max_detections, bg.shape[1])
+    kg = nms(bg[0], sg[0], od.iou_threshold, max_output=K)
+    kc = nms(bg[0].cpu(), sg[0].cpu(), od.iou_threshold, max_output=K)
+    out["keep_equal"] = bool(torch.equal(kc, kg.cpu()))
+    out["kept"] = int((kg >= 0).sum())
+    if not out["keep_equal"]:
+        fail(f"detect dense xcheck {what}: the CPU NMS on the card's "
+             f"inputs keeps another set")
+    valid, idx = kg >= 0, kg.clamp_min(0)
+    bx = bg[0][idx]
+    rows = od.filtering(torch.stack([
+        cg[0][idx].to(torch.float32), torch.where(valid, sg[0][idx], 0.0),
+        bx[:, 0], bx[:, 1], bx[:, 2] - bx[:, 0], bx[:, 3] - bx[:, 1]],
+        -1)[None])
+    out["rows_err"] = float((od(frame) - rows).abs().max())
+    _dd_gate(f"{what} the detector's rows against its keep set",
+             out["rows_err"], DD_ROW_ATOL)
+    return out
+
+
+def dd_xcheck(dev, frames, a, b, c, d, e, f, g, img) -> dict:
+    """The card against the CPU port on the same inputs and weights (see
+    the module's docstring)."""
+    from kornia_tpu_torch.contrib.detection import (EdgeDetector,
+                                                    FaceDetector)
+    from kornia_tpu_torch.models.depth_anything import DepthAnything
+    from kornia_tpu_torch.models.rrdbnet import RRDBNet
+    from kornia_tpu_torch.models.small_sr import SmallSR
+    from kornia_tpu_torch.ops.warp import resize
+    out = {"rtdetr_r18": _rtdetr_xcheck(a["model"], frames[0], "(a) RT-DETR"),
+           "tracks_a": _ids_xcheck(a, a["tracker"], "(a)"),
+           "nms_b": _nms_xcheck(b["tracker"].detector, frames[0], "(b)"),
+           "tracks_b": _ids_xcheck(b, b["tracker"], "(b)"),
+           "rtdetr_hgnet": _rtdetr_xcheck(c["model"], frames[0],
+                                          "(c) RT-DETR HGNetv2-L")}
+    # (d) faces: YuNet's outputs, then the CPU's post-processing of the
+    # card's boxes and scores
+    fd = d["fd"]
+    fc = FaceDetector(params={k: v.cpu() for k, v in fd.model.params.items()},
+                      device="cpu")
+    oc = fc.model(img.cpu())
+    face = {}
+    for k in oc:
+        _dd_net(face, k, d["out"][k], oc[k], f"(d) YuNet {k}")
+    bc, sc = face_inputs(fc, oc, DD_HW)
+    _dd_net(face, "boxes", d["boxes"], bc, "(d) face boxes")
+    _dd_net(face, "scores", d["scores"], sc, "(d) face scores")
+    rows_c = fc.postprocess_one(d["boxes"][0].cpu(), d["scores"][0].cpu())
+    face["rows_err"] = float((d["rows"].cpu() - rows_c).abs().max())
+    face["rows_kept"] = int((rows_c[:, 14] > 0).sum())
+    _dd_gate("(d) face rows (CPU on the card's inputs)", face["rows_err"],
+             DD_ROW_ATOL * max(1.0, float(rows_c.abs().max())))
+    if face["rows_kept"] == 0:
+        fail("detect dense xcheck (d): no face passed the threshold")
+    out["faces"] = face
+    # (e) edges
+    ec = EdgeDetector(params={k: v.cpu() for k, v in
+                              e["ed"].model.params.items()}, device="cpu")
+    _dd_net(out, "edges", e["edges"], ec(img.cpu()), "(e) edge map")
+    # (f) SmallSR at 480x640, RRDBNet x4plus at 64x64 with its 23 blocks
+    srm = f["sr"].model
+    src = SmallSR(params={k: v.cpu() for k, v in
+                          srm.module.named_parameters()}, device="cpu")
+    _dd_net(out, "small_sr", f["small"], src(img.cpu()), "(f) SmallSR")
+    esr = f["esr"].model
+    xs = img[..., :RRDB_XCHECK_HW[0], :RRDB_XCHECK_HW[1]].contiguous()
+    rc = RRDBNet(esr.cfg, {k: v.cpu() for k, v in esr.params.items()},
+                 device="cpu")
+    _dd_net(out, "rrdbnet", esr(xs), rc(xs.cpu()), "(f) RRDBNet x4plus")
+    # (g) depth at 266x266 with the tables drawn at 518 (37² → 19²)
+    xd = resize(img, DEPTH_XCHECK_HW)
+    out["depth"] = {}
+    for k, m in g["nets"].items():
+        mc = DepthAnything(m.cfg, {n: v.cpu() for n, v in m.params.items()},
+                           device="cpu")
+        _dd_net(out["depth"], k, m(xd), mc(xd.cpu()), f"(g) depth {k}")
+    print(f"detect dense xcheck: {out}")
+    return out
+
+
+def detect_dense_phase(K, dev) -> dict:
+    """Step 19: the detection and dense-prediction models (see the
+    module's docstring)."""
+    from kornia_tpu_torch.ops.warp import resize
+    t_phase = time.perf_counter()
+    parts = {}
+    frames, _ = dd_frames(dev)
+    img = dd_inputs(frames)
+    runs = {}
+    for key, fn in (("a", lambda: dd_rtdetr_track(dev, frames)),
+                    ("b", lambda: dd_default_track(frames)),
+                    ("c", lambda: dd_hgnet(dev, frames)),
+                    ("d", lambda: dd_faces(dev, img)),
+                    ("e", lambda: dd_edges(img)),
+                    ("f", lambda: dd_super_resolution(dev, img)),
+                    ("g", lambda: dd_depth(dev, img))):
+        t0 = time.perf_counter()
+        runs[key] = fn()
+        parts[key] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    xcheck = dd_xcheck(dev, frames, *(runs[k] for k in "abcdefg"), img)
+    parts["xcheck"] = round(time.perf_counter() - t0, 1)
+
+    # the path: one call of each part; none of the port's hand-written
+    # kernels may launch on it
+    def path():
+        runs["a"]["tracker"].update(frames[0])
+        runs["b"]["tracker"].update(frames[0])
+        runs["c"]["model"].detect(frames[0])
+        runs["d"]["fd"](img)
+        runs["e"]["ed"](img)
+        runs["f"]["sr"](img)
+        runs["f"]["esr"](img[..., :RRDB_HW[0], :RRDB_HW[1]].contiguous())
+        for m in runs["g"]["nets"].values():
+            m(resize(img, DEPTH_HW))
+
+    launches = counted_run(K, path, "detect dense", ())
+    if any(launches.values()):
+        fail(f"detect dense launched a hand-written kernel: {launches}")
+    print("detect dense kernels: none of the port's hand-written kernels "
+          "launched on the path (every counter 0)")
+    rows = {"rtdetr_track": runs["a"], "default_track": runs["b"],
+            "rtdetr_hgnet": runs["c"], "faces": runs["d"],
+            "edges": runs["e"], "super_resolution": runs["f"],
+            "depth": runs["g"]}
+    keep = ("ms", "stage_ms", "busy_ms", "busy_share", "kernels",
+            "peak_bytes", "tracks", "detections", "batch", "candidates",
+            "above_threshold", "faces", "nms_ms", "nms_busy_ms",
+            "nms_kernels", "nms_kernels_a_step", "small_shape", "big_shape",
+            "shapes")
+    out = dict(parts_ms={k: {kk: vv for kk, vv in v.items() if kk in keep}
+                         for k, v in rows.items()},
+               xcheck=xcheck, launches=launches, parts=parts,
+               seconds=time.perf_counter() - t_phase)
+    print(f"detect dense phase: {out['seconds']:.1f} s, parts {parts}")
+    print(json.dumps({"detect_dense": out}))
+    return dict(kernels={}, counts=launches, **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile-out", default=None,
@@ -7230,11 +7787,13 @@ def main() -> int:
         descriptors = descriptors_matchers_phase(K, dev)
     with f32_precision():
         families = learned_families_phase(K, dev)
+    with f32_precision():
+        detect_dense = detect_dense_phase(K, dev)
     # each kernel's launches are those of the path that runs it
     entries = [(name, r, ph["counts"]) for ph in (
         path, *phases.values(), planar, vo, learned, keynet_stereo,
         tracking_io, image_ops, registration_eval, augmentation,
-        descriptors, families)
+        descriptors, families, detect_dense)
         for name, r in ph["kernels"].items()]
     for name, _, counts in entries:
         if counts.get(name, 0) <= 0:
@@ -7332,7 +7891,11 @@ def main() -> int:
                       "learned_families_ms": {
                           k: v["ms"] for k, v in
                           families["parts_ms"].items()},
-                      "learned_families_seconds": families["seconds"]}))
+                      "learned_families_seconds": families["seconds"],
+                      "detect_dense_ms": {
+                          k: v["ms"] for k, v in
+                          detect_dense["parts_ms"].items()},
+                      "detect_dense_seconds": detect_dense["seconds"]}))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,13 @@ and DeFMO cross as their flax variables (``params`` and ``batch_stats``):
 each port module's parameter table (``feature/_nets.py``) names, for every
 checkpoint entry, the flax path it comes from (HWIO → OIHW, dense kernels
 transposed).
+
+The detection and dense-prediction models cross as their JAX parameters:
+RT-DETR, YuNet, DexiNed and RRDBNet as flat dicts under the state dict's
+names (``_from_jax_specs``: HWIO → OIHW, (in, out) → (out, in), DexiNed's
+gather convolutions back to transposed ones); SmallSR, the UNet segmentor,
+Depth Anything and the ObjectDetector's head as flax variables through
+their tables.
 """
 
 from __future__ import annotations
@@ -71,7 +78,16 @@ from .feature.xfeat import XFeat
 from .feature.xfeat import _param_rows as _xfeat_rows
 from .geometry.liegroup import Quaternion, Se3, So3
 from .geometry.registration import AdamState
+from .contrib.detection import ObjectDetector, _TinyDetHead
+from .models import dexined as _dexined
+from .models import rrdbnet as _rrdbnet
+from .models import rt_detr as _rt_detr
+from .models import yunet as _yunet
+from .models.depth_anything import (DepthAnything, DepthAnythingConfig,
+                                    _param_rows as _depth_anything_rows)
 from .models.diffusion import DiffusionConfig, StableDiffusionDissolving
+from .models.small_sr import (SmallSR, UNetSegmentor, _SmallSRModule,
+                              _UNetModule)
 from .slam.ba import BAProblem, BAState
 from .slam.posegraph import PoseGraph
 from .tracking.bytetrack import TrackState
@@ -85,7 +101,11 @@ __all__ = ["registration_state_from_numpy", "kmeans_from_numpy",
            "loftr_from_numpy", "track_state_from_numpy",
            "aug_params_from_numpy", "diffusion_from_numpy",
            "xfeat_from_numpy", "aliked_from_numpy", "dinov2_from_numpy",
-           "dedode_from_numpy", "sold2_from_numpy", "defmo_from_numpy"]
+           "dedode_from_numpy", "sold2_from_numpy", "defmo_from_numpy",
+           "rtdetr_from_numpy", "yunet_from_numpy", "dexined_from_numpy",
+           "rrdbnet_from_numpy", "small_sr_from_numpy",
+           "unet_segmentor_from_numpy", "depth_anything_from_numpy",
+           "object_detector_from_numpy"]
 
 Device = Union[str, torch.device]
 
@@ -448,3 +468,108 @@ def diffusion_from_numpy(params: Mapping[str, Any],
     cfg = cfg or DiffusionConfig()
     return StableDiffusionDissolving(cfg, _diffusion_state(params, cfg),
                                      device=device)
+
+
+# -- the detection and dense-prediction models ---------------------------------
+
+# a JAX flat dict's kind → the transform into torch's layout
+_FROM_JAX = {
+    "conv": lambda v: v.transpose(3, 2, 0, 1),       # HWIO → OIHW
+    "conv_w": lambda v: v.transpose(3, 2, 0, 1),
+    "dw_w": lambda v: v.transpose(3, 2, 0, 1),
+    "lin": lambda v: v.T,                            # (in, out) → (out, in)
+    # DexiNed's transposed convolutions, held as the equivalent gather
+    # convolution (HWIO, kernel flipped) → ConvTranspose2d's (in, out, k, k)
+    "convT_w": lambda v: v[::-1, ::-1].transpose(2, 3, 0, 1),
+}
+
+
+def _from_jax_specs(specs: Mapping[str, Any], params: Mapping[str, Any]
+                    ) -> dict:
+    """A JAX flat param dict → torch's layout, by its table's kinds."""
+    return {k: np.ascontiguousarray(_FROM_JAX.get(kind, lambda a: a)(
+        np.asarray(params[k], np.float32))) for k, (kind, _) in specs.items()}
+
+
+def rtdetr_from_numpy(params: Mapping[str, Any],
+                      cfg: Optional["_rt_detr.RTDETRConfig"] = None,
+                      device: Device = "cuda") -> "_rt_detr.RTDETR":
+    """The JAX RT-DETR's param dict (HWIO convolutions, (in, out)
+    linears) → RTDETR."""
+    cfg = cfg or _rt_detr.RTDETRConfig()
+    return _rt_detr.RTDETR(cfg, _from_jax_specs(_rt_detr._param_specs(cfg),
+                                                params), device=device)
+
+
+def yunet_from_numpy(params: Mapping[str, Any], device: Device = "cuda",
+                     phase: str = "test") -> "_yunet.YuNet":
+    """The JAX YuNet's param dict → YuNet."""
+    return _yunet.YuNet(_from_jax_specs(_yunet._param_specs(), params),
+                        phase=phase, device=device)
+
+
+def dexined_from_numpy(params: Mapping[str, Any],
+                       device: Device = "cuda") -> "_dexined.DexiNed":
+    """The JAX DexiNed's param dict (the transposed convolutions as gather
+    convolutions) → DexiNed."""
+    return _dexined.DexiNed(_from_jax_specs(_dexined._param_specs(), params),
+                            device=device)
+
+
+def rrdbnet_from_numpy(params: Mapping[str, Any],
+                       cfg: Optional["_rrdbnet.RRDBNetConfig"] = None,
+                       device: Device = "cuda") -> "_rrdbnet.RRDBNet":
+    """The JAX RRDBNet's param dict → RRDBNet."""
+    cfg = cfg or _rrdbnet.RRDBNetConfig()
+    return _rrdbnet.RRDBNet(cfg, _from_jax_specs(_rrdbnet._param_specs(cfg),
+                                                 params), device=device)
+
+
+def _params_of(variables: Mapping[str, Any]) -> Mapping[str, Any]:
+    """A flax variable tree with its "params" level."""
+    return variables if "params" in variables else {"params": variables}
+
+
+def small_sr_from_numpy(variables: Mapping[str, Any], scale: int = 2,
+                        device: Device = "cuda") -> SmallSR:
+    """The JAX SmallSR's flax variables → SmallSR."""
+    v = _params_of(variables)
+    cin = int(np.shape(v["params"]["Conv_0"]["kernel"])[2])
+    rows = _SmallSRModule(scale, device=device)._rows(cin)
+    return SmallSR(scale, params=_nets.from_flax(rows, v), device=device)
+
+
+def unet_segmentor_from_numpy(variables: Mapping[str, Any],
+                              num_classes: int = 21,
+                              device: Device = "cuda") -> UNetSegmentor:
+    """The JAX UNetSegmentor's flax variables → UNetSegmentor."""
+    v = _params_of(variables)
+    cin = int(np.shape(v["params"]["Conv_0"]["kernel"])[2])
+    rows = _UNetModule(num_classes, device=device)._rows(cin)
+    return UNetSegmentor(num_classes, params=_nets.from_flax(rows, v),
+                         device=device)
+
+
+def depth_anything_from_numpy(variables: Mapping[str, Any],
+                              cfg: Optional[DepthAnythingConfig] = None,
+                              device: Device = "cuda") -> DepthAnything:
+    """The JAX DepthAnythingNet's flax variables → DepthAnything (its
+    position table keeps its size)."""
+    cfg = cfg or DepthAnythingConfig()
+    v = _params_of(variables)
+    n_pos = int(np.shape(v["params"]["pos_embed"])[0])
+    return DepthAnything(cfg, _nets.from_flax(
+        _depth_anything_rows(cfg, n_pos), v), device=device)
+
+
+def object_detector_from_numpy(variables: Mapping[str, Any],
+                               device: Device = "cuda",
+                               **kw) -> ObjectDetector:
+    """The flax variables of the JAX ObjectDetector's default head
+    (``_TinyDetHead``) → ObjectDetector; `kw`: its other arguments
+    (num_classes, input_size, confidence, ...)."""
+    v = _params_of(variables)
+    cin = int(np.shape(v["params"]["Conv_0"]["kernel"])[2])
+    rows = _TinyDetHead(kw.get("num_classes", 80), device=device)._rows(cin)
+    return ObjectDetector(params=_nets.from_flax(rows, v), device=device,
+                          **kw)

@@ -1,5 +1,5 @@
 """Parameter tables of the learned families (XFeat, ALIKED, DINOv2,
-DeDoDe, SOLD2, DeFMO).
+DeDoDe, SOLD2, DeFMO) and of the models of ``models/``.
 
 A family's net is described once, as a list of rows ``(name, shape, path,
 kind)``: the reference checkpoint's name of a tensor, its shape in the
@@ -26,11 +26,18 @@ from .hardnet import _numpy, _register_tree
 Row = Tuple[str, Tuple[int, ...], Tuple[str, ...], str]
 
 # kind → the transform of the flax array into the torch layout; the other
-# kinds ("vec", "token", XFeat's "linear") cross as they are
+# kinds ("vec", "token", XFeat's "linear", a transposed convolution that
+# flax holds in torch's layout, "convT") cross as they are
 _FROM_FLAX = {
     "conv": lambda v: v.transpose(3, 2, 0, 1),       # HWIO → OIHW
     "dense": lambda v: v.T,                          # (in, out) → (out, in)
     "dense1x1": lambda v: v.T[:, :, None, None],     # → a 1x1 convolution
+    # flax attention's DenseGeneral kernels: (in, heads, head_dim) →
+    # (heads·head_dim, in), (heads, head_dim, out) → (out, heads·head_dim),
+    # and their (heads, head_dim) biases flattened
+    "heads_in": lambda v: v.reshape(v.shape[0], -1).T,
+    "heads_out": lambda v: v.reshape(-1, v.shape[-1]).T,
+    "flat": lambda v: v.reshape(-1),
 }
 
 
@@ -75,7 +82,8 @@ def init_params(rows: Sequence[Row], generator: torch.Generator,
                 ) -> Dict[str, torch.Tensor]:
     """Seeded parameters in the order of the rows, drawn from a CPU
     `generator`: weights normal with variance gain / fan-in (flax's LeCun
-    normal at 1, He's at 2), scales and LayerScales one, biases and running
+    normal at 1, He's at 2; the fan-in is the product of the torch shape
+    after its first axis), scales and LayerScales one, biases and running
     means zero,
     running variances one, class and position tokens normal(0, 0.02). A
     torch generator cannot reproduce ``jax.random``: the values differ from
@@ -85,7 +93,7 @@ def init_params(rows: Sequence[Row], generator: torch.Generator,
         leaf = name.rsplit(".", 1)[-1]
         if kind == "token":
             v = torch.randn(shape, generator=generator, dtype=dtype) * 0.02
-        elif kind == "vec":
+        elif kind in ("vec", "flat"):
             one = leaf in ("running_var", "weight", "gamma")
             v = (torch.ones if one else torch.zeros)(shape, dtype=dtype)
         else:
@@ -135,6 +143,17 @@ def conv(p: Mapping, name: str, x: torch.Tensor, stride: int = 1,
     ``name.bias``."""
     return F.conv2d(x, p[f"{name}.weight"], p.get(f"{name}.bias"), stride,
                     padding, 1, groups)
+
+
+def bn_folded(p: Mapping, name: str, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Batch norm with running statistics folded into one scale and
+    shift, x · scale + (bias - mean · scale), as the YuNet and DexiNed
+    references round it."""
+    scale = p[f"{name}.weight"] * torch.rsqrt(p[f"{name}.running_var"]
+                                              + eps)
+    shift = p[f"{name}.bias"] - p[f"{name}.running_mean"] * scale
+    return x * scale[:, None, None] + shift[:, None, None]
 
 
 def bn(p: Mapping, name: str, x: torch.Tensor,

@@ -28,7 +28,7 @@ from ..core.check import check
 from ..core.dtype import as_float, true_div
 from ..core.grid import linspace
 from ..core.linalg import f32_matmul_precision
-from .common import nchw_to_nhwc, nhwc_to_nchw
+from .common import nchw_to_nhwc, nhwc_to_nchw, same_conv
 
 __all__ = ["DDIMSchedule", "AutoencoderKL", "UNet2dCondition",
            "StableDiffusionDissolving", "DiffusionConfig"]
@@ -99,13 +99,6 @@ def _zeros(n: int) -> nn.Parameter:
     return nn.Parameter(torch.zeros(n), requires_grad=False)
 
 
-def _same_pads(size: int, k: int, s: int):
-    """flax 'SAME' padding (lo, hi) of one axis."""
-    out = -(-size // s)
-    pad = max((out - 1) * s + k - size, 0)
-    return pad // 2, pad - pad // 2
-
-
 class _Conv(nn.Module):
     """flax nn.Conv: 'SAME' padding (asymmetric at stride 2), bias."""
 
@@ -117,13 +110,7 @@ class _Conv(nn.Module):
         self.bias = _zeros(cout)
 
     def forward(self, x):
-        k = self.weight.shape[-1]
-        (t, b), (l, r) = (_same_pads(n, k, self.stride)
-                          for n in x.shape[-2:])
-        if t == b and l == r:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (t, l))
-        return F.conv2d(F.pad(x, (l, r, t, b)), self.weight, self.bias,
-                        self.stride)
+        return same_conv(x, self.weight, self.bias, self.stride)
 
 
 class _ConvT(nn.Module):

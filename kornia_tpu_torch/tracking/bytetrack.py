@@ -267,19 +267,19 @@ class BoxTracker:
     detector and advances the tracker; returns (boxes (T, 4) xyxy, ids
     (T,), scores (T,), cls (T,), valid (T,)).
 
-    `detector` maps the image to padded detections (1, N, 6). The
-    reference's default detector (an RT-DETR) is not ported yet.
+    `detector` maps the image to padded detections (1, N, 6) rows (class,
+    score, x, y, w, h); without one, ``contrib.detection.ObjectDetector()``
+    (its single-level head at 320 px, seeded weights) on `device`.
     """
 
     def __init__(self, detector: Optional[Callable] = None,
-                 tracker: Optional[ByteTracker] = None):
+                 tracker: Optional[ByteTracker] = None,
+                 device: Device = "cuda"):
         if detector is None:
-            raise NotImplementedError(
-                "BoxTracker's default detector (contrib.detection's "
-                "ObjectDetector, an RT-DETR) waits for ROADMAP Queue 1 "
-                "item 6; pass a detector")
+            from ..contrib.detection import ObjectDetector
+            detector = ObjectDetector(device=device)
         self.detector = detector
-        self.tracker = tracker or ByteTracker()
+        self.tracker = tracker or ByteTracker(device=device)
         self.state = self.tracker.init_state()
         self.frame_count = 0
 

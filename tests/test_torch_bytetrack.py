@@ -269,9 +269,17 @@ def test_boxtracker_facade():
     assert bt.frame_count == 0 and int(bt.state.alive.sum()) == 0
 
 
-def test_boxtracker_default_detector_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tbt.BoxTracker()
+def test_boxtracker_default_detector_is_object_detector():
+    """The default detector is contrib's ObjectDetector on
+    the tracker's device: the card unless the CPU is asked for (with no
+    card, torch raises)."""
+    from kornia_tpu_torch.contrib.detection import ObjectDetector
+    bt = tbt.BoxTracker(device="cpu")
+    assert isinstance(bt.detector, ObjectDetector)
+    assert bt.tracker.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            tbt.BoxTracker()
 
 
 def test_boxtracker_visualize_matches_the_reference():

@@ -23,6 +23,7 @@ from kornia_tpu_torch.losses import losses as t_losses
 from kornia_tpu_torch.ops import filters as t_filters
 from kornia_tpu_torch.ops import kernels as K
 from kornia_tpu_torch.ops import pyramid as t_pyr
+from tests.torch_unit_scale import rrdbnet_unit_scale, yunet_unit_scale
 
 pytestmark = pytest.mark.cuda
 
@@ -1907,3 +1908,133 @@ def test_cuda_defmo_matches_cpu(cuda_device):
         36))
     _close(DeFMO(4, device=cuda_device)(x.to(cuda_device)),
            DeFMO(4, device="cpu")(x))
+
+
+# --- detection and dense-prediction models, contrib's detectors ------------------
+
+def test_cuda_default_detectors_build_with_no_arguments(cuda_device):
+    from kornia_tpu_torch.contrib import BoxMotTracker, SuperResolution
+    from kornia_tpu_torch.contrib.detection import (EdgeDetector,
+                                                    FaceDetector,
+                                                    ObjectDetector)
+    from kornia_tpu_torch.tracking.bytetrack import BoxTracker
+    for tracker in (BoxTracker(), BoxMotTracker()._tracker):
+        assert isinstance(tracker.detector, ObjectDetector)
+        assert tracker.state.alive.device.type == "cuda"
+    for det in (FaceDetector(), EdgeDetector()):
+        assert next(det.model.parameters()).device.type == "cuda"
+    img = torch.rand((1, 3, 48, 64), device=cuda_device)
+    assert ObjectDetector()(img).device.type == "cuda"
+    assert SuperResolution()(img).shape == (1, 3, 96, 128)
+    out = BoxTracker().update(img)
+    assert out[0].device.type == "cuda"
+
+
+def _models_inputs(seed, shape):
+    return torch.rand(shape, generator=torch.Generator().manual_seed(seed))
+
+
+def _close_own(card, cpu, rtol=1e-4):
+    """card within rtol of the largest |cpu| (the output's own scale)."""
+    scale = float(cpu.abs().max())
+    assert scale > 0, "an all-zero reference holds nothing"
+    torch.testing.assert_close(card.detach().cpu(), cpu, rtol=0,
+                               atol=rtol * scale)
+
+
+def test_cuda_rtdetr_matches_cpu(cuda_device):
+    """The encoder's class maxima within 1e-4; the query sets equal but at
+    near ties (seeded weights put many near the cut); the CPU decoder run
+    from the card's queries gives the card's logits and boxes within 1e-4;
+    the CPU post-processor on the card's outputs gives the card's rows,
+    but two swapped at a score tie."""
+    from kornia_tpu_torch.models import rt_detr as R
+    stages = (R.HGNetStageConfig(16, 16, 32, 1, False, False, 3, 2),
+              R.HGNetStageConfig(32, 16, 48, 1, True, False, 3, 2),
+              R.HGNetStageConfig(48, 24, 64, 2, True, True, 5, 2),
+              R.HGNetStageConfig(64, 32, 96, 1, True, True, 5, 2))
+    x = _models_inputs(40, (2, 3, 96, 128))
+    for cfg in (R.RTDETRConfig(input_size=128),
+                R.RTDETRConfig("hgnetv2_l", hgnet_stem=[3, 8, 16],
+                               hgnet_stages=stages, input_size=96)):
+        mc, mg = R.RTDETR(cfg, device="cpu"), R.RTDETR(cfg,
+                                                       device=cuda_device)
+        with torch.inference_mode():
+            lg, bg, sg, qg = R._forward(mg.params, cfg, x.to(cuda_device))
+            lc, bc, sc, qc = R._forward(mc.params, cfg, x, qg.cpu())
+        _close_own(sg, sc, 1e-4)
+        tol = 1e-4 * float(sc.abs().max())
+        for b in range(x.shape[0]):
+            cut = float(sc[b, qc[b, -1]])
+            for i in set(qg[b].tolist()) ^ set(qc[b].tolist()):
+                assert abs(float(sc[b, i]) - cut) <= tol, (b, i)
+        _close_own(lg, lc, 1e-4)
+        _close_own(bg, bc, 1e-4)
+        rg = mg.post(lg, bg, [(96, 128)] * 2).cpu()
+        rc = mg.post(lg.cpu(), bg.cpu(), [(96, 128)] * 2)
+        _close(rg[..., 1], rc[..., 1], 1e-5)
+        # the sigmoids differ by an ulp: two tied scores may swap rows
+        for b, i in ((rg - rc).abs().amax(-1) > 1e-3).nonzero().tolist():
+            s = rc[b, :, 1]
+            assert int(((s - s[i]).abs() <= 1e-5).sum()) >= 2, (b, i)
+
+
+def test_cuda_yunet_dexined_rrdbnet_match_cpu(cuda_device):
+    """Each output within 1e-4 of its own largest |value|; YuNet and
+    RRDBNet take weights rescaled to O(1) outputs
+    (``tests/torch_unit_scale.py``)."""
+    from kornia_tpu_torch.models.dexined import DexiNed
+    from kornia_tpu_torch.models.rrdbnet import RRDBNet, RRDBNetConfig
+    from kornia_tpu_torch.models.yunet import YuNet
+    x = _models_inputs(41, (1, 3, 64, 80))
+    yp = yunet_unit_scale(YuNet(device="cpu").params)
+    oc = YuNet(yp, device="cpu")(x)
+    og = YuNet(yp, device=cuda_device)(x.to(cuda_device))
+    for k in oc:
+        _close_own(og[k], oc[k], 1e-4)
+    _close_own(DexiNed(device=cuda_device)(x.to(cuda_device)),
+               DexiNed(device="cpu")(x), 1e-4)
+    cfg = RRDBNetConfig(num_block=2, scale=2)
+    rp = rrdbnet_unit_scale(RRDBNet(cfg, device="cpu").params)
+    rc = RRDBNet(cfg, rp, device="cpu")(x[..., :32, :32])
+    _close_own(RRDBNet(cfg, rp, device=cuda_device)(x[..., :32, :32].to(
+        cuda_device)), rc, 1e-4)
+
+
+def test_cuda_small_sr_unet_depth_anything_match_cpu(cuda_device):
+    from kornia_tpu_torch.models.depth_anything import (DepthAnything,
+                                                        DepthAnythingConfig)
+    from kornia_tpu_torch.models.small_sr import SmallSR, UNetSegmentor
+    x = _models_inputs(42, (1, 3, 48, 64))
+    _close(SmallSR(device=cuda_device)(x.to(cuda_device)),
+           SmallSR(device="cpu")(x), 1e-4)
+    _close(UNetSegmentor(device=cuda_device)(x.to(cuda_device)),
+           UNetSegmentor(device="cpu")(x), 1e-4)
+    cfg = DepthAnythingConfig.tiny()
+    dg, dc = DepthAnything(cfg, device=cuda_device), DepthAnything(
+        cfg, device="cpu")
+    dg(torch.zeros((1, 3, 64, 64), device=cuda_device))  # an 8x8 table
+    dc.model.load_params({k: v.cpu() for k, v in dg.params.items()})
+    _close(dg(x.to(cuda_device)), dc(x), 1e-4)           # resized to 6x8
+
+
+def test_cuda_contrib_detectors_match_cpu(cuda_device):
+    from kornia_tpu_torch.contrib.detection import (EdgeDetector,
+                                                    FaceDetector,
+                                                    ObjectDetector)
+    x = _models_inputs(43, (2, 3, 96, 128))
+    yp = yunet_unit_scale(FaceDetector(device="cpu").model.params)
+    fc = FaceDetector(keep_top_k=50, params=yp, device="cpu")(x)
+    fg = FaceDetector(keep_top_k=50, params=yp, device=cuda_device)(
+        x.to(cuda_device))
+    for a, b in zip(fg, fc):
+        assert int((b.score > 0).sum()) > 0
+        assert torch.equal(a.score.cpu() > 0, b.score > 0)
+        _close_own(a.data, b.data, 1e-4)
+    oc = ObjectDetector(input_size=64, device="cpu")(x)
+    og = ObjectDetector(input_size=64, device=cuda_device)(x.to(cuda_device))
+    assert torch.equal(og[..., 0].cpu(), oc[..., 0])
+    _close(og, oc, 1e-3)
+    _close(EdgeDetector(image_size=64, device=cuda_device)(
+        x.to(cuda_device)), EdgeDetector(image_size=64, device="cpu")(x),
+        1e-4)

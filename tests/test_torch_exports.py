@@ -29,11 +29,7 @@ STILL_TO_PORT = {
         "get_cuda_device_if_available", "get_mps_device_if_available",
         "get_cuda_or_mps_device_if_available",
     },
-    "contrib": {
-        # contrib/detection.py, contrib/visual_prompter.py
-        "BoxFiltering", "EdgeDetector", "FaceDetector", "FaceDetectorResult",
-        "FaceKeypoint", "ObjectDetector", "SuperResolution", "detection",
-    },
+    "contrib": set(),
     "core": {
         # core/{wrapper,rng,export_mixin}.py, core/module.py's classes
         "ImageModule", "ImageModuleMixIn", "ImageSequential",
@@ -42,26 +38,20 @@ STILL_TO_PORT = {
         "unwrap", "wrap", "wrapper",
     },
     "models": {
-        # every model family but the diffusion model and common.py
-        "ConvNormAct", "DETRPostProcessor", "DecoderConfig", "DecoderLM",
-        "DepthAnything", "DepthAnythingConfig", "DepthAnythingNet",
-        "DexiNed", "DropPath", "EfficientViT", "EfficientViTConfig",
-        "ImageEncoderHiera", "KimiVLConfig", "KimiVLModel", "LayerNorm2d",
-        "MLP", "MaskDecoder3", "MobileViT", "MoonViTConfig", "NaFlex",
-        "PaliGemma", "PaliGemmaConfig", "PromptEncoder3", "Prompts",
-        "Qwen2VLConfig", "Qwen2VLVisionTransformer", "RRDBNet",
-        "RRDBNetBuilder", "RRDBNetConfig", "RTDETR", "RTDETRConfig", "Sam",
-        "Sam3", "SamConfig", "SegmentationResults", "SigLip2",
-        "SigLip2Config", "SigLip2Exact", "SigLip2ExactConfig",
-        "SigLip2Model", "SigLip2TextConfig", "SigLip2TextTower",
-        "SigLip2VisionConfig", "SigLip2VisionTower", "SmallSR", "SmolVLM2",
-        "TinyViT", "TinyViTConfig", "TransformerEncoderLayer",
-        "UNetSegmentor", "VLM", "VLMConfig", "VLMModel", "ViTConfig",
-        "VisionTransformer", "VisualPrompter", "YuNet", "depth_anything",
-        "dexined", "efficient_vit", "kimi_vl", "mobile_vit", "paligemma",
-        "qwen2_vl", "rrdbnet", "rt_detr", "sam", "sam3", "siglip2",
-        "siglip2_exact", "siglip_loss", "small_sr",
-        "smolvlm2", "structures", "tiny_vit", "vit", "vlm", "yunet",
+        # the SAM family, the ViT backbones and the vision-language models
+        "DecoderConfig", "DecoderLM", "EfficientViT", "EfficientViTConfig",
+        "ImageEncoderHiera", "KimiVLConfig", "KimiVLModel", "MaskDecoder3",
+        "MobileViT", "MoonViTConfig", "NaFlex", "PaliGemma",
+        "PaliGemmaConfig", "PromptEncoder3", "Prompts", "Qwen2VLConfig",
+        "Qwen2VLVisionTransformer", "Sam", "Sam3", "SamConfig",
+        "SegmentationResults", "SigLip2", "SigLip2Config", "SigLip2Exact",
+        "SigLip2ExactConfig", "SigLip2Model", "SigLip2TextConfig",
+        "SigLip2TextTower", "SigLip2VisionConfig", "SigLip2VisionTower",
+        "SmolVLM2", "TinyViT", "TinyViTConfig", "VLM", "VLMConfig",
+        "VLMModel", "ViTConfig", "VisionTransformer", "VisualPrompter",
+        "efficient_vit", "kimi_vl", "mobile_vit", "paligemma", "qwen2_vl",
+        "sam", "sam3", "siglip2", "siglip2_exact", "siglip_loss", "smolvlm2",
+        "structures", "tiny_vit", "vit", "vlm",
     },
     "utils": {
         # utils/{compile_cache,debug,export}.py

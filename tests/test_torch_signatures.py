@@ -83,7 +83,7 @@ def test_the_twins_are_found():
     """The walk reaches every ported module with a twin, this slice's
     included."""
     ids = {p.id for p in _twins()}
-    assert len(ids) >= 840
+    assert len(ids) >= 883
     for name in ("ops.warp.resize", "ops.filters.spatial_gradient",
                  "feature.descriptors.TFeat", "feature.descriptors.HyNet",
                  "feature.descriptors.LAFAffineShapeEstimator",
@@ -181,5 +181,16 @@ def test_the_twins_are_found():
                  "feature.sold2.refine_segments_perturb",
                  "feature.defmo.DeFMO", "feature.defmo.RenderingDeFMO",
                  "feature.extras.XFeatModel",
-                 "feature.extras.InterpolateSparse2d"):
+                 "feature.extras.InterpolateSparse2d",
+                 "models.common.ConvNormAct",
+                 "models.common.TransformerEncoderLayer",
+                 "models.rt_detr.RTDETR", "models.rt_detr.DETRPostProcessor",
+                 "models.yunet.prior_boxes", "models.yunet.decode",
+                 "models.dexined.DexiNed", "models.rrdbnet.RRDBNetBuilder",
+                 "models.small_sr.SmallSR", "models.small_sr.UNetSegmentor",
+                 "models.depth_anything.DepthAnything",
+                 "contrib.detection.ObjectDetector",
+                 "contrib.detection.FaceDetector",
+                 "contrib.detection.EdgeDetector", "contrib.SuperResolution",
+                 "tracking.bytetrack.BoxTracker"):
         assert name in ids

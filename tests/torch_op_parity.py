@@ -278,6 +278,106 @@ def _threefry2x32(key, x0, x1):
     return np.array(x, np.uint32)
 
 
+def _threefry_blocks(key, n: int):
+    """threefry2x32 of `key` on the counters (0, i), i < n: the two output
+    words, in place on cache-sized chunks."""
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = [k0, k1, np.uint32(k0 ^ k1 ^ np.uint32(0x1BD11BDA))]
+    rot = [(13, 15, 26, 6), (17, 29, 16, 24)]
+    out0, out1 = np.empty(n, np.uint32), np.empty(n, np.uint32)
+    step = 1 << 15
+    tmp = np.empty(step, np.uint32)
+    for s0 in range(0, n, step):
+        a = np.full(min(step, n - s0), ks[0], np.uint32)
+        b = np.arange(s0, s0 + a.size, dtype=np.uint32)
+        b += ks[1]
+        t = tmp[:a.size]
+        for i in range(5):
+            for r in rot[i % 2]:
+                a += b
+                np.left_shift(b, np.uint32(r), out=t)
+                b >>= np.uint32(32 - r)
+                b |= t
+                b ^= a
+            a += ks[(i + 1) % 3]
+            b += np.uint32(ks[(i + 2) % 3] + np.uint32(i + 1))
+        out0[s0:s0 + a.size], out1[s0:s0 + a.size] = a, b
+    return out0, out1
+
+
+def _np_bits(key, shape) -> np.ndarray:
+    """``jax.random.bits(key, shape)`` (uint32, threefry with the
+    partitionable counters, JAX's default) in numpy."""
+    b0, b1 = _threefry_blocks(np.asarray(key),
+                              int(np.prod(shape, dtype=np.int64)))
+    b0 ^= b1
+    return b0.reshape(shape)
+
+
+def _np_split(key, num: int = 2) -> np.ndarray:
+    b = _threefry2x32(np.asarray(key), np.zeros(num, np.uint32),
+                      np.arange(num, dtype=np.uint32))
+    return np.stack([b[0], b[1]], -1)
+
+
+def _np_uniform(key, shape=(), dtype=np.float32, minval=0.0, maxval=1.0):
+    dt = np.dtype(dtype)
+    lo, hi = dt.type(minval), dt.type(maxval)
+    bits = (_np_bits(key, tuple(shape)) >> np.uint32(9)) \
+        | np.array(1.0, np.float32).view(np.uint32)
+    floats = bits.view(np.float32) - np.float32(1.0)
+    return np.maximum(lo, floats * (hi - lo) + lo).astype(dt)
+
+
+def _np_normal(key, shape=(), dtype=np.float32):
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = _np_uniform(key, shape, np.float32, lo, 1.0)
+    e = torch.erfinv(torch.from_numpy(u)).numpy()
+    return (np.float32(np.sqrt(2)) * e).astype(np.dtype(dtype))
+
+
+class numpy_random:
+    """Within the block, ``jax.random.split``, ``normal`` and ``uniform``
+    are numpy replays of JAX's (threefry2x32 with the partitionable
+    counters; float32 uniforms from the top 23 bits; the normal's erfinv
+    torch's, a few ulps from XLA's). A reference init that
+    draws with them (``rtdetr_init_params``, ...) runs on the host with no
+    compile; ``check()`` holds the replay to ``jax.random`` on small
+    draws."""
+
+    NAMES = ("split", "normal", "uniform")
+
+    def __enter__(self):
+        import jax
+        self._saved = {n: getattr(jax.random, n) for n in self.NAMES}
+        jax.random.split = _np_split
+        jax.random.normal = _np_normal
+        jax.random.uniform = _np_uniform
+        return self
+
+    def __exit__(self, *exc):
+        import jax
+        for n, f in self._saved.items():
+            setattr(jax.random, n, f)
+
+    @staticmethod
+    def check() -> None:
+        import jax
+        assert jax.config.jax_threefry_partitionable
+        key = jax.random.PRNGKey(3)
+        np.testing.assert_array_equal(_np_split(np.asarray(key)),
+                                      np.asarray(jax.random.split(key)))
+        # XLA fuses the uniform's scale and shift (one rounding, not two)
+        np.testing.assert_allclose(
+            _np_uniform(np.asarray(key), (5, 7), np.float32, -0.3, 0.3),
+            np.asarray(jax.random.uniform(key, (5, 7), jnp.float32, -0.3,
+                                          0.3)), rtol=0, atol=6e-8)
+        np.testing.assert_allclose(
+            _np_normal(np.asarray(key), (5, 7)),
+            np.asarray(jax.random.normal(key, (5, 7))), rtol=1e-6,
+            atol=1e-6)
+
+
 def _check_flax_internals() -> None:
     """flax_init_program patches flax.core.scope's Scope.param,
     Scope.variable, random.fold_in and jnp, and computes the fold-ins with
